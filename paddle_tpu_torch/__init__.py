@@ -1,0 +1,18 @@
+"""paddle_tpu_torch — the PyTorch and CUDA port of paddle_tpu for the H100.
+
+The package mirrors paddle_tpu's layout so each counterpart sits at the
+same path, in PyTorch idiom: ``nn.Module``s and plain functions on
+``torch.Tensor``, an explicit ``device`` argument, explicit
+``torch.Generator``s for sampling.  The TPU's Pallas kernels become
+kernels written by hand for Hopper (``ops``), each beside a plain
+PyTorch version that the CPU tests hold against the JAX package.
+
+It imports neither JAX nor anything of paddle_tpu.  Entry points
+(``models.LlamaForCausalLM``, ``serving.GenerationEngine``) run on the
+CUDA card unless the caller passes ``device="cpu"``.
+"""
+
+from . import _core, convert, models, nn, ops, serving  # noqa: F401
+from ._core.flags import get_flags, set_flags  # noqa: F401
+
+__version__ = "0.1.0"

@@ -1,0 +1,126 @@
+"""The port stands alone: no JAX, no paddle_tpu, no library kernels.
+
+- importing paddle_tpu_torch loads neither jax nor any paddle_tpu module;
+- no module of the package imports them (AST scan);
+- the package never calls torch's scaled_dot_product_attention or
+  rms_norm, nor torch.compile (AST scan, and a CPU run with those
+  entry points made to raise);
+- the entry points default to the CUDA card and raise without one.
+"""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PKG = ROOT / "paddle_tpu_torch"
+FORBIDDEN_CALLS = {"scaled_dot_product_attention", "rms_norm"}
+
+
+def _sources():
+    files = sorted(PKG.rglob("*.py"))
+    assert len(files) > 10
+    return [(f, ast.parse(f.read_text(), filename=str(f))) for f in files]
+
+
+def _is_reference(module: str) -> bool:
+    top = module.split(".")[0]
+    return top in ("jax", "jaxlib", "paddle_tpu")
+
+
+def test_import_loads_no_jax_and_no_paddle_tpu():
+    code = ("import sys, paddle_tpu_torch, paddle_tpu_torch.serving, paddle_tpu_torch.convert;"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'paddle_tpu'));"
+            "print(bad); sys.exit(1 if bad else 0)")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_no_module_imports_the_reference():
+    for path, tree in _sources():
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            assert not any(_is_reference(n) for n in names), (path, names)
+
+
+def _dotted(node):
+    parts = []
+    while isinstance(node, ast.Attribute):
+        parts.append(node.attr)
+        node = node.value
+    if isinstance(node, ast.Name):
+        parts.append(node.id)
+        return ".".join(reversed(parts))
+    return None
+
+
+def test_no_library_attention_norm_or_compile():
+    for path, tree in _sources():
+        torch_f_aliases = {"torch.nn.functional"}
+        for node in ast.walk(tree):
+            if isinstance(node, ast.ImportFrom) and node.module in ("torch.nn.functional",
+                                                                    "torch"):
+                bad = {a.name for a in node.names} & (FORBIDDEN_CALLS | {"compile"})
+                assert not bad, (path, bad)
+            if isinstance(node, ast.ImportFrom) and node.module == "torch.nn":
+                torch_f_aliases |= {a.asname or a.name for a in node.names
+                                    if a.name == "functional"}
+            if isinstance(node, ast.Import):
+                torch_f_aliases |= {a.asname for a in node.names
+                                    if a.name == "torch.nn.functional" and a.asname}
+        for node in ast.walk(tree):
+            name = _dotted(node) if isinstance(node, ast.Attribute) else None
+            if name is None:
+                continue
+            head, _, attr = name.rpartition(".")
+            assert not (head in torch_f_aliases | {"torch"} and attr in FORBIDDEN_CALLS), \
+                (path, name)
+            assert name != "torch.compile", path
+
+
+def test_cpu_run_never_reaches_library_kernels(monkeypatch):
+    def _refuse(*args, **kwargs):
+        raise AssertionError("the port called a library kernel")
+
+    for mod, name in ((torch.nn.functional, "scaled_dot_product_attention"),
+                      (torch.nn.functional, "rms_norm"), (torch, "rms_norm"),
+                      (torch, "compile")):
+        if hasattr(mod, name):
+            monkeypatch.setattr(mod, name, _refuse)
+    from paddle_tpu_torch.models import LlamaForCausalLM, llama_tiny
+    from paddle_tpu_torch.serving import GenerationEngine
+
+    g = torch.Generator().manual_seed(0)
+    model = LlamaForCausalLM(llama_tiny(num_hidden_layers=1, dtype="float32"), device="cpu",
+                             generator=g)
+    eng = GenerationEngine(model, max_batch=2, block_size=8, num_blocks=8, device="cpu",
+                           decode_chunk=2)
+    eng.add_request("a", [1, 2, 3], max_new_tokens=4)
+    while eng.has_work():
+        eng.step()
+    assert len(eng.result("a")) == 4
+
+
+def test_entry_points_default_to_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid here")
+    from paddle_tpu_torch.models import LlamaForCausalLM, llama_tiny
+    from paddle_tpu_torch.serving import GenerationEngine
+
+    cfg = llama_tiny(num_hidden_layers=1, dtype="float32")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        LlamaForCausalLM(cfg)
+    model = LlamaForCausalLM(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        GenerationEngine(model, max_batch=1, block_size=8, num_blocks=4)

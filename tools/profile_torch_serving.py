@@ -1,0 +1,94 @@
+#!/usr/bin/env python3
+"""Where the port's serving time goes on the card.
+
+    python3 tools/profile_torch_serving.py
+
+Builds the ``chip_smoke.py`` phase-3 configuration (LLaMA-7B width, bf16,
+32 layers, batch 4), warms it up, then traces under ``torch.profiler``
+(a) the prefill of the 640-token prompt and (b) one decode ``step()`` of
+D = 8 tokens for 4 resident requests.  For each it prints one JSON line:
+wall time with and without the profiler, device kernel time and its share
+of the profiled wall time (the rest is the card waiting on the host), and
+the kernels with the most device time.  Needs one CUDA card.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def _wall(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def profile(name, fn, plain_wall_s, top=10):
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as tprofile
+
+    with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        wall = _wall(fn)
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_s = sum(e.self_device_time_total for e in kernels) / 1e6
+    kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    print(json.dumps({
+        "phase": name, "wall_s": plain_wall_s, "profiled_wall_s": wall,
+        "device_busy_s": busy_s, "device_busy_share": busy_s / wall,
+        "kernels_launched": sum(e.count for e in kernels),
+        "top_kernels": [{"name": e.key[:80], "count": e.count,
+                         "device_ms": e.self_device_time_total / 1e3} for e in kernels[:top]],
+    }), flush=True)
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("profile_torch_serving: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
+    print(card, flush=True)
+    with torch.no_grad():
+        model, engine, prompts, new = chip_smoke.build_engine()
+        longest = max(prompts.values(), key=len)
+        others = [p for p in prompts.values() if p is not longest]
+
+        def prefill_longest(tag):
+            engine.add_request(f"{tag}-long", longest, max_new_tokens=new)
+
+        for i, p in enumerate(others):  # warm every shape, then fill 3 lanes
+            engine.add_request(f"warm-{i}", p, max_new_tokens=2)
+        prefill_longest("warm")
+        while engine.has_work():
+            engine.step()
+        for i, p in enumerate(others):
+            engine.add_request(f"busy-{i}", p, max_new_tokens=new)
+        plain_prefill = _wall(lambda: prefill_longest("plain"))
+        plain_step = _wall(engine.step)
+        # the profiled pair runs on a fresh set of the same requests
+        while engine.has_work():
+            engine.step()
+        for i, p in enumerate(others):
+            engine.add_request(f"prof-{i}", p, max_new_tokens=new)
+        profile(f"prefill {len(longest)} tokens", lambda: prefill_longest("prof"), plain_prefill)
+        profile(f"decode step D={engine._effective_chunk()} batch 4", engine.step, plain_step)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
