@@ -7,13 +7,15 @@ Phases, each of which raises (exit code != 0) on failure:
 
 1. Print the card's name and power limit (nvidia-smi) and build the
    kernels from the sources in this checkout: the CUDA C++ flash-attention
-   forward with nvcc (one process per source, all started together), the
-   two Triton kernels at their first launch.
+   forward and backward with nvcc (one process per source, all started
+   together), the two Triton kernels at their first launch.
 2. Hold each kernel against its plain PyTorch version on the card at the
-   serving slice's shapes, in bf16, and time the kernel, the plain version
-   and, where one exists, the one PyTorch call that computes the same
-   function (a yardstick only: the port never calls it) with CUDA events,
-   L2 flushed before every launch.  One JSON line per kernel and shape.
+   serving and training shapes, in bf16, and time the kernel, the plain
+   version and, where one exists, the one PyTorch call that computes the
+   same function (a yardstick only: the port never calls it) with CUDA
+   events, L2 flushed before every launch.  One JSON line per kernel and
+   shape; also the plain backward of RMSNorm and SwiGLU at the training
+   shapes.
 3. Serve 4 greedy requests (prompts of 17, 128, 250 and 640 tokens, 32 new
    tokens each) through GenerationEngine on LLaMA-7B at full width, bf16,
    all 32 layers, random weights from a seeded generator, after one
@@ -21,7 +23,15 @@ Phases, each of which raises (exit code != 0) on failure:
    streams, that every kernel's launch counter grew by exactly what the
    run implies, and that the engine's first-token logits match a forward
    built only from the plain versions.  Print prefill and decode tokens/s.
-4. Print the ``kernels`` JSON line, then the result line.
+4. Train the flagship configuration of bench.py (vocab 32000, hidden
+   2048, FFN 5632, 8 layers, 16 heads, bf16) at full width and depth with
+   TrainStep and AdamW on one seeded batch of 4 x 1024 tokens: check that
+   the first step's loss and gradients match a backward through a forward
+   built only from the plain versions, then run 3 warm-up and 10 timed
+   steps, checking every step's launch counts and that the loss falls.
+   Print ms a step, tokens/s, the model-FLOP share and peak memory
+   (tools/profile_torch_training.py says where the step's time goes).
+5. Print the ``kernels`` JSON line, then the result line.
 
 The script needs the card: without CUDA, or run from a directory that
 holds nothing else of the repository, it exits with a non-zero code
@@ -30,7 +40,10 @@ before printing any result.  It imports nothing of JAX or paddle_tpu.
 
 from __future__ import annotations
 
+import gc
+import importlib
 import json
+import math
 import subprocess
 import sys
 import time
@@ -42,8 +55,13 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 BF16_TC_FLOPS = 989e12         # H100 SXM dense bf16 tensor cores
 F32_FLOPS = 67e12              # H100 SXM f32 outside the tensor cores
-TOL = 2e-2                     # bf16: one rounding of the output (and of P in flash)
+TOL = 2e-2                     # bf16: one rounding of the output (and of P in flash;
+                               # of P and dS in its backward)
 LOGITS_REL_TOL = 2e-2          # relative L2 of 32 bf16 layers, kernels vs plain versions
+LOSS_REL_TOL = 1e-3            # first training loss, kernels vs plain versions: an f32
+                               # mean over 4096 tokens of bf16 logits
+GRAD_REL_TOL = 5e-2            # relative L2 of a bf16 gradient through 8 layers, kernels
+                               # (P and dS rounded to bf16) vs plain versions (f32 inside)
 CACHE_FLUSH_BYTES = 256 << 20  # > the 50 MB L2
 SLEEP_CYCLES = 2_000_000       # about 1 ms of spinning at the H100's clock
 DEVICE = "cuda"
@@ -96,9 +114,10 @@ def check_rms_norm(timer, F):
     from paddle_tpu_torch import ops
     from paddle_tpu_torch.ops.fused_norm import rms_norm_plain
 
-    rows_list, hidden, out = (640, 1024, 4), 4096, []
+    out = []
     g = torch.Generator(device=DEVICE).manual_seed(1)
-    for rows in rows_list:
+    # serving (LLaMA-7B width: prefill, decode) first, then training
+    for rows, hidden in ((640, 4096), (1024, 4096), (4, 4096), (4096, 2048)):
         x = torch.randn(rows, hidden, generator=g, device=DEVICE).to(torch.bfloat16)
         w = (1 + 0.1 * torch.randn(hidden, generator=g, device=DEVICE)).to(torch.bfloat16)
         got = ops.fused_rms_norm(x, w, epsilon=1e-6)
@@ -122,9 +141,9 @@ def check_swiglu(timer):
     from paddle_tpu_torch import ops
     from paddle_tpu_torch.ops.swiglu import swiglu_plain
 
-    out, cols = [], 11008
+    out = []
     g = torch.Generator(device=DEVICE).manual_seed(2)
-    for rows in (640, 1024, 4):
+    for rows, cols in ((640, 11008), (1024, 11008), (4, 11008), (4096, 5632)):
         # the main path's layout: both halves of one gate_up projection
         gate_up = torch.randn(rows, 2 * cols, generator=g, device=DEVICE).to(torch.bfloat16)
         x, y = gate_up.chunk(2, dim=-1)
@@ -143,6 +162,30 @@ def check_swiglu(timer):
     return out
 
 
+def _qkv(g, bsz, sq, sk, n, nkv, h):
+    return (torch.randn(bsz, sq, n, h, generator=g, device=DEVICE).to(torch.bfloat16),
+            torch.randn(bsz, sk, nkv, h, generator=g, device=DEVICE).to(torch.bfloat16),
+            torch.randn(bsz, sk, nkv, h, generator=g, device=DEVICE).to(torch.bfloat16))
+
+
+def _library_views(q, k, v):
+    """[B, N, S, H] views for the library yardstick, K/V repeated for GQA
+    (outside any timed call)."""
+    group = q.shape[2] // k.shape[2]
+    return (q.transpose(1, 2), k.repeat_interleave(group, dim=2).transpose(1, 2),
+            v.repeat_interleave(group, dim=2).transpose(1, 2))
+
+
+def _library_sdpa(F, qt, kt, vt):
+    """torch's attention with the port's causal semantics: is_causal when
+    Sq == Sk, else an explicit bottom-right mask (torch's is top-left)."""
+    sq, sk = qt.shape[2], kt.shape[2]
+    if sq == sk:
+        return lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    mask = torch.ones(sq, sk, dtype=torch.bool, device=DEVICE).tril(sk - sq)
+    return lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+
+
 def _allowed_pairs(sq, sk, causal):
     if not causal:
         return sq * sk
@@ -154,43 +197,32 @@ def check_flash(timer, F):
     from paddle_tpu_torch import ops
     from paddle_tpu_torch.ops.flash_attention import _reference_with_lse
 
-    cases = [  # (Sq, Sk, N, Nkv): the slice's prefill shapes (the longest
-        (640, 640, 32, 32),   # prompt first), one ragged, one cross-length,
-        (128, 128, 32, 32),   # one GQA
-        (1000, 1000, 32, 32),
-        (128, 640, 32, 32),
-        (512, 512, 32, 8),
+    cases = [  # (B, Sq, Sk, N, Nkv): the serving slice's prefill shapes (the
+        (1, 640, 640, 32, 32),   # longest prompt first), one ragged, one
+        (1, 128, 128, 32, 32),   # cross-length, one GQA; then the training
+        (1, 1000, 1000, 32, 32),  # shape
+        (1, 128, 640, 32, 32),
+        (1, 512, 512, 32, 8),
+        (4, 1024, 1024, 16, 16),
     ]
     out, h = [], 128
     g = torch.Generator(device=DEVICE).manual_seed(3)
-    for sq, sk, n, nkv in cases:
-        q = torch.randn(1, sq, n, h, generator=g, device=DEVICE).to(torch.bfloat16)
-        k = torch.randn(1, sk, nkv, h, generator=g, device=DEVICE).to(torch.bfloat16)
-        v = torch.randn(1, sk, nkv, h, generator=g, device=DEVICE).to(torch.bfloat16)
+    for bsz, sq, sk, n, nkv in cases:
+        q, k, v = _qkv(g, bsz, sq, sk, n, nkv, h)
         got, lse = ops.flash_attention_fwd(q, k, v, causal=True)
         want, want_lse = _reference_with_lse(q, k, v, True, h ** -0.5)
         torch.cuda.synchronize()
         err = max_err(got, want)
+        shape = (bsz, sq, sk, n, nkv)
         check(torch.allclose(got.float(), want.float(), atol=TOL, rtol=TOL),
-              f"flash_attention {(sq, sk, n, nkv)} disagrees with its plain version: {err}")
+              f"flash_attention {shape} disagrees with its plain version: {err}")
         lse_err = max_err(lse, want_lse)
-        check(lse_err <= TOL, f"flash_attention {(sq, sk, n, nkv)}: lse off by {lse_err}")
-        # the library yardstick: [B, N, S, H] views, explicit bottom-right
-        # mask when Sq != Sk (torch's is_causal is top-left), K/V repeated
-        # for GQA outside the timed call
-        qt = q.transpose(1, 2)
-        kt = k.repeat_interleave(n // nkv, dim=2).transpose(1, 2)
-        vt = v.repeat_interleave(n // nkv, dim=2).transpose(1, 2)
-        if sq == sk:
-            def lib():
-                return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
-        else:
-            mask = torch.ones(sq, sk, dtype=torch.bool, device=DEVICE).tril(sk - sq)
-
-            def lib():
-                return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
-        nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2 + n * sq * 4
-        b_ms, b_by = bound_ms(nbytes, 4 * n * h * _allowed_pairs(sq, sk, True), BF16_TC_FLOPS)
+        check(lse_err <= TOL, f"flash_attention {shape}: lse off by {lse_err}")
+        qt, kt, vt = _library_views(q, k, v)
+        lib = _library_sdpa(F, qt, kt, vt)
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2 + bsz * n * sq * 4
+        flops = 4 * bsz * n * h * _allowed_pairs(sq, sk, True)
+        b_ms, b_by = bound_ms(nbytes, flops, BF16_TC_FLOPS)
         out.append({"check": "flash_attention_fwd", "shape": {"q": list(q.shape),
                     "kv": list(k.shape), "causal": True}, "max_abs_err": err,
                     "ms": timer(lambda: ops.flash_attention_fwd(q, k, v, causal=True)),
@@ -198,6 +230,101 @@ def check_flash(timer, F):
                                       iters=3, warmup=1),
                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": timer(lib)})
         emit(out[-1])
+    return out
+
+
+def check_flash_bwd(timer, F):
+    """The two backward kernels against the plain backward, at the training
+    shape first, then GQA, a ragged length and Sq != Sk (all causal)."""
+    from paddle_tpu_torch import ops
+
+    # the module: ops.flash_attention is the function of the same name
+    fa = importlib.import_module("paddle_tpu_torch.ops.flash_attention")
+    cases = [  # (B, Sq, Sk, N, Nkv)
+        (4, 1024, 1024, 16, 16),
+        (2, 1024, 1024, 16, 4),
+        (2, 1000, 1000, 16, 16),
+        (2, 256, 1024, 16, 16),
+    ]
+    out, h, scale = [], 128, 128 ** -0.5
+    g = torch.Generator(device=DEVICE).manual_seed(4)
+    for bsz, sq, sk, n, nkv in cases:
+        shape = (bsz, sq, sk, n, nkv)
+        q, k, v = _qkv(g, bsz, sq, sk, n, nkv, h)
+        do = torch.randn(q.shape, generator=g, device=DEVICE).to(torch.bfloat16)
+        o, lse = ops.flash_attention_fwd(q, k, v, causal=True)
+        got = ops.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+        want = ops.flash_attention_bwd_reference(q, k, v, o, lse, do, causal=True)
+        torch.cuda.synchronize()
+        errs = {}
+        for name, a, b in zip(("dq", "dk", "dv"), got, want):
+            errs[name] = max_err(a, b)
+            check(torch.allclose(a.float(), b.float(), atol=TOL, rtol=TOL),
+                  f"flash backward {shape}: {name} disagrees with its plain version: "
+                  f"{errs[name]}")
+        do_c, delta = fa._bwd_inputs(q, k, v, o, lse, do)
+        # the library yardstick: torch's attention backward on the same
+        # inputs, the graph built outside the timed call
+        qt, kt, vt = (t.detach().requires_grad_() for t in _library_views(q, k, v))
+        lib_out = _library_sdpa(F, qt, kt, vt)()
+        do_t = do.transpose(1, 2)
+
+        def lib():
+            return torch.autograd.grad(lib_out, (qt, kt, vt), do_t, retain_graph=True)
+
+        pairs = bsz * n * _allowed_pairs(sq, sk, True)
+        qbytes, kbytes = q.numel() * 2, k.numel() * 2
+        rows = bsz * n * sq * 4  # one f32 per q row: lse, delta
+        # dQ: reads q, k, v, dO, lse, delta, writes dQ; S, dP, dS K
+        dq_bound = bound_ms(3 * qbytes + 2 * kbytes + 2 * rows, 6 * h * pairs, BF16_TC_FLOPS)
+        # dK/dV: reads q, k, v, dO, lse, delta, writes dK, dV; S, dP, P^T dO, dS^T Q
+        dkv_bound = bound_ms(2 * qbytes + 4 * kbytes + 2 * rows, 8 * h * pairs, BF16_TC_FLOPS)
+        # the whole backward: reads q, k, v, o, dO, lse, writes dQ, dK, dV
+        pair_bound = bound_ms(4 * qbytes + 4 * kbytes + rows, 10 * h * pairs, BF16_TC_FLOPS)
+        row = {"check": "flash_attention_bwd",
+               "shape": {"q": list(q.shape), "kv": list(k.shape), "causal": True},
+               "max_abs_err": errs,
+               "dq_ms": timer(lambda: fa._bwd_dq_cuda(q, k, v, do_c, lse, delta, True, scale)),
+               "dq_bound_ms": dq_bound[0], "dq_bound_by": dq_bound[1],
+               "dkv_ms": timer(lambda: fa._bwd_dkv_cuda(q, k, v, do_c, lse, delta, True, scale)),
+               "dkv_bound_ms": dkv_bound[0], "dkv_bound_by": dkv_bound[1],
+               "ms": timer(lambda: ops.flash_attention_bwd(q, k, v, o, lse, do, causal=True)),
+               "bound_ms": pair_bound[0], "bound_by": pair_bound[1],
+               "plain_ms": timer(lambda: ops.flash_attention_bwd_reference(
+                   q, k, v, o, lse, do, causal=True), iters=3, warmup=1),
+               "library_ms": timer(lib)}
+        out.append(row)
+        emit(row)
+        del lib_out
+    return out
+
+
+def time_plain_backwards(timer):
+    """The plain-torch backward of RMSNorm and SwiGLU at the training
+    shapes (no kernel: the JAX package's backward is plain jnp too)."""
+    from paddle_tpu_torch.ops.fused_norm import rms_norm_bwd
+    from paddle_tpu_torch.ops.swiglu import swiglu_bwd
+
+    g = torch.Generator(device=DEVICE).manual_seed(7)
+    out = []
+    rows, hidden = 4096, 2048
+    x = torch.randn(rows, hidden, generator=g, device=DEVICE).to(torch.bfloat16)
+    w = (1 + 0.1 * torch.randn(hidden, generator=g, device=DEVICE)).to(torch.bfloat16)
+    gy = torch.randn(rows, hidden, generator=g, device=DEVICE).to(torch.bfloat16)
+    b_ms, b_by = bound_ms(3 * x.numel() * 2 + 2 * hidden * 2, 10 * x.numel(), F32_FLOPS)
+    out.append({"check": "rms_norm_backward_plain", "shape": [rows, hidden],
+                "plain_ms": timer(lambda: rms_norm_bwd(x, w, gy, 1e-6)),
+                "bound_ms": b_ms, "bound_by": b_by})
+    emit(out[-1])
+    cols = 5632
+    gate_up = torch.randn(rows, 2 * cols, generator=g, device=DEVICE).to(torch.bfloat16)
+    xs, ys = gate_up.chunk(2, dim=-1)
+    gy = torch.randn(rows, cols, generator=g, device=DEVICE).to(torch.bfloat16)
+    b_ms, b_by = bound_ms(5 * rows * cols * 2, 10 * rows * cols, F32_FLOPS)
+    out.append({"check": "swiglu_backward_plain", "shape": [rows, cols],
+                "plain_ms": timer(lambda: swiglu_bwd(xs, ys, gy)),
+                "bound_ms": b_ms, "bound_by": b_by})
+    emit(out[-1])
     return out
 
 
@@ -291,7 +418,8 @@ def serve(card):
     n_layers, forwards = cfg.num_hidden_layers, len(lengths) + steps * engine._effective_chunk()
     want = {"flash_attention_fwd": n_layers * len(lengths),  # prefill only
             "fused_rms_norm": (2 * n_layers + 1) * forwards,  # prefill and every decode token
-            "swiglu": n_layers * forwards}
+            "swiglu": n_layers * forwards,
+            "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0}  # serving: no backward
     check(counts == want, f"launch counts {counts} != expected {want}")
 
     # first-token logits of the longest request: the engine's own prefill
@@ -325,12 +453,123 @@ def serve(card):
     return counts
 
 
-def summarize(name, route, source, replaces, rows, launches):
+def train_config():
+    """The flagship training configuration of bench.py (its on-accelerator
+    branch): full width and depth."""
+    from paddle_tpu_torch.models import LlamaConfig
+
+    return LlamaConfig(vocab_size=32000, hidden_size=2048, intermediate_size=5632,
+                       num_hidden_layers=8, num_attention_heads=16, num_key_value_heads=16,
+                       max_position_embeddings=1024, dtype="bfloat16")
+
+
+def _loss_fn(model, ids, labels):
+    return model(ids, labels=labels)[0]
+
+
+def _rel_l2(a, b):
+    return float((a.float() - b.float()).norm() / b.float().norm())
+
+
+def check_first_step(model, ids, labels):
+    """The first step's loss and gradients through the kernels against a
+    backward through a forward built only from the plain versions, from
+    the same weights."""
+    from paddle_tpu_torch.nn import functional as tF
+
+    names = ["model.embed_tokens.weight", "model.layers.0.self_attn.q_proj.weight",
+             "model.layers.7.mlp.down_proj.weight", "lm_head.weight"]
+    params = dict(model.named_parameters())
+    results = []
+    for path in ("kernels", "plain"):
+        model.zero_grad(set_to_none=True)
+        if path == "kernels":
+            loss = _loss_fn(model, ids, labels)
+        else:
+            logits = plain_forward(model, ids)
+            loss = tF.cross_entropy(logits.float().reshape(-1, model.config.vocab_size),
+                                    labels.reshape(-1))
+        loss.backward()
+        results.append((float(loss.detach()), {n: params[n].grad.clone() for n in names}))
+    model.zero_grad(set_to_none=True)
+    (k_loss, k_grads), (p_loss, p_grads) = results
+    loss_rel = abs(k_loss - p_loss) / abs(p_loss)
+    check(loss_rel <= LOSS_REL_TOL, f"first training loss {k_loss} vs plain {p_loss}")
+    rels = {}
+    for n in names:
+        check(bool(torch.isfinite(k_grads[n]).all()), f"non-finite gradient of {n}")
+        rels[n] = _rel_l2(k_grads[n], p_grads[n])
+        check(rels[n] <= GRAD_REL_TOL, f"first-step gradient of {n}: relative L2 {rels[n]} "
+              f"> {GRAD_REL_TOL}")
+    return {"loss": k_loss, "plain_loss": p_loss, "loss_rel_diff": loss_rel,
+            "grad_rel_l2": rels}
+
+
+def train(card):
+    from paddle_tpu_torch import ops
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import LlamaForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW
+
+    cfg = train_config()
+    batch, seq, warmup, timed = 4, 1024, 3, 10
+    torch.cuda.reset_peak_memory_stats()
+    model = LlamaForCausalLM(cfg, device=DEVICE,
+                             generator=torch.Generator(device=DEVICE).manual_seed(1))
+    n_params = sum(p.numel() for p in model.parameters())
+    g = torch.Generator(device=DEVICE).manual_seed(6)
+    ids = torch.randint(0, cfg.vocab_size, (batch, seq), generator=g, device=DEVICE)
+    labels = torch.randint(0, cfg.vocab_size, (batch, seq), generator=g, device=DEVICE)
+    first = check_first_step(model, ids, labels)
+
+    step = TrainStep(model, AdamW(learning_rate=1e-4, parameters=model.parameters(),
+                                  weight_decay=0.01), _loss_fn)
+    layers = cfg.num_hidden_layers
+    per_step = {"fused_rms_norm": 2 * layers + 1, "swiglu": layers, "flash_attention_fwd": layers,
+                "flash_attention_bwd_dq": layers, "flash_attention_bwd_dkv": layers}
+    losses, totals = [], dict.fromkeys(per_step, 0)
+    for i in range(warmup + timed):
+        if i == warmup:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        ops.reset_launch_counts()
+        losses.append(step(ids, labels))
+        counts = ops.launch_counts()
+        check(counts == per_step, f"training step {i}: launch counts {counts} != {per_step}")
+        if i >= warmup:
+            totals = {k: totals[k] + counts[k] for k in totals}
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / timed
+    losses = [float(x) for x in losses]
+    check(all(math.isfinite(x) for x in losses), f"non-finite training loss: {losses}")
+    check(losses[-1] < losses[0], f"the training loss did not fall: {losses}")
+
+    tokens = batch * seq
+    flops = (6 * n_params + 12 * layers * cfg.hidden_size * seq) * tokens
+    result = {"trainer": f"bench.py flagship {cfg.dtype} {layers} layers, hidden "
+                         f"{cfg.hidden_size}, batch {batch} x {seq}", "card": card,
+              "parameters": n_params, "first_step": first, "losses": losses,
+              "warmup_steps": warmup, "timed_steps": timed,
+              "launches_per_step": per_step, "step_ms": step_ms,
+              "tokens_per_s": tokens / (step_ms / 1e3),
+              "model_flops_per_step": flops,
+              "model_flop_share": flops / (step_ms / 1e3) / BF16_TC_FLOPS,
+              "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    emit(result)
+    return totals
+
+
+def summarize(name, route, source, replaces, rows, launches, **pick):
+    """One entry of the kernels line: the first row's numbers (``pick``
+    renames a row's keys onto the entry's), every row kept under
+    per_shape; ``launches`` maps each main path to its count."""
     top = rows[0]
+    keys = {k: pick.get(k, k) for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+    errs = [max(r["max_abs_err"][e] for e in pick["err"]) if "err" in pick else r["max_abs_err"]
+            for r in rows]
     return {"name": name, "route": route, "source": source, "replaces": replaces,
-            "launches": launches, "max_abs_err": max(r["max_abs_err"] for r in rows),
-            "ms": top["ms"], "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
-            "bound_by": top["bound_by"], "library_ms": top["library_ms"],
+            "launches": sum(launches.values()), "launches_by_path": launches,
+            "max_abs_err": max(errs), **{k: top[v] for k, v in keys.items()},
             "timed_shape": top["shape"], "tolerance": TOL, "per_shape": rows}
 
 
@@ -357,7 +596,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.perf_counter()
-    logs = _cuda_build.build(["flash_attention_fwd"])
+    logs = _cuda_build.build(["flash_attention_fwd", "flash_attention_bwd"])
     for name, log in logs.items():
         print(f"nvcc {name}:\n{log}", file=sys.stderr)
     print(f"built the CUDA kernels in {time.perf_counter() - t0:.1f} s", flush=True)
@@ -367,14 +606,40 @@ def main() -> int:
         rms = check_rms_norm(timer, F)
         sw = check_swiglu(timer)
         fl = check_flash(timer, F)
-        counts = serve(card)
+    fb = check_flash_bwd(timer, F)
+    with torch.no_grad():
+        time_plain_backwards(timer)
+        served = serve(card)
+    del timer
+    gc.collect()  # the 7B engine is gone with serve(); return its memory
+    torch.cuda.empty_cache()
+    trained = train(card)
+    for path, counts in (("serving", served), ("training", trained)):
+        ran = [k for k in ("fused_rms_norm", "swiglu", "flash_attention_fwd") if counts[k] > 0]
+        check(len(ran) == 3, f"{path}: a forward kernel was never launched: {counts}")
+    check(trained["flash_attention_bwd_dq"] > 0 and trained["flash_attention_bwd_dkv"] > 0,
+          f"training: a backward kernel was never launched: {trained}")
+
+    def launches(name):
+        return {"serving": served[name], "training": trained[name]}
+
+    bwd_src = "paddle_tpu_torch/csrc/flash_attention_bwd.cu"
     kernels = [
         summarize("fused_rms_norm", "triton", "paddle_tpu_torch/ops/fused_norm.py",
-                  "paddle_tpu/ops/fused_norm.py:42", rms, counts["fused_rms_norm"]),
+                  "paddle_tpu/ops/fused_norm.py:42", rms, launches("fused_rms_norm")),
         summarize("swiglu", "triton", "paddle_tpu_torch/ops/swiglu.py",
-                  "paddle_tpu/ops/swiglu.py:17", sw, counts["swiglu"]),
+                  "paddle_tpu/ops/swiglu.py:17", sw, launches("swiglu")),
         summarize("flash_attention_fwd", "cuda", "paddle_tpu_torch/csrc/flash_attention_fwd.cu",
-                  "paddle_tpu/ops/flash_attention.py:97", fl, counts["flash_attention_fwd"]),
+                  "paddle_tpu/ops/flash_attention.py:97", fl, launches("flash_attention_fwd")),
+        # each backward kernel's own time and bound; plain_ms and library_ms
+        # compute dQ, dK and dV together (no call computes one alone)
+        summarize("flash_attention_bwd_dq", "cuda", bwd_src,
+                  "paddle_tpu/ops/flash_attention.py:181", fb, launches("flash_attention_bwd_dq"),
+                  ms="dq_ms", bound_ms="dq_bound_ms", bound_by="dq_bound_by", err=("dq",)),
+        summarize("flash_attention_bwd_dkv", "cuda", bwd_src,
+                  "paddle_tpu/ops/flash_attention.py:217", fb,
+                  launches("flash_attention_bwd_dkv"), ms="dkv_ms", bound_ms="dkv_bound_ms",
+                  bound_by="dkv_bound_by", err=("dk", "dv")),
     ]
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,8 @@
 """LLaMA-family decoder (counterpart of paddle_tpu/models/llama.py).
 
 Ported: the config and its presets, the rope tables, the unrolled
-``layers`` stack (``LayerList`` layout), the full forward and the two
+``layers`` stack (``LayerList`` layout), the full forward with its
+training loss (``forward(ids, labels=)``) and the two
 serving paths the engine runs — the cached prefill
 (``_model_forward_cached``) and the paged decode step
 (``_decode_layers_paged``).  Parameter names match the JAX model's
@@ -9,8 +10,9 @@ serving paths the engine runs — the cached prefill
 carries weights across.
 
 The three kernels of this path sit behind ``RMSNorm`` (fused RMSNorm),
-``LlamaMLP`` (SwiGLU) and ``F.scaled_dot_product_attention`` (the
-flash-attention forward of prefill).
+``LlamaMLP`` (SwiGLU) and ``F.scaled_dot_product_attention`` (flash
+attention: the forward kernel in prefill and training, the two backward
+kernels when a loss from ``forward(ids, labels=)`` is differentiated).
 """
 
 from __future__ import annotations
@@ -201,10 +203,14 @@ class LlamaForCausalLM(nn.Module):
         return self.model.embed_tokens.weight.device
 
     def forward(self, input_ids, labels=None, attn_mask=None):
-        if labels is not None:
-            raise NotImplementedError(
-                "the training loss is not ported yet (ROADMAP.md queue A item 2)")
-        return self._logits(self.model(input_ids, attn_mask))
+        """Logits ``[B, S, V]``; with ``labels``, ``(loss, logits)`` where the
+        loss is the f32 cross entropy of every position (-100 ignored)."""
+        logits = self._logits(self.model(input_ids, attn_mask))
+        if labels is None:
+            return logits
+        loss = F.cross_entropy(logits.float().reshape(-1, self.config.vocab_size),
+                               labels.reshape(-1), ignore_index=-100)
+        return loss, logits
 
     def _logits(self, h):
         if self.lm_head is not None:

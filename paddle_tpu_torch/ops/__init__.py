@@ -15,13 +15,16 @@ tensor the kernel cannot take raises.
 
 Every wrapper adds one to its launch counter where it launches its
 kernel, and nowhere else, so a run can show that a path went through it.
+Each op is a ``torch.autograd.Function`` on both devices, so gradients
+reach the parameters below a kernel.
 """
 
 from __future__ import annotations
 
 import torch
 
-_LAUNCHES = {"fused_rms_norm": 0, "swiglu": 0, "flash_attention_fwd": 0}
+_LAUNCHES = {"fused_rms_norm": 0, "swiglu": 0, "flash_attention_fwd": 0,
+             "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0}
 
 
 def launch_counts() -> dict:
@@ -49,7 +52,8 @@ def use_kernel(*tensors: torch.Tensor) -> bool:
     raise ValueError(f"tensors lie on mixed or unsupported devices: {sorted(kinds)}")
 
 
-from .flash_attention import (flash_attention, flash_attention_fwd,  # noqa: E402,F401
+from .flash_attention import (flash_attention, flash_attention_bwd,  # noqa: E402,F401
+                              flash_attention_bwd_reference, flash_attention_fwd,
                               flash_attention_reference)
 from .fused_norm import fused_rms_norm  # noqa: E402,F401
 from .swiglu import swiglu  # noqa: E402,F401

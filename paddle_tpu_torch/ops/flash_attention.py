@@ -1,19 +1,28 @@
-"""Flash attention forward: a CUDA C++ kernel for Hopper beside its plain
-version.
+"""Flash attention: CUDA C++ kernels for Hopper beside their plain
+versions, joined by a ``torch.autograd.Function``.
 
-Counterpart of paddle_tpu/ops/flash_attention.py.  The kernel
-(``csrc/flash_attention_fwd.cu``, whose header says what bounds it and
-how it is built) replaces the TPU forward kernel ``_fwd_kernel``.  The
-public layout is Paddle's ``[B, S, N, H]``; the kernel reads it through
-its strides instead of transposing to ``[B, N, S, H]``.
+Counterpart of paddle_tpu/ops/flash_attention.py.  The forward kernel
+(``csrc/flash_attention_fwd.cu``) replaces the TPU kernel ``_fwd_kernel``;
+the two backward kernels (``csrc/flash_attention_bwd.cu``) replace
+``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``.  Each source's header says
+what bounds it and how it is built.  The public layout is Paddle's
+``[B, S, N, H]``; the kernels read it through its strides instead of
+transposing to ``[B, N, S, H]``.
 
-Semantics kept from the TPU kernel: causal is bottom-right aligned when
+Semantics kept from the TPU kernels: causal is bottom-right aligned when
 Sq != Sk (query row i sees keys j <= i + Sk - Sq); masked scores take
 -0.7 * f32max; a row whose sum is 0 divides by 1; ``scale`` defaults to
 1/sqrt(H); GQA reads kv-head ``n // (N // Nkv)``.  Unlike the TPU path,
-lengths that are not a block multiple are masked inside the kernel
-instead of falling back to the O(S^2) reference.  The logsumexp comes out
-as f32 ``[B, N, Sq]`` for the backward kernels of the training slice.
+lengths that are not a block multiple are masked inside the kernels
+instead of falling back to the O(S^2) reference.  The forward writes the
+logsumexp as f32 ``[B, N, Sq]``; the backward recomputes the
+probabilities from it and takes ``delta = rowsum(O * dO)`` in f32, which
+the wrapper computes with torch (as the JAX package does outside its
+kernels).  The dK/dV kernel sums over the GQA group itself, where JAX
+repeats K/V and sums afterwards.
+
+``flash_attention`` goes through ``_FlashAttentionFn`` on both devices, so
+a loss computed from the card's outputs reaches q, k and v.
 """
 
 from __future__ import annotations
@@ -25,25 +34,35 @@ import torch
 
 from . import count_launch, use_kernel
 
-__all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_reference"]
+__all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_bwd",
+           "flash_attention_reference", "flash_attention_bwd_reference"]
 
 DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
-_LIB_NAME = "flash_attention_fwd"
-_FN = None
+_FNS: dict = {}
+_PTR, _INT, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# (library, C function) -> argument types: pointers, ints, strides, then
+# scale, causal and the stream
+_SIGNATURES = {
+    ("flash_attention_fwd", "paddle_flash_attention_fwd_bf16"):
+        [_PTR] * 5 + [_INT] * 6 + [_LL] * 12,
+    ("flash_attention_bwd", "paddle_flash_attention_bwd_dq_bf16"):
+        [_PTR] * 7 + [_INT] * 6 + [_LL] * 15,
+    ("flash_attention_bwd", "paddle_flash_attention_bwd_dkv_bf16"):
+        [_PTR] * 8 + [_INT] * 6 + [_LL] * 18,
+}
 
 
-def _fn():
-    global _FN
-    if _FN is None:
+def _fn(lib, name):
+    """The C entry point ``name`` of ``csrc/<lib>.cu``, built at first use."""
+    fn = _FNS.get(name)
+    if fn is None:
         from ._cuda_build import load
 
-        fn = load(_LIB_NAME).paddle_flash_attention_fwd_bf16
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
-                       + [ctypes.c_longlong] * 12
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        fn = getattr(load(lib), name)
+        fn.argtypes = _SIGNATURES[(lib, name)] + [ctypes.c_float, _INT, _PTR]
         fn.restype = ctypes.c_int
-        _FN = fn
-    return _FN
+        _FNS[name] = fn
+    return fn
 
 
 def _check(q, k, v):
@@ -58,74 +77,208 @@ def _check(q, k, v):
                          f"{k.shape[2]} kv heads")
 
 
-def _reference_with_lse(q, k, v, causal, scale):
-    qt = q.transpose(1, 2).float()
-    kt = k.transpose(1, 2).float()
-    vt = v.transpose(1, 2).float()
+def _bnsh(q, k, v):
+    """f32 ``[B, N, S, H]`` views with K/V repeated over the GQA group."""
+    qt, kt, vt = (t.transpose(1, 2).float() for t in (q, k, v))
     group = qt.shape[1] // kt.shape[1]
     if group > 1:
         kt = kt.repeat_interleave(group, dim=1)
         vt = vt.repeat_interleave(group, dim=1)
+    return qt, kt, vt
+
+
+def _masked_logits(qt, kt, causal, scale):
     logits = torch.einsum("bnqh,bnkh->bnqk", qt, kt) * scale
     if causal:
         qlen, klen = logits.shape[-2], logits.shape[-1]
-        allowed = torch.ones((qlen, klen), dtype=torch.bool, device=q.device).tril(klen - qlen)
+        allowed = torch.ones((qlen, klen), dtype=torch.bool, device=qt.device).tril(klen - qlen)
         logits = logits.masked_fill(~allowed, DEFAULT_MASK_VALUE)
+    return logits
+
+
+def _reference_with_lse(q, k, v, causal, scale):
+    qt, kt, vt = _bnsh(q, k, v)
+    logits = _masked_logits(qt, kt, causal, scale)
     lse = torch.logsumexp(logits, dim=-1)
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bnqk,bnkh->bnqh", probs, vt)
     return out.transpose(1, 2).to(q.dtype), lse
 
 
+def _scale(q, scale):
+    return 1.0 / math.sqrt(q.shape[-1]) if scale is None else float(scale)
+
+
 def flash_attention_reference(q, k, v, *, causal=False, scale=None):
     """Plain PyTorch oracle with the kernel's semantics ([B, S, N, H]):
     f32 scores and softmax, one cast at the end."""
     _check(q, k, v)
-    if scale is None:
-        scale = 1.0 / math.sqrt(q.shape[-1])
-    return _reference_with_lse(q, k, v, bool(causal), float(scale))[0]
+    return _reference_with_lse(q, k, v, bool(causal), _scale(q, scale))[0]
+
+
+def flash_attention_bwd_reference(q, k, v, out, lse, do, *, causal=False, scale=None):
+    """Plain PyTorch version of the backward kernels: the math of the JAX
+    package's ``_bwd``, dense in f32, one cast of each gradient at the end.
+    Returns ``(dq, dk, dv)`` in the layouts and dtypes of q, k and v."""
+    _check(q, k, v)
+    scale = _scale(q, scale)
+    b, sk, nkv, h = k.shape
+    qt, kt, vt = _bnsh(q, k, v)
+    ot, dot = out.transpose(1, 2).float(), do.transpose(1, 2).float()
+    p = torch.exp(_masked_logits(qt, kt, bool(causal), scale) - lse.float()[..., None])
+    dp = torch.einsum("bnqh,bnkh->bnqk", dot, vt)
+    delta = (ot * dot).sum(dim=-1, keepdim=True)
+    ds = p * (dp - delta) * scale
+    dq = torch.einsum("bnqk,bnkh->bnqh", ds, kt)
+    dk = torch.einsum("bnqk,bnqh->bnkh", ds, qt)
+    dv = torch.einsum("bnqk,bnqh->bnkh", p, dot)
+    # sum the GQA group back onto its kv head
+    dk = dk.reshape(b, nkv, -1, sk, h).sum(dim=2)
+    dv = dv.reshape(b, nkv, -1, sk, h).sum(dim=2)
+    return tuple(g.transpose(1, 2).contiguous().to(t.dtype)
+                 for g, t in ((dq, q), (dk, k), (dv, v)))
+
+
+def _check_kernel_input(name, t):
+    if t.dtype != torch.bfloat16:
+        raise TypeError(f"flash_attention: the kernel takes bf16, {name} is {t.dtype}")
+    if not _kernel_layout(t):
+        raise ValueError(f"flash_attention: {name} needs unit stride on H, strides that "
+                         "are multiples of 8 elements and a 16-byte aligned base")
+
+
+def _kernel_layout(t):
+    return t.stride(-1) == 1 and not any(s % 8 for s in t.stride()[:3]) and t.data_ptr() % 16 == 0
+
+
+def _check_head_dim(h):
+    if h not in (64, 128):
+        raise ValueError(f"flash_attention: head_dim {h} is not 64 or 128")
+
+
+def _launch(lib, name, *args):
+    """Call a C entry point on the current stream; raise on a refused launch."""
+    device = args[0].device
+    ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    with torch.cuda.device(device):
+        err = _fn(lib, name)(*ptrs, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention: {name} launch failed with CUDA error {err}")
 
 
 def _flash_cuda(q, k, v, causal, scale):
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"flash_attention: the kernel takes bf16, {name} is {t.dtype}")
-        if t.stride(-1) != 1 or any(s % 8 for s in t.stride()[:3]) or t.data_ptr() % 16:
-            raise ValueError(f"flash_attention: {name} needs unit stride on H, strides that "
-                             "are multiples of 8 elements and a 16-byte aligned base")
+        _check_kernel_input(name, t)
     b, sq, n, h = q.shape
     sk, nkv = k.shape[1], k.shape[2]
-    if h not in (64, 128):
-        raise ValueError(f"flash_attention: head_dim {h} is not 64 or 128")
+    _check_head_dim(h)
     out = torch.empty((b, sq, n, h), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, n, sq), dtype=torch.float32, device=q.device)
     if b == 0 or sq == 0:
         return out, lse
     if sk == 0:
         raise ValueError("flash_attention: no keys")
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = _fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-                    b, sq, sk, n, nkv, h,
-                    *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
-                    float(scale), int(bool(causal)), stream)
-    if err != 0:
-        raise RuntimeError(f"flash_attention: kernel launch failed with CUDA error {err}")
+    _launch("flash_attention_fwd", "paddle_flash_attention_fwd_bf16",
+            q, k, v, out, lse, b, sq, sk, n, nkv, h,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
+            float(scale), int(bool(causal)))
     count_launch("flash_attention_fwd")
     return out, lse
+
+
+def _bwd_inputs(q, k, v, out, lse, do):
+    """Check the backward kernels' inputs; return ``(do, delta)`` with dO in
+    the kernel's layout (a copy when it arrives otherwise) and
+    ``delta = rowsum(O * dO)`` as contiguous f32 ``[B, N, Sq]``."""
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _check_kernel_input(name, t)
+    if do.dtype != torch.bfloat16 or out.dtype != torch.bfloat16:
+        raise TypeError(f"flash_attention: the backward takes bf16 out and dO, got "
+                        f"{out.dtype} and {do.dtype}")
+    _check_head_dim(q.shape[-1])
+    b, sq, n, _ = q.shape
+    if do.shape != q.shape or out.shape != q.shape:
+        raise ValueError(f"flash_attention: out {tuple(out.shape)} / dO {tuple(do.shape)} "
+                         f"do not match q {tuple(q.shape)}")
+    if lse.shape != (b, n, sq) or lse.dtype != torch.float32 or not lse.is_contiguous():
+        raise ValueError(f"flash_attention: lse must be contiguous f32 {(b, n, sq)}")
+    if not _kernel_layout(do):
+        do = do.contiguous()
+    delta = (out.float() * do.float()).sum(dim=-1).transpose(1, 2).contiguous()
+    return do, delta
+
+
+def _bwd_dq_cuda(q, k, v, do, lse, delta, causal, scale):
+    b, sq, n, h = q.shape
+    sk, nkv = k.shape[1], k.shape[2]
+    dq = torch.empty((b, sq, n, h), dtype=q.dtype, device=q.device)
+    _launch("flash_attention_bwd", "paddle_flash_attention_bwd_dq_bf16",
+            q, k, v, do, lse, delta, dq, b, sq, sk, n, nkv, h,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
+            *dq.stride()[:3], float(scale), int(bool(causal)))
+    count_launch("flash_attention_bwd_dq")
+    return dq
+
+
+def _bwd_dkv_cuda(q, k, v, do, lse, delta, causal, scale):
+    b, sq, n, h = q.shape
+    sk, nkv = k.shape[1], k.shape[2]
+    dk = torch.empty((b, sk, nkv, h), dtype=k.dtype, device=k.device)
+    dv = torch.empty((b, sk, nkv, h), dtype=v.dtype, device=v.device)
+    _launch("flash_attention_bwd", "paddle_flash_attention_bwd_dkv_bf16",
+            q, k, v, do, lse, delta, dk, dv, b, sq, sk, n, nkv, h,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
+            *dk.stride()[:3], *dv.stride()[:3], float(scale), int(bool(causal)))
+    count_launch("flash_attention_bwd_dkv")
+    return dk, dv
+
+
+def _flash_bwd_cuda(q, k, v, out, lse, do, causal, scale):
+    do, delta = _bwd_inputs(q, k, v, out, lse, do)
+    if q.numel() == 0 or k.numel() == 0:
+        return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
+    dq = _bwd_dq_cuda(q, k, v, do, lse, delta, causal, scale)
+    dk, dv = _bwd_dkv_cuda(q, k, v, do, lse, delta, causal, scale)
+    return dq, dk, dv
 
 
 def flash_attention_fwd(q, k, v, *, causal=False, scale=None):
     """``(out [B, Sq, N, H], lse f32 [B, N, Sq])`` for q ``[B, Sq, N, H]``
     and k/v ``[B, Sk, Nkv, H]``."""
     _check(q, k, v)
-    if scale is None:
-        scale = 1.0 / math.sqrt(q.shape[-1])
     if use_kernel(q, k, v):
-        return _flash_cuda(q, k, v, bool(causal), float(scale))
-    return _reference_with_lse(q, k, v, bool(causal), float(scale))
+        return _flash_cuda(q, k, v, bool(causal), _scale(q, scale))
+    return _reference_with_lse(q, k, v, bool(causal), _scale(q, scale))
+
+
+def flash_attention_bwd(q, k, v, out, lse, do, *, causal=False, scale=None):
+    """``(dq, dk, dv)`` of flash attention from the forward's inputs, its
+    output and lse, and the output's gradient ``do``."""
+    _check(q, k, v)
+    if use_kernel(q, k, v, out, lse, do):
+        return _flash_bwd_cuda(q, k, v, out, lse, do, bool(causal), _scale(q, scale))
+    return flash_attention_bwd_reference(q, k, v, out, lse, do, causal=causal, scale=scale)
+
+
+class _FlashAttentionFn(torch.autograd.Function):
+    """The forward kernel (or plain version) saving what the backward
+    kernels (or plain version) recompute from, as JAX's ``custom_vjp``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale):
+        out, lse = flash_attention_fwd(q, k, v, causal=causal, scale=scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do, causal=ctx.causal,
+                                         scale=ctx.scale)
+        return dq, dk, dv, None, None
 
 
 def flash_attention(q, k, v, *, causal=False, scale=None):
-    """Blockwise flash attention, q/k/v in ``[B, S, N, H]``."""
-    return flash_attention_fwd(q, k, v, causal=causal, scale=scale)[0]
+    """Blockwise flash attention, q/k/v in ``[B, S, N, H]``, differentiable."""
+    return _FlashAttentionFn.apply(q, k, v, bool(causal), _scale(q, scale))

@@ -14,6 +14,9 @@ issue coalesced 16-byte accesses; the reduction and the scale happen in
 registers before the single store.  Triton rather than CUDA C++: one row
 reduction and an elementwise scale need no tensor cores, shared-memory
 staging or asynchronous copies, and Triton needs no nvcc build.
+
+The gradient (``_RMSNormFn``) is plain PyTorch on both devices, the
+formula of the JAX package's ``_rms_bwd``, which is plain jnp there too.
 """
 
 from __future__ import annotations
@@ -22,7 +25,7 @@ import torch
 
 from . import count_launch, use_kernel
 
-__all__ = ["fused_rms_norm", "rms_norm_plain"]
+__all__ = ["fused_rms_norm", "rms_norm_plain", "rms_norm_bwd"]
 
 tl = None  # triton.language, bound at the first launch
 _KERNEL = None
@@ -83,14 +86,39 @@ def _rms_norm_cuda(x2d: torch.Tensor, weight: torch.Tensor, eps: float) -> torch
     return out
 
 
+def rms_norm_bwd(x2d: torch.Tensor, weight: torch.Tensor, g: torch.Tensor, eps: float):
+    """``(dx, dw)`` of RMSNorm over rows: f32 inside, dx in x's dtype, dw
+    summed over the rows in the weight's dtype (JAX's ``_rms_bwd``)."""
+    xf = x2d.float()
+    gf = g.float() * weight.float()
+    inv = torch.rsqrt(xf.pow(2).mean(dim=-1, keepdim=True) + eps)
+    # d/dx [x * inv]: inv * g - x * (x.g) * inv^3 / H
+    dot = (gf * xf).sum(dim=-1, keepdim=True)
+    dx = (gf * inv - xf * dot * inv.pow(3) / x2d.shape[-1]).to(x2d.dtype)
+    dw = (g.float() * (xf * inv)).sum(dim=0).to(weight.dtype)
+    return dx, dw
+
+
+class _RMSNormFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x2d, weight, eps):
+        ctx.save_for_backward(x2d, weight)
+        ctx.eps = eps
+        if use_kernel(x2d, weight):
+            return _rms_norm_cuda(x2d, weight, eps)
+        return rms_norm_plain(x2d, weight, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x2d, weight = ctx.saved_tensors
+        dx, dw = rms_norm_bwd(x2d, weight, g, ctx.eps)
+        return dx, dw, None
+
+
 def fused_rms_norm(x: torch.Tensor, weight: torch.Tensor, *,
                    epsilon: float = 1e-6) -> torch.Tensor:
     """RMSNorm over the last axis (paddle_tpu.ops.fused_rms_norm without
-    its residual option, which no caller of the port uses yet)."""
+    its residual option, which no caller of the port uses yet),
+    differentiable in x and weight."""
     shape = x.shape
-    x2d = x.reshape(-1, shape[-1])
-    if use_kernel(x2d, weight):
-        out = _rms_norm_cuda(x2d, weight, float(epsilon))
-    else:
-        out = rms_norm_plain(x2d, weight, float(epsilon))
-    return out.reshape(shape)
+    return _RMSNormFn.apply(x.reshape(-1, shape[-1]), weight, float(epsilon)).reshape(shape)

@@ -15,6 +15,10 @@ The inputs may be column halves of one ``[rows, 2 * cols]`` projection
 row strides instead of copying them out.  Triton rather than CUDA C++: a
 pure elementwise pass needs no tensor cores, shared-memory staging or
 asynchronous copies, and Triton needs no nvcc build.
+
+The gradient (``_SwiGLUFn``) is plain PyTorch on both devices, the
+formula of the JAX package's ``_swiglu_bwd``, which is plain jnp there
+too.  It reaches a ``gate_up`` input through the halves' views.
 """
 
 from __future__ import annotations
@@ -23,7 +27,7 @@ import torch
 
 from . import count_launch, use_kernel
 
-__all__ = ["swiglu", "swiglu_plain"]
+__all__ = ["swiglu", "swiglu_plain", "swiglu_bwd"]
 
 tl = None  # triton.language, bound at the first launch
 _KERNEL = None
@@ -84,14 +88,32 @@ def _swiglu_cuda(x2d: torch.Tensor, y2d: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def swiglu_bwd(x: torch.Tensor, y: torch.Tensor, g: torch.Tensor):
+    """``(dx, dy)`` of ``silu(x) * y`` in f32, each cast to its input's
+    dtype (JAX's ``_swiglu_bwd``)."""
+    xf, yf, gf = x.float(), y.float(), g.float()
+    sig = torch.sigmoid(xf)
+    dsilu = sig * (1.0 + xf * (1.0 - sig))
+    return (gf * yf * dsilu).to(x.dtype), (gf * (xf * sig)).to(y.dtype)
+
+
+class _SwiGLUFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x2d, y2d):
+        ctx.save_for_backward(x2d, y2d)
+        if use_kernel(x2d, y2d):
+            return _swiglu_cuda(x2d, y2d)
+        return swiglu_plain(x2d, y2d)
+
+    @staticmethod
+    def backward(ctx, g):
+        return swiglu_bwd(*ctx.saved_tensors, g)
+
+
 def swiglu(x: torch.Tensor, y: torch.Tensor | None = None) -> torch.Tensor:
     """``silu(x) * y``; with ``y=None``, x is split in half on the last
-    axis (the contract of paddle_tpu.ops.swiglu)."""
+    axis (the contract of paddle_tpu.ops.swiglu).  Differentiable in both."""
     if y is None:
         x, y = x.chunk(2, dim=-1)
     shape = x.shape
-    x2d = x.reshape(-1, shape[-1])
-    y2d = y.reshape(-1, shape[-1])
-    if use_kernel(x2d, y2d):
-        return _swiglu_cuda(x2d, y2d).reshape(shape)
-    return swiglu_plain(x2d, y2d).reshape(shape)
+    return _SwiGLUFn.apply(x.reshape(-1, shape[-1]), y.reshape(-1, shape[-1])).reshape(shape)

@@ -5,6 +5,8 @@
 - the package never calls torch's scaled_dot_product_attention or
   rms_norm, nor torch.compile (AST scan, and a CPU run with those
   entry points made to raise);
+- the training path uses no torch.optim (AST scan, and a CPU TrainStep
+  run with torch.optim's optimizers made to raise);
 - the entry points default to the CUDA card and raise without one.
 """
 
@@ -33,7 +35,9 @@ def _is_reference(module: str) -> bool:
 
 
 def test_import_loads_no_jax_and_no_paddle_tpu():
-    code = ("import sys, paddle_tpu_torch, paddle_tpu_torch.serving, paddle_tpu_torch.convert;"
+    code = ("import sys, paddle_tpu_torch, paddle_tpu_torch.serving, paddle_tpu_torch.convert,"
+            " paddle_tpu_torch.optimizer, paddle_tpu_torch.jit, paddle_tpu_torch.device,"
+            " paddle_tpu_torch.nn.clip, paddle_tpu_torch.optimizer.lr;"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'paddle_tpu'));"
             "print(bad); sys.exit(1 if bad else 0)")
@@ -87,6 +91,32 @@ def test_no_library_attention_norm_or_compile():
             assert not (head in torch_f_aliases | {"torch"} and attr in FORBIDDEN_CALLS), \
                 (path, name)
             assert name != "torch.compile", path
+            assert not name.startswith("torch.optim"), (path, name)
+        for node in ast.walk(tree):
+            if isinstance(node, (ast.Import, ast.ImportFrom)):
+                mods = ([a.name for a in node.names] if isinstance(node, ast.Import)
+                        else [node.module or ""])
+                assert not any(m.startswith("torch.optim") for m in mods), (path, mods)
+
+
+def test_train_step_never_reaches_torch_optim(monkeypatch):
+    def _refuse(*args, **kwargs):
+        raise AssertionError("the port used torch.optim")
+
+    for name in ("SGD", "Adam", "AdamW"):
+        monkeypatch.setattr(torch.optim, name, _refuse)
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import LlamaForCausalLM, llama_tiny
+    from paddle_tpu_torch.optimizer import AdamW
+
+    g = torch.Generator().manual_seed(0)
+    model = LlamaForCausalLM(llama_tiny(num_hidden_layers=1, dtype="float32"), device="cpu",
+                             generator=g)
+    step = TrainStep(model, AdamW(1e-3, parameters=model.parameters()),
+                     lambda m, ids, labels: m(ids, labels=labels)[0])
+    ids = torch.randint(0, 1024, (1, 8), generator=g)
+    losses = [float(step(ids, ids)) for _ in range(2)]
+    assert losses[1] < losses[0]
 
 
 def test_cpu_run_never_reaches_library_kernels(monkeypatch):
@@ -124,3 +154,9 @@ def test_entry_points_default_to_cuda():
     model = LlamaForCausalLM(cfg, device="cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
         GenerationEngine(model, max_batch=1, block_size=8, num_blocks=4)
+    from paddle_tpu_torch.device import synchronize, time_step_ms
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        time_step_ms(lambda: None)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        synchronize()

@@ -5,6 +5,10 @@ their Pallas kernels in interpret mode (``pallas_call(interpret=True)``,
 as the JAX package's own tests run them).  Both sides get the same numpy
 inputs made from a seed.  Tolerances: f32 2e-5 (the two sides sum in
 different orders), bf16 2e-2 (one bf16 rounding step of the output).
+Gradients come from ``jax.vjp`` on the JAX side (its flash backward runs
+``_bwd_dq_kernel`` and ``_bwd_dkv_kernel`` in interpret mode) and from
+torch autograd through the port's ``autograd.Function``s; f32 gradients
+are held at 1e-4 (sums of up to 128 products in other orders).
 The kernels themselves only run on the card (``chip_smoke.py``); the
 wrappers' routing to them is checked by ``test_cuda_*`` cases that skip
 without a card.
@@ -12,6 +16,7 @@ without a card.
 
 import importlib
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -30,6 +35,7 @@ jsdpa = importlib.import_module("paddle_tpu.nn.functional.attention")
 
 F32_TOL = 2e-5
 BF16_TOL = 2e-2
+GRAD_TOL = 1e-4
 
 
 def _rand(rng, shape, dtype=np.float32):
@@ -144,6 +150,95 @@ def test_flash_attention_ragged_against_reference(sq, sk):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=F32_TOL, rtol=F32_TOL)
 
 
+def _grads(fn, arrays, cot, dtype=torch.float32):
+    """Gradients of ``sum(fn(*inputs) * cot)`` through torch autograd."""
+    ts = [torch.from_numpy(a).to(dtype).requires_grad_() for a in arrays]
+    (fn(*ts).float() * torch.from_numpy(cot)).sum().backward()
+    return [t.grad for t in ts]
+
+
+def _jax_grads(fn, arrays, cot, dtype=jnp.float32):
+    out, vjp = jax.vjp(fn, *(jnp.asarray(a, dtype) for a in arrays))
+    return [np.asarray(g.astype(jnp.float32)) for g in vjp(jnp.asarray(cot, out.dtype))]
+
+
+FLASH_BWD_CASES = [  # (Sq, Sk, N, Nkv, causal): JAX blocks are min(128, S)
+    (64, 64, 2, 2, True), (128, 128, 2, 2, False), (128, 128, 4, 2, True),
+    (64, 128, 2, 2, True)]
+
+
+@pytest.mark.parametrize("sq,sk,n,nkv,causal", FLASH_BWD_CASES)
+def test_flash_backward_matches_pallas_vjp(sq, sk, n, nkv, causal):
+    """The port's backward (the plain version and the autograd Function)
+    against jax.vjp through the Pallas backward kernels: causal and not,
+    GQA (4 q heads on 2 kv heads), bottom-right causal with Sq < Sk."""
+    q, k, v = _qkv(12, 2, sq, sk, n, nkv, 64)
+    do = _rand(np.random.default_rng(13), q.shape)
+    want = _jax_grads(lambda a, b, c: jfa.flash_attention(a, b, c, causal=causal),
+                      (q, k, v), do)
+    got_fn = _grads(lambda a, b, c: tops.flash_attention(a, b, c, causal=causal), (q, k, v), do)
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    out, lse = tops.flash_attention_fwd(tq, tk, tv, causal=causal)
+    got_ref = tops.flash_attention_bwd(tq, tk, tv, out, lse, torch.from_numpy(do), causal=causal)
+    for name, w, a, b in zip(("dq", "dk", "dv"), want, got_fn, got_ref):
+        assert a.shape == b.shape == w.shape, name
+        np.testing.assert_allclose(a.numpy(), w, atol=GRAD_TOL, rtol=GRAD_TOL, err_msg=name)
+        np.testing.assert_allclose(b.numpy(), w, atol=GRAD_TOL, rtol=GRAD_TOL, err_msg=name)
+
+
+@pytest.mark.parametrize("sq,sk", [(100, 100), (37, 100)])
+def test_flash_backward_ragged_against_autograd(sq, sk):
+    """Ragged lengths (JAX falls back to its reference there): the port's
+    backward against torch autograd through the plain forward."""
+    q, k, v = _qkv(14, 1, sq, sk, 4, 2, 64)
+    do = _rand(np.random.default_rng(15), q.shape)
+    want = _grads(lambda a, b, c: tops.flash_attention_reference(a, b, c, causal=True),
+                  (q, k, v), do)
+    got = _grads(lambda a, b, c: tops.flash_attention(a, b, c, causal=True), (q, k, v), do)
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        torch.testing.assert_close(a, w, atol=GRAD_TOL, rtol=GRAD_TOL, msg=name)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rms_norm_gradients_match_jax(dtype):
+    rng = np.random.default_rng(16)
+    x, w = _rand(rng, (3, 8, 256)), 1 + 0.1 * _rand(rng, (256,))
+    cot = _rand(rng, x.shape)
+    tdt, jdt, tol = ((torch.float32, jnp.float32, GRAD_TOL) if dtype == "float32"
+                     else (torch.bfloat16, jnp.bfloat16, BF16_TOL))
+    want = _jax_grads(lambda a, b: jops.fused_rms_norm(a, b, epsilon=1e-6), (x, w), cot, jdt)
+    got = _grads(lambda a, b: tops.fused_rms_norm(a, b, epsilon=1e-6), (x, w), cot, tdt)
+    for name, a, b in zip(("dx", "dw"), got, want):
+        assert a.dtype == tdt, name
+        # dw sums 24 rows: its bf16 rounding is relative to its size
+        np.testing.assert_allclose(a.float().numpy(), b, atol=tol * max(1, np.abs(b).max()),
+                                   rtol=tol, err_msg=name)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("split", [False, True])
+def test_swiglu_gradients_match_jax(dtype, split):
+    """Including the split form: the gradient reaches one [rows, 2 * cols]
+    input through the halves' views."""
+    rng = np.random.default_rng(17)
+    x, y = _rand(rng, (2, 8, 384)), _rand(rng, (2, 8, 384))
+    cot = _rand(rng, x.shape)
+    tdt, jdt, tol = ((torch.float32, jnp.float32, GRAD_TOL) if dtype == "float32"
+                     else (torch.bfloat16, jnp.bfloat16, BF16_TOL))
+    if split:
+        xy = np.concatenate([x, y], axis=-1)
+        (want,) = _jax_grads(lambda a: jops.swiglu(a), (xy,), cot, jdt)
+        (got,) = _grads(lambda a: tops.swiglu(a), (xy,), cot, tdt)
+        pairs = [("dxy", got, want)]
+    else:
+        want = _jax_grads(jops.swiglu, (x, y), cot, jdt)
+        got = _grads(tops.swiglu, (x, y), cot, tdt)
+        pairs = list(zip(("dx", "dy"), got, want))
+    for name, a, b in pairs:
+        assert a.dtype == tdt, name
+        np.testing.assert_allclose(a.float().numpy(), b, atol=tol, rtol=tol, err_msg=name)
+
+
 def test_cpu_tensors_take_the_plain_versions():
     tops.reset_launch_counts()
     x = torch.randn(4, 64)
@@ -151,7 +246,8 @@ def test_cpu_tensors_take_the_plain_versions():
     tops.swiglu(x, x)
     tops.flash_attention(torch.randn(1, 8, 2, 64), torch.randn(1, 8, 2, 64),
                          torch.randn(1, 8, 2, 64), causal=True)
-    assert tops.launch_counts() == {"fused_rms_norm": 0, "swiglu": 0, "flash_attention_fwd": 0}
+    assert tops.launch_counts() == {"fused_rms_norm": 0, "swiglu": 0, "flash_attention_fwd": 0,
+                                    "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0}
     with pytest.raises(ValueError, match="devices"):
         tops.use_kernel(x, torch.empty(1, device="meta"))
 

@@ -7,7 +7,8 @@ Builds the ``chip_smoke.py`` phase-3 configuration (LLaMA-7B width, bf16,
 32 layers, batch 4), warms it up, then traces under ``torch.profiler``
 (a) the prefill of the 640-token prompt and (b) one decode ``step()`` of
 D = 8 tokens for 4 resident requests.  For each it prints one JSON line:
-wall time with and without the profiler, device kernel time and its share
+wall time with and without the profiler, the time the card was busy
+(kernel, copy and memset events only, overlaps counted once) and its share
 of the profiled wall time (the rest is the card waiting on the host), and
 the kernels with the most device time.  Needs one CUDA card.
 """
@@ -33,22 +34,62 @@ def _wall(fn):
     return time.perf_counter() - t0
 
 
-def profile(name, fn, plain_wall_s, top=10):
+def card_line():
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def device_events(prof, exclude=()):
+    """The profile's device activity only (kernels, copies, memsets): its
+    CUDA-side events, without the host ops that launched them and without
+    user annotations (named in ``exclude`` too, for torch versions that do
+    not mark them), whose ranges repeat the time of what they enclose."""
     from torch.autograd import DeviceType
+
+    return [e for e in prof.events() if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)
+            and not e.name.startswith("aten::") and e.name not in exclude]
+
+
+def busy_us(events):
+    """Device time covered by at least one of ``events`` (overlaps once)."""
+    total, end = 0.0, float("-inf")
+    for start, stop in sorted((e.time_range.start, e.time_range.end) for e in events):
+        if stop > end:
+            total += stop - max(start, end)
+            end = stop
+    return total
+
+
+def top_kernels(events, top, per=1):
+    """The ``top`` kernel names by device time, each with its launch count
+    and device ms, both divided by ``per``."""
+    by_name = {}
+    for e in events:
+        n, us = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    rows = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]
+    return [{"name": k[:80], "count": n / per, "device_ms": us / 1e3 / per}
+            for k, (n, us) in rows]
+
+
+def profile(name, fn, plain_wall_s, top=10):
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as tprofile
 
     with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         wall = _wall(fn)
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    busy_s = sum(e.self_device_time_total for e in kernels) / 1e6
-    kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    events = device_events(prof)
+    busy_s = busy_us(events) / 1e6
+    if not 0 < busy_s <= wall:
+        raise RuntimeError(f"{name}: device busy {busy_s} s outside (0, wall {wall} s]")
     print(json.dumps({
         "phase": name, "wall_s": plain_wall_s, "profiled_wall_s": wall,
         "device_busy_s": busy_s, "device_busy_share": busy_s / wall,
-        "kernels_launched": sum(e.count for e in kernels),
-        "top_kernels": [{"name": e.key[:80], "count": e.count,
-                         "device_ms": e.self_device_time_total / 1e3} for e in kernels[:top]],
+        "device_kernel_s": sum(e.time_range.elapsed_us() for e in events) / 1e6,
+        "kernels_launched": len(events), "top_kernels": top_kernels(events, top),
     }), flush=True)
 
 
@@ -59,10 +100,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     import chip_smoke
 
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
-    print(card, flush=True)
+    print(card_line(), flush=True)
     with torch.no_grad():
         model, engine, prompts, new = chip_smoke.build_engine()
         longest = max(prompts.values(), key=len)
