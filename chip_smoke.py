@@ -7,22 +7,34 @@ Phases, each of which raises (exit code != 0) on failure:
 
 1. Print the card's name and power limit (nvidia-smi) and build the
    kernels from the sources in this checkout: the CUDA C++ flash-attention
-   forward and backward with nvcc (one process per source, all started
-   together), the two Triton kernels at their first launch.
+   forward and backward and the serving chains (decode_chain.cu) with nvcc
+   (one process per source, all started together), the two Triton kernels
+   at their first launch.
 2. Hold each kernel against its plain PyTorch version on the card at the
    serving and training shapes, in bf16, and time the kernel, the plain
    version and, where one exists, the one PyTorch call that computes the
    same function (a yardstick only: the port never calls it) with CUDA
    events, L2 flushed before every launch.  One JSON line per kernel and
    shape; also the plain backward of RMSNorm and SwiGLU at the training
-   shapes.
+   shapes.  The decode chains (bf16 and int8 pools; the split int8 layout
+   with 2, 4 and 8 splits) at the 7B serving geometry, a GQA one and a ragged
+   one must leave the pools bit-exact (0 differing elements); the prefill
+   chain is held at a 128-token chunk against 128, 256 and 640 positions.
 3. Serve 4 greedy requests (prompts of 17, 128, 250 and 640 tokens, 32 new
-   tokens each) through GenerationEngine on LLaMA-7B at full width, bf16,
-   all 32 layers, random weights from a seeded generator, after one
-   warm-up pass over the same prompts.  Check the
-   streams, that every kernel's launch counter grew by exactly what the
-   run implies, and that the engine's first-token logits match a forward
-   built only from the plain versions.  Print prefill and decode tokens/s.
+   tokens each) on LLaMA-7B at full width, bf16, all 32 layers, random
+   weights from a seeded generator, each engine after one warm-up pass
+   over the same prompts: the default GenerationEngine (the serving chains
+   launch 0 times), then GenerationEngine(kv_cache_dtype="int8" and then
+   "bf16", prefill_chunk=128) with FLAGS_schedule_search on and a fresh
+   FLAGS_autotune_cache_dir, so the searcher measures both chains against
+   their plain twins in every run and must accept both.  For each engine:
+   the streams, that every kernel's launch counter grew by exactly what
+   the run implies, that its first-token logits of the longest prompt
+   (through its own prefill path) match a forward built only from the
+   plain versions; for the chained engines also the searcher's decisions
+   and one decode step with the accepted config against the same step
+   unfused (pools bit-exact).  Print prefill and decode tokens/s, peak
+   memory and the pools' resident bytes.
 4. Train the flagship configuration of bench.py (vocab 32000, hidden
    2048, FFN 5632, 8 layers, 16 heads, bf16) at full width and depth with
    TrainStep and AdamW on one seeded batch of 4 x 1024 tokens: check that
@@ -31,7 +43,8 @@ Phases, each of which raises (exit code != 0) on failure:
    steps, checking every step's launch counts and that the loss falls.
    Print ms a step, tokens/s, the model-FLOP share and peak memory
    (tools/profile_torch_training.py says where the step's time goes).
-5. Print the ``kernels`` JSON line, then the result line.
+5. Print the ``kernels`` JSON line (all eight kernels, launches by main
+   path), then the result line.
 
 The script needs the card: without CUDA, or run from a directory that
 holds nothing else of the repository, it exits with a non-zero code
@@ -44,6 +57,7 @@ import gc
 import importlib
 import json
 import math
+import shutil
 import subprocess
 import sys
 import time
@@ -299,6 +313,118 @@ def check_flash_bwd(timer, F):
     return out
 
 
+def _chain_pools(g, kv, b, w, nkv, h, bs, lens):
+    """Pools over 260 pages as the engine holds them: row i owns pages
+    [i * w, (i + 1) * w), poured with random K/V at its positions before
+    lens - 1 and zeros after (as a prefill pour pads), so a length of
+    bs * k + 1 writes a fresh page whose int8 scale starts from 0."""
+    from paddle_tpu_torch.ops import paged_attention as pa
+
+    pools = pa.alloc_paged_cache(b * w + b, nkv, bs, h, "int8" if kv == "int8" else
+                                 torch.bfloat16, DEVICE)
+    live = (torch.arange(w * bs, device=DEVICE)[None, :]
+            < torch.tensor(lens, device=DEVICE)[:, None] - 1)            # [b, w * bs]
+    live = live.reshape(b * w, 1, bs, 1)
+    for pool in pools:
+        vals = torch.randn(b * w, nkv, bs, h, generator=g, device=DEVICE) * live
+        pa.paged_pour_blocks(pool, vals, torch.arange(b * w, device=DEVICE))
+    return pools
+
+
+def check_decode_chains(timer):
+    """decode_chain_batch (bf16 and int8 pools) and decode_chain_rows (2, 4
+    and 8 splits) against the plain unfused ops on copies of the same pools:
+    the 7B serving geometry, GQA, and a ragged case whose lengths land on
+    a fresh page (bs * k + 1) and on a page's last slot (bs * k)."""
+    from paddle_tpu_torch.ops import decode_chain as dc
+
+    b, w, h, bs = 4, 64, 128, 16  # the phase-3 engine's batch and table width
+    cases = [("7B", 32, 32, [18, 160, 290, 680]), ("GQA", 32, 8, [18, 160, 290, 680]),
+             ("ragged", 32, 32, [17, 32, 161, 256])]
+    kinds = [("decode_chain_batch", "bf16", {"layout": "batch"}),
+             ("decode_chain_batch", "int8", {"layout": "batch"}),
+             ("decode_chain_rows", "int8", {"layout": "rows", "splits": 2}),
+             ("decode_chain_rows", "int8", {"layout": "rows", "splits": 4}),
+             ("decode_chain_rows", "int8", {"layout": "rows", "splits": 8})]
+    out = {"decode_chain_batch": [], "decode_chain_rows": []}
+    g = torch.Generator(device=DEVICE).manual_seed(8)
+    for case, n, nkv, lens in cases:
+        for name, kv, config in kinds:
+            kc, vc = _chain_pools(g, kv, b, w, nkv, h, bs, lens)
+            q = torch.randn(b, n, h, generator=g, device=DEVICE).to(torch.bfloat16)
+            kn, vn = (torch.randn(b, nkv, h, generator=g, device=DEVICE).to(torch.bfloat16)
+                      for _ in range(2))
+            tables = torch.arange(b * w, device=DEVICE).reshape(b, w)
+            lens_t = torch.tensor(lens, device=DEVICE)
+            before = (kc.clone(), vc.clone())
+            ref = (kc.clone(), vc.clone())
+            spec = dc.DecodeChainSpec(b, n, nkv, h, bs, w, b * w + b, kv=kv, device=DEVICE)
+            fn = spec.build(config)
+            o, kc, vc = fn(kc, vc, q, kn, vn, tables, lens_t)
+            want, rk, rv = dc.decode_chain_plain(*ref, q, kn, vn, tables, lens_t)
+            torch.cuda.synchronize()
+            differing = _differing(kc, rk) + _differing(vc, rv)
+            shape = {"case": case, "pools": kv, "config": config, "b": b, "n": n, "nkv": nkv,
+                     "h": h, "bs": bs, "lens": lens}
+            check(differing == 0, f"{name} {shape}: {differing} pool elements differ")
+            err = max_err(o, want)
+            tol = dc._tolerance(torch.bfloat16, kv)
+            check(torch.allclose(o.float(), want.float(), atol=tol, rtol=tol),
+                  f"{name} {shape} disagrees with its plain version: {err}")
+            # the least bytes of this call: each live K/V position read once
+            # (a scale a page for int8), the token written (for int8 the
+            # whole page where its scale grew), q, k_new, v_new, tables,
+            # lens and the output once
+            live, pages = sum(lens), sum(-(-x // bs) for x in lens)
+            if kv == "int8":
+                grew = sum(int((a.scale != p.scale).sum()) for a, p in zip((kc, vc), before))
+                nbytes = 2 * (live * nkv * h + pages * nkv * 4)
+                nbytes += (2 * b * nkv - grew) * h + grew * bs * h + 2 * b * nkv * 4
+            else:
+                nbytes = 2 * live * nkv * h * 2 + 2 * b * nkv * h * 2
+            nbytes += (2 * b * n * h + 2 * b * nkv * h) * 2 + b * w * 8 + b * 8
+            b_ms, b_by = bound_ms(nbytes, 4 * h * n * live, F32_FLOPS)
+            row = {"check": name, "shape": shape, "max_abs_err": err,
+                   "pool_elements_differing": differing,
+                   "ms": timer(lambda: fn(kc, vc, q, kn, vn, tables, lens_t)),
+                   "plain_ms": timer(lambda: dc.decode_chain_plain(rk, rv, q, kn, vn, tables,
+                                                                   lens_t), iters=3, warmup=1),
+                   "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+            out[name].append(row)
+            emit(row)
+    return out
+
+
+def check_prefill_chain(timer, F):
+    """prefill_chain against the plain masked attention: a 128-token chunk
+    against 128, 256 and 640 positions (7B heads), both block_q."""
+    from paddle_tpu_torch.ops import decode_chain as dc
+
+    out, h, n, s = [], 128, 32, 128
+    g = torch.Generator(device=DEVICE).manual_seed(9)
+    for t in (640, 256, 128):
+        q, k, v = _qkv(g, 1, s, t, n, n, h)
+        qt, kt, vt = _library_views(q, k, v)
+        lib = _library_sdpa(F, qt, kt, vt)
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2
+        b_ms, b_by = bound_ms(nbytes, 4 * n * h * _allowed_pairs(s, t, True), BF16_TC_FLOPS)
+        want = dc.prefill_chain_plain(q, k, v)
+        for bq in (128, 64):
+            got = dc.prefill_chain(q, k, v, block_q=bq)
+            torch.cuda.synchronize()
+            err = max_err(got, want)
+            shape = {"q": list(q.shape), "kv": list(k.shape), "block_q": bq}
+            check(torch.allclose(got.float(), want.float(), atol=TOL, rtol=TOL),
+                  f"prefill_chain {shape} disagrees with its plain version: {err}")
+            out.append({"check": "prefill_chain", "shape": shape, "max_abs_err": err,
+                        "ms": timer(lambda: dc.prefill_chain(q, k, v, block_q=bq)),
+                        "plain_ms": timer(lambda: dc.prefill_chain_plain(q, k, v), iters=3,
+                                          warmup=1),
+                        "bound_ms": b_ms, "bound_by": b_by, "library_ms": timer(lib)})
+            emit(out[-1])
+    return out
+
+
 def time_plain_backwards(timer):
     """The plain-torch backward of RMSNorm and SwiGLU at the training
     shapes (no kernel: the JAX package's backward is plain jnp too)."""
@@ -360,11 +486,17 @@ def model_config():
     return llama_7b(dtype="bfloat16")
 
 
-def build_engine():
-    """The phase-3 configuration: the model with seeded random weights,
-    the engine, the prompts and the new-token budget."""
+ENGINE_KW = dict(max_batch=4, block_size=16, num_blocks=256, decode_chunk=8)
+SERVE_NEW = 32  # new tokens a request
+# the searched serving chains: GenerationEngine(model, kv_cache_dtype=...,
+# prefill_chunk=128) under FLAGS_schedule_search, on int8 or bf16 pools
+CHAINED = {"int8": dict(kv_cache_dtype="int8", prefill_chunk=128),
+           "bf16": dict(kv_cache_dtype="bf16", prefill_chunk=128)}
+
+
+def build_model():
+    """LLaMA-7B at full width and depth with seeded random weights."""
     from paddle_tpu_torch.models import LlamaForCausalLM
-    from paddle_tpu_torch.serving import GenerationEngine
 
     cfg = model_config()
     t0 = time.perf_counter()
@@ -374,28 +506,70 @@ def build_engine():
     n_params = sum(p.numel() for p in model.parameters())
     print(f"model: {cfg.num_hidden_layers} layers, hidden {cfg.hidden_size}, {cfg.dtype}, "
           f"{n_params} parameters, built in {time.perf_counter() - t0:.1f} s", flush=True)
-    engine = GenerationEngine(model, max_batch=4, block_size=16, num_blocks=256, decode_chunk=8,
-                              device=DEVICE)
+    return model
+
+
+def serving_prompts(cfg):
     g = torch.Generator().manual_seed(5)
-    prompts = {f"r{s}": torch.randint(0, cfg.vocab_size, (s,), generator=g).tolist()
-               for s in (17, 128, 250, 640)}
-    return model, engine, prompts, 32
+    return {f"r{s}": torch.randint(0, cfg.vocab_size, (s,), generator=g).tolist()
+            for s in (17, 128, 250, 640)}
 
 
-def serve(card):
+def build_engine(model=None, **engine_kw):
+    """The phase-3 configuration: the model (built when not given), an
+    engine over it (``engine_kw`` adds to ENGINE_KW: a CHAINED entry for
+    the chained engines, whose searches need FLAGS_schedule_search on at
+    their first use), the prompts and the new-token budget."""
+    from paddle_tpu_torch.serving import GenerationEngine
+
+    model = model if model is not None else build_model()
+    engine = GenerationEngine(model, **ENGINE_KW, **engine_kw, device=DEVICE)
+    return model, engine, serving_prompts(model.config), SERVE_NEW
+
+
+def expected_counts(engine, lengths, steps):
+    """Every kernel's launches implied by one serving run: the prefill
+    forwards (whole prompts, or prefill_chunk chunks: a chunk the accepted
+    prefill config tiles runs the prefill chain, the rest flash attention),
+    then steps x D decode token iterations (the accepted decode config's
+    kernel, one launch a layer), 2L + 1 RMSNorms and L SwiGLUs a forward."""
+    layers = engine.model.config.num_hidden_layers
+    chunk, pf_cfg = engine.prefill_chunk, engine._prefill_chain_cfg
+    forwards = flash = prefill_chain = 0
+    for s0 in lengths:
+        cuts = ([s0] if chunk is None or s0 <= chunk
+                else [min(chunk, s0 - off) for off in range(0, s0, chunk)])
+        for c in cuts:
+            forwards += 1
+            if chunk is not None and s0 > chunk and pf_cfg and c % pf_cfg["block_q"] == 0:
+                prefill_chain += 1
+            else:
+                flash += 1
+    iters = steps * engine._effective_chunk()
+    want = {"fused_rms_norm": (2 * layers + 1) * (forwards + iters),
+            "swiglu": layers * (forwards + iters), "flash_attention_fwd": layers * flash,
+            "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,  # serving: no backward
+            "decode_chain_batch": 0, "decode_chain_rows": 0,
+            "prefill_chain": layers * prefill_chain}
+    dec_cfg = engine._decode_chain_cfg
+    if dec_cfg:
+        want[f"decode_chain_{dec_cfg['layout']}"] = layers * iters
+    return want
+
+
+def serve_engine(engine, prompts, new):
+    """One warm-up pass over the prompts (cuBLAS picks its algorithms per
+    shape; the chained engines run their searches here), then the measured
+    run with every launch count set to 0 just before it.  Checks the
+    streams and the launch counts."""
     from paddle_tpu_torch import ops
-    from paddle_tpu_torch.models.llama import _model_forward_cached
 
-    model, engine, prompts, new = build_engine()
-    cfg = model.config
-    lengths = [len(p) for p in prompts.values()]
-    # warm-up pass over the same prompts (cuBLAS picks its algorithms per
-    # shape at first use); the measured run repeats it
+    cfg = engine.model.config
     for rid, p in prompts.items():
         engine.add_request("warm-" + rid, p, max_new_tokens=2)
     while engine.has_work():
         engine.step()
-
+    torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -415,42 +589,147 @@ def serve(card):
         stream = engine.result(rid)
         check(len(stream) == new, f"{rid}: {len(stream)} tokens, expected {new}")
         check(all(0 <= t < cfg.vocab_size for t in stream), f"{rid}: token id out of range")
-    n_layers, forwards = cfg.num_hidden_layers, len(lengths) + steps * engine._effective_chunk()
-    want = {"flash_attention_fwd": n_layers * len(lengths),  # prefill only
-            "fused_rms_norm": (2 * n_layers + 1) * forwards,  # prefill and every decode token
-            "swiglu": n_layers * forwards,
-            "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0}  # serving: no backward
+    lengths = [len(p) for p in prompts.values()]
+    want = expected_counts(engine, lengths, steps)
     check(counts == want, f"launch counts {counts} != expected {want}")
+    prefill_tokens, decode_tokens = sum(lengths), len(lengths) * (new - 1)
+    return counts, {"requests": len(lengths), "prompt_lengths": lengths,
+                    "new_tokens_each": new, "decode_chunk": engine._effective_chunk(),
+                    "steps": steps, "launches": counts,
+                    "prefill_s": t1 - t0, "prefill_tokens_per_s": prefill_tokens / (t1 - t0),
+                    "decode_s": t2 - t1, "decode_tokens_per_s": decode_tokens / (t2 - t1),
+                    "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+                    "pool_bytes": engine.pool_bytes()}
 
-    # first-token logits of the longest request: the engine's own prefill
-    # path (kernels) against a forward of plain versions only
+
+def check_first_token(model, engine, ids, want_logits):
+    """The longest request's first-token logits through the engine's own
+    prefill path (whole, or chunked under its accepted prefill config)
+    against a forward of plain versions only."""
+    from paddle_tpu_torch.models.llama import _model_forward_cached, prefill_chain_scope
+
+    cfg = model.config
+    head_dim = cfg.hidden_size // cfg.num_attention_heads
+    caches = [(torch.zeros(1, 0, cfg.num_key_value_heads, head_dim, dtype=cfg.torch_dtype,
+                           device=DEVICE),) * 2 for _ in range(cfg.num_hidden_layers)]
+    chunk, s0 = engine.prefill_chunk, ids.shape[1]
+    with torch.no_grad(), prefill_chain_scope(engine._prefill_chain_cfg if chunk else None):
+        for off in range(0, s0, chunk or s0):
+            h, caches = _model_forward_cached(model.model, ids[:, off:off + (chunk or s0)],
+                                              caches, off)
+        got = model._logits(h[:, -1:, :])[0, -1].float()
+    check(bool(torch.isfinite(got).all()), "non-finite logits")
+    rel = float((got - want_logits).norm() / want_logits.norm())
+    check(rel <= LOGITS_REL_TOL, f"first-token logits: relative L2 {rel} > {LOGITS_REL_TOL}")
+    return got, {"first_token_logits_rel_l2": rel,
+                 "first_token_logits_max_abs_err": float((got - want_logits).abs().max())}
+
+
+def check_chained_step(model, engine):
+    """One decode step with the engine's accepted decode config against the
+    same step unfused, on copies of the engine's pools (4 rows owning
+    disjoint pages, lengths 18, 160, 290, 680).  Each layer's chained and
+    unfused step get the same input (the unfused step's hidden state), so
+    their writes must leave the pools bit-exact; the logits of the whole
+    chained step are held within LOGITS_REL_TOL relative L2 of the
+    unfused one's."""
+    from paddle_tpu_torch.models.llama import _decode_layer_paged, _decode_layers_paged
+
+    mm, b, cfg = model.model, engine.max_batch, engine._decode_chain_cfg
+    w = engine._max_blocks_per_seq
+    tables = torch.arange(b * w, device=DEVICE).reshape(b, w)
+    lens = torch.tensor([18, 160, 290, 680], device=DEVICE)
+    h0 = mm.embed_tokens(torch.tensor([[11], [22], [33], [44]], device=DEVICE))
+    h, differing = h0, 0
+    for layer, kc, vc in zip(mm.layers, engine._kpools, engine._vpools):
+        ref = _decode_layer_paged(layer, h, mm.rope_cos, mm.rope_sin, kc.clone(), vc.clone(),
+                                  tables, lens)
+        got = _decode_layer_paged(layer, h, mm.rope_cos, mm.rope_sin, kc.clone(), vc.clone(),
+                                  tables, lens, cfg)
+        differing += _differing(got[1], ref[1]) + _differing(got[2], ref[2])
+        h = ref[0]
+    check(differing == 0, f"chained decode step: {differing} pool elements differ from unfused")
+    want = model._logits(mm.norm(h))[:, -1].float()
+    hh, _, _ = _decode_layers_paged(mm.layers, h0, mm.rope_cos, mm.rope_sin,
+                                    [p.clone() for p in engine._kpools],
+                                    [p.clone() for p in engine._vpools], tables, lens, cfg)
+    got = model._logits(mm.norm(hh))[:, -1].float()
+    rel = float((got - want).norm() / want.norm())
+    check(rel <= LOGITS_REL_TOL, f"chained decode step: logits relative L2 {rel}")
+    return {"chained_step_pool_elements_differing": differing, "chained_step_logits_rel_l2": rel}
+
+
+def _differing(a, b):
+    """Elements (payload and scales of an int8 pool) that differ."""
+    if hasattr(a, "scale"):
+        return int((a.data != b.data).sum()) + int((a.scale != b.scale).sum())
+    return int((a != b).sum())
+
+
+def _decision(d):
+    return None if d is None else {"status": d.status, "config": d.config,
+                                   "kernel_ms": d.kernel_ms, "plain_ms": d.plain_ms,
+                                   "win": d.win}
+
+
+def serve(card):
+    """Phase 3: the default engine, then the chained int8 and bf16 engines
+    over the same model; returns each path's launch counts."""
+    import tempfile
+
+    from paddle_tpu_torch import set_flags
+    from paddle_tpu_torch.serving import reset_schedule_decode_stats, schedule_decode_stats
+
+    model = build_model()
+    cfg = model.config
+    prompts = serving_prompts(cfg)
     rid = max(prompts, key=lambda r: len(prompts[r]))
     ids = torch.tensor([prompts[rid]], device=DEVICE)
     with torch.no_grad():
-        head_dim = cfg.hidden_size // cfg.num_attention_heads
-        empty = [(torch.zeros(1, 0, cfg.num_key_value_heads, head_dim, dtype=cfg.torch_dtype,
-                              device=DEVICE),) * 2 for _ in range(n_layers)]
-        h, _ = _model_forward_cached(model.model, ids, empty)
-        got = model._logits(h[:, -1:, :])[0, -1].float()
         want_logits = plain_forward(model, ids)[0, -1].float()
-    check(bool(torch.isfinite(got).all()), "non-finite logits")
+    engine_name = f"llama_7b {cfg.dtype} {cfg.num_hidden_layers} layers"
+
+    _, engine, _, new = build_engine(model)
+    counts, result = serve_engine(engine, prompts, new)
+    got, first = check_first_token(model, engine, ids, want_logits)
     check(int(got.argmax()) == engine.result(rid)[0],
           "the engine's first token is not the argmax of its prefill logits")
-    rel = float((got - want_logits).norm() / want_logits.norm())
-    check(rel <= LOGITS_REL_TOL, f"first-token logits: relative L2 {rel} > {LOGITS_REL_TOL}")
-
-    prefill_tokens, decode_tokens = sum(lengths), len(lengths) * (new - 1)
-    result = {"engine": f"llama_7b {cfg.dtype} {n_layers} layers", "card": card,
-              "requests": len(lengths), "prompt_lengths": list(lengths),
-              "new_tokens_each": new, "decode_chunk": engine._effective_chunk(),
-              "steps": steps, "launches": counts,
-              "first_token_logits_rel_l2": rel,
-              "first_token_logits_max_abs_err": float((got - want_logits).abs().max()),
-              "prefill_s": t1 - t0, "prefill_tokens_per_s": prefill_tokens / (t1 - t0),
-              "decode_s": t2 - t1, "decode_tokens_per_s": decode_tokens / (t2 - t1),
-              "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
-    emit(result)
-    return counts
+    paths = {"serving": counts}
+    default_pool_bytes = result["pool_bytes"]
+    emit({"engine": engine_name, "card": card, **result, **first})
+    del engine
+    for kv, kw in CHAINED.items():
+        cache_dir = tempfile.mkdtemp(prefix="autotune-")  # the search runs every smoke run
+        set_flags({"FLAGS_schedule_search": True, "FLAGS_autotune_cache_dir": cache_dir})
+        reset_schedule_decode_stats()
+        try:
+            _, engine, _, _ = build_engine(model, **kw)
+            counts, result = serve_engine(engine, prompts, new)
+            stats = schedule_decode_stats()
+            check(stats["decode_chains_accepted"] == 1 and stats["prefill_chains_accepted"] == 1,
+                  f"{kv} chained engine: a chain lost the measured-win gate: {stats}, "
+                  f"{_decision(engine.decode_decision)}, {_decision(engine.prefill_decision)}")
+            layers = cfg.num_hidden_layers
+            check(counts["prefill_chain"] == 6 * layers
+                  and counts["flash_attention_fwd"] == 3 * layers,
+                  f"{kv} chained engine: prefill launches {counts}")
+            got, first = check_first_token(model, engine, ids, want_logits)
+            check(int(got.argmax()) == engine.result(rid)[0],
+                  f"{kv} chained engine: first token is not the argmax of its prefill logits")
+            with torch.no_grad():
+                step = check_chained_step(model, engine)
+        finally:
+            set_flags({"FLAGS_schedule_search": False, "FLAGS_autotune_cache_dir": ""})
+            shutil.rmtree(cache_dir, ignore_errors=True)
+        paths[f"serving_{kv}_chained"] = counts
+        emit({"engine": f"{engine_name}, {kv} pools, prefill_chunk 128, schedule search",
+              "card": card, **result, **first, **step,
+              "decode_decision": _decision(engine.decode_decision),
+              "prefill_decision": _decision(engine.prefill_decision),
+              "schedule_decode_stats": stats,
+              "pool_bytes_default_engine": default_pool_bytes})
+        del engine
+    return paths
 
 
 def train_config():
@@ -526,7 +805,8 @@ def train(card):
                                   weight_decay=0.01), _loss_fn)
     layers = cfg.num_hidden_layers
     per_step = {"fused_rms_norm": 2 * layers + 1, "swiglu": layers, "flash_attention_fwd": layers,
-                "flash_attention_bwd_dq": layers, "flash_attention_bwd_dkv": layers}
+                "flash_attention_bwd_dq": layers, "flash_attention_bwd_dkv": layers,
+                "decode_chain_batch": 0, "decode_chain_rows": 0, "prefill_chain": 0}
     losses, totals = [], dict.fromkeys(per_step, 0)
     for i in range(warmup + timed):
         if i == warmup:
@@ -596,7 +876,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.perf_counter()
-    logs = _cuda_build.build(["flash_attention_fwd", "flash_attention_bwd"])
+    logs = _cuda_build.build(["flash_attention_fwd", "flash_attention_bwd", "decode_chain"])
     for name, log in logs.items():
         print(f"nvcc {name}:\n{log}", file=sys.stderr)
     print(f"built the CUDA kernels in {time.perf_counter() - t0:.1f} s", flush=True)
@@ -606,24 +886,35 @@ def main() -> int:
         rms = check_rms_norm(timer, F)
         sw = check_swiglu(timer)
         fl = check_flash(timer, F)
+        chains = check_decode_chains(timer)
+        pf = check_prefill_chain(timer, F)
     fb = check_flash_bwd(timer, F)
     with torch.no_grad():
         time_plain_backwards(timer)
-        served = serve(card)
+        paths = serve(card)
     del timer
-    gc.collect()  # the 7B engine is gone with serve(); return its memory
+    gc.collect()  # the 7B engines are gone with serve(); return their memory
     torch.cuda.empty_cache()
-    trained = train(card)
-    for path, counts in (("serving", served), ("training", trained)):
+    paths["training"] = train(card)
+    for path, counts in paths.items():
         ran = [k for k in ("fused_rms_norm", "swiglu", "flash_attention_fwd") if counts[k] > 0]
         check(len(ran) == 3, f"{path}: a forward kernel was never launched: {counts}")
-    check(trained["flash_attention_bwd_dq"] > 0 and trained["flash_attention_bwd_dkv"] > 0,
-          f"training: a backward kernel was never launched: {trained}")
+    check(paths["training"]["flash_attention_bwd_dq"] > 0
+          and paths["training"]["flash_attention_bwd_dkv"] > 0,
+          f"training: a backward kernel was never launched: {paths['training']}")
+    for kv in CHAINED:
+        counts = paths[f"serving_{kv}_chained"]
+        check(counts["prefill_chain"] > 0 and counts["decode_chain_batch"]
+              + counts["decode_chain_rows"] > 0,
+              f"serving_{kv}_chained: a serving chain was never launched: {counts}")
 
     def launches(name):
-        return {"serving": served[name], "training": trained[name]}
+        return {path: counts[name] for path, counts in paths.items()}
 
+    for name in ("decode_chain_batch", "decode_chain_rows"):
+        check(sum(launches(name).values()) > 0, f"{name} was launched on no main path")
     bwd_src = "paddle_tpu_torch/csrc/flash_attention_bwd.cu"
+    chain_src = "paddle_tpu_torch/csrc/decode_chain.cu"
     kernels = [
         summarize("fused_rms_norm", "triton", "paddle_tpu_torch/ops/fused_norm.py",
                   "paddle_tpu/ops/fused_norm.py:42", rms, launches("fused_rms_norm")),
@@ -640,6 +931,12 @@ def main() -> int:
                   "paddle_tpu/ops/flash_attention.py:217", fb,
                   launches("flash_attention_bwd_dkv"), ms="dkv_ms", bound_ms="dkv_bound_ms",
                   bound_by="dkv_bound_by", err=("dk", "dv")),
+        summarize("decode_chain_batch", "cuda", chain_src, "paddle_tpu/ops/decode_chain.py:504",
+                  chains["decode_chain_batch"], launches("decode_chain_batch")),
+        summarize("decode_chain_rows", "cuda", chain_src, "paddle_tpu/ops/decode_chain.py:574",
+                  chains["decode_chain_rows"], launches("decode_chain_rows")),
+        summarize("prefill_chain", "cuda", chain_src, "paddle_tpu/ops/decode_chain.py:917", pf,
+                  launches("prefill_chain")),
     ]
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,7 +2,9 @@
 
 Only the flags this package reads are defined here.  Values come from the
 defaults below, from ``FLAGS_*`` environment variables, or from
-``set_flags``.
+``set_flags``.  Callbacks registered with ``on_change`` run after every
+``set_flags`` that changed a value (the serving engine re-resolves its
+schedule-search verdicts there).
 """
 
 from __future__ import annotations
@@ -10,9 +12,16 @@ from __future__ import annotations
 import os
 from typing import Any
 
-__all__ = ["define_flag", "get_flags", "set_flags", "flag"]
+__all__ = ["define_flag", "get_flags", "set_flags", "flag", "on_change"]
 
 _FLAGS: dict[str, dict[str, Any]] = {}
+_listeners: list = []
+
+
+def on_change(callback):
+    """Register ``callback(changed_names)`` to run after each set_flags()."""
+    _listeners.append(callback)
+    return callback
 
 
 def _coerce(value, default):
@@ -52,11 +61,18 @@ def get_flags(flags=None) -> dict:
 
 
 def set_flags(flags: dict):
+    changed = []
     for name, value in flags.items():
         key = _key(name)
         if key not in _FLAGS:
             raise KeyError(f"unknown flag {key!r}")
-        _FLAGS[key]["value"] = _coerce(value, _FLAGS[key]["default"])
+        new = _coerce(value, _FLAGS[key]["default"])
+        if new != _FLAGS[key]["value"]:
+            _FLAGS[key]["value"] = new
+            changed.append(key)
+    if changed:
+        for cb in list(_listeners):
+            cb(changed)
 
 
 define_flag(
@@ -79,6 +95,50 @@ define_flag(
 define_flag(
     "FLAGS_kv_cache_dtype",
     "bf16",
-    "Paged-KV pool storage dtype: 'bf16' keeps pools in the model's dtype; "
-    "'int8' is not ported",
+    "Paged-KV pool storage dtype for serving.GenerationEngine: 'bf16' "
+    "(default) keeps full-precision pools in the model's serving dtype; "
+    "'int8' stores quantized values with per-block-per-head scales carried "
+    "alongside the pool and dequantized as the decode step reads them "
+    "(ops/paged_attention.QuantPool)",
+)
+define_flag(
+    "FLAGS_schedule_search",
+    False,
+    "Cost-model-driven schedule search (static/schedule_search.py): "
+    "enumerate candidate kernel configs, prune by roofline and the shared-"
+    "memory budget, measure the survivors, and adopt only configs that beat "
+    "the plain twin by the measured-win margin; losing geometries persist "
+    "as disabled in the per-device autotune cache",
+)
+define_flag(
+    "FLAGS_schedule_search_budget",
+    6,
+    "Max schedule candidates measured on device per searched geometry (the "
+    "top-K survivors of the roofline and shared-memory prunes)",
+)
+define_flag(
+    "FLAGS_schedule_search_min_win",
+    1.05,
+    "Measured-win gate margin: a searched kernel config must beat the plain "
+    "twin by at least this ratio or the geometry is recorded as disabled "
+    "for this device kind and never re-measured",
+)
+define_flag(
+    "FLAGS_schedule_search_decode",
+    True,
+    "With FLAGS_schedule_search on, also point the searcher at the serving "
+    "engine's decode hot chain (paged write -> gather -> dequant -> "
+    "attention; ops/decode_chain.py) and its chunked-prefill attention core",
+)
+define_flag(
+    "FLAGS_use_autotune_cache",
+    True,
+    "Consult and persist schedule-search verdicts in the per-device "
+    "autotune cache (ops/autotune.py)",
+)
+define_flag(
+    "FLAGS_autotune_cache_dir",
+    "",
+    "Where the autotune cache is read and saved (empty = "
+    "~/.cache/paddle_tpu_torch/autotune; never the package directory)",
 )

@@ -36,6 +36,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "mma_tiles.cuh"
+
 namespace {
 
 constexpr int kBlockQ = 64;
@@ -43,40 +45,16 @@ constexpr int kBlockK = 64;
 constexpr int kThreads = 128;
 constexpr float kMaskValue = -0.7f * 3.4028234663852886e38f;
 
-__device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const uint32_t (&a)[4],
-                                               uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld32(const uint16_t* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
+using paddle_tiles::ld32;
+using paddle_tiles::mma_bf16_16816;
+using paddle_tiles::pack_bf16;
 
 // Copy rows [row0, row0 + 64) of a [rows, H] strided bf16 matrix into a
 // padded shared tile; rows at or past `rows` are zero-filled.
 template <int H>
 __device__ __forceinline__ void load_tile(uint16_t* dst, const uint16_t* src, int64_t stride,
                                           int row0, int rows) {
-  constexpr int kLd = H + 8;
-  constexpr int kChunks = H / 8;  // 16-byte chunks per row
-  for (int c = threadIdx.x; c < kBlockK * kChunks; c += kThreads) {
-    const int r = c / kChunks;
-    const int col = (c % kChunks) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < rows) {
-      val = *reinterpret_cast<const uint4*>(src + (int64_t)(row0 + r) * stride + col);
-    }
-    *reinterpret_cast<uint4*>(dst + r * kLd + col) = val;
-  }
+  paddle_tiles::load_rows<H, kBlockK, kThreads>(dst, src, stride, row0, rows);
 }
 
 template <int H>

@@ -9,14 +9,19 @@ serving paths the engine runs — the cached prefill
 ``state_dict`` keys, so ``paddle_tpu_torch.convert.load_jax_state_dict``
 carries weights across.
 
-The three kernels of this path sit behind ``RMSNorm`` (fused RMSNorm),
+The kernels of these paths sit behind ``RMSNorm`` (fused RMSNorm),
 ``LlamaMLP`` (SwiGLU) and ``F.scaled_dot_product_attention`` (flash
 attention: the forward kernel in prefill and training, the two backward
 kernels when a loss from ``forward(ids, labels=)`` is differentiated).
+The serving engine can swap in the searched serving chains
+(``ops.decode_chain``): an accepted ``chain_cfg`` makes each decode
+layer's write-write-attend one kernel, and ``prefill_chain_scope`` makes
+each eligible chunked-prefill attention core the prefill-chain kernel.
 """
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 
 import torch
@@ -24,12 +29,34 @@ from torch import nn
 
 from paddle_tpu_torch import ops
 from paddle_tpu_torch._core.device import resolve_device
+from paddle_tpu_torch.ops import decode_chain as dc
 from paddle_tpu_torch.nn import Embedding, Linear, RMSNorm
 from paddle_tpu_torch.nn import functional as F
 from paddle_tpu_torch.ops import paged_attention as pa
 
 __all__ = ["LlamaConfig", "LlamaForCausalLM", "LlamaModel", "LlamaDecoderLayer",
-           "llama_tiny", "llama_7b"]
+           "llama_tiny", "llama_7b", "prefill_chain_scope"]
+
+# The accepted prefill-chain config (PrefillChainSpec) of the chunked
+# prefill the engine is inside, or None.  A module global, not engine
+# state: LlamaAttention.forward is the one place that knows whether this
+# call is the eligible prefill core.
+_PREFILL_CHAIN_CFG = None
+
+
+@contextlib.contextmanager
+def prefill_chain_scope(cfg):
+    """Scope an accepted prefill-chain config over a chunked prefill: inside
+    it every eligible attention core (batch 1, a chunk of more than one
+    token, no mask, a length the config's ``block_q`` divides) runs the
+    prefill-chain kernel; everything else keeps flash attention.
+    ``cfg=None`` is a no-op scope."""
+    global _PREFILL_CHAIN_CFG
+    prev, _PREFILL_CHAIN_CFG = _PREFILL_CHAIN_CFG, cfg
+    try:
+        yield
+    finally:
+        _PREFILL_CHAIN_CFG = prev
 
 
 @dataclass
@@ -108,11 +135,19 @@ class LlamaAttention(nn.Module):
             rep = self.num_heads // self.num_kv_heads
             k = k.repeat_interleave(rep, dim=2)
             v = v.repeat_interleave(rep, dim=2)
-        # an empty-cache prefill is causal; a cached single-token step
-        # attends to everything it has; a multi-token chunk on a cache is
-        # bottom-right causal
-        out = F.scaled_dot_product_attention(q, k, v, attn_mask=attn_mask,
-                                             is_causal=(kv_cache is None) or s > 1)
+        chain = _PREFILL_CHAIN_CFG
+        bq = int(chain.get("block_q", 0)) if chain else 0
+        if chain is not None and attn_mask is None and s > 1 and b == 1 and bq >= 2 \
+                and s % bq == 0:
+            # the chunked-prefill core under prefill_chain_scope: the
+            # accepted config tiles this chunk exactly
+            out = dc.fused_prefill_attention(q, k, v, block_q=bq)
+        else:
+            # an empty-cache prefill is causal; a cached single-token step
+            # attends to everything it has; a multi-token chunk on a cache
+            # is bottom-right causal
+            out = F.scaled_dot_product_attention(q, k, v, attn_mask=attn_mask,
+                                                 is_causal=(kv_cache is None) or s > 1)
         out = self.o_proj(out.reshape(b, s, self.num_heads * self.head_dim))
         if new_cache is not None:
             return out, new_cache
@@ -231,12 +266,15 @@ def _model_forward_cached(model: LlamaModel, input_ids, caches, position_offset=
     return model.norm(h), new_caches
 
 
-def _decode_layer_paged(layer, h, cos, sin, kc, vc, tables, lens):
+def _decode_layer_paged(layer, h, cos, sin, kc, vc, tables, lens, chain_cfg=None):
     """One decoder layer on one new token against the paged KV pools.
 
-    h ``[B, 1, D]``; kc/vc pools ``[num_blocks, Nkv, bs, H]`` (written in
-    place); tables ``[B, max_blocks]``; lens ``[B]`` lengths including this
-    token.  Returns ``(h', kc, vc)``."""
+    h ``[B, 1, D]``; kc/vc pools ``[num_blocks, Nkv, bs, H]`` or QuantPools
+    (written in place); tables ``[B, max_blocks]``; lens ``[B]`` lengths
+    including this token.  ``chain_cfg``: an accepted decode-chain config
+    (ops/decode_chain.py); the write, write, attend below then runs as one
+    kernel.  Only the serving engine passes it, after the measured-win
+    gate.  Returns ``(h', kc, vc)``."""
     attn = layer.self_attn
     residual = h
     x = layer.input_layernorm(h)
@@ -248,19 +286,23 @@ def _decode_layer_paged(layer, h, cos, sin, kc, vc, tables, lens):
     pos = lens - 1
     qv = pa.rope_rotate_by_position(qv, cos, sin, pos)
     kv_ = pa.rope_rotate_by_position(kv_, cos, sin, pos)
-    kc = pa.paged_write(kc, kv_, tables, pos)
-    vc = pa.paged_write(vc, vv, tables, pos)
-    o = pa.paged_decode_attention(qv, kc, vc, tables, lens)
+    if chain_cfg is not None:
+        o, kc, vc = dc.fused_decode_step(kc, vc, qv, kv_, vv, tables, lens, config=chain_cfg)
+    else:
+        kc = pa.paged_write(kc, kv_, tables, pos)
+        vc = pa.paged_write(vc, vv, tables, pos)
+        o = pa.paged_decode_attention(qv, kc, vc, tables, lens)
     h = residual + attn.o_proj(o.reshape(b, 1, n * hd))
     return h + layer.mlp(layer.post_attention_layernorm(h)), kc, vc
 
 
-def _decode_layers_paged(layers, h, cos, sin, kpools, vpools, tables, lens):
-    """Every decoder layer's paged decode step over per-layer pool lists.
+def _decode_layers_paged(layers, h, cos, sin, kpools, vpools, tables, lens, chain_cfg=None):
+    """Every decoder layer's paged decode step over per-layer pool lists,
+    each through the accepted decode-chain config when one is given.
     Returns ``(h, kpools, vpools)``."""
     new_k, new_v = [], []
     for layer, kc, vc in zip(layers, kpools, vpools):
-        h, kc, vc = _decode_layer_paged(layer, h, cos, sin, kc, vc, tables, lens)
+        h, kc, vc = _decode_layer_paged(layer, h, cos, sin, kc, vc, tables, lens, chain_cfg)
         new_k.append(kc)
         new_v.append(vc)
     return h, new_k, new_v

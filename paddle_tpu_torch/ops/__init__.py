@@ -15,8 +15,9 @@ tensor the kernel cannot take raises.
 
 Every wrapper adds one to its launch counter where it launches its
 kernel, and nowhere else, so a run can show that a path went through it.
-Each op is a ``torch.autograd.Function`` on both devices, so gradients
-reach the parameters below a kernel.
+The training kernels are ``torch.autograd.Function``s on both devices, so
+gradients reach the parameters below a kernel; the serving chains of
+``decode_chain`` run under ``no_grad`` only.
 """
 
 from __future__ import annotations
@@ -24,7 +25,8 @@ from __future__ import annotations
 import torch
 
 _LAUNCHES = {"fused_rms_norm": 0, "swiglu": 0, "flash_attention_fwd": 0,
-             "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0}
+             "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,
+             "decode_chain_batch": 0, "decode_chain_rows": 0, "prefill_chain": 0}
 
 
 def launch_counts() -> dict:

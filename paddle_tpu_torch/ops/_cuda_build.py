@@ -2,9 +2,11 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface.  It is compiled by
 nvcc for ``sm_90a`` into ``build/kernels/lib<name>-<hash>.so`` at the root
-of the checkout (the hash is of the source, so an edited source never
-loads a stale library) and loaded with ctypes.  Nothing here runs at
-import time.
+of the checkout (the hash is of the source and of the shared headers
+``csrc/*.cuh``, so an edited source never loads a stale library) and
+loaded with ctypes.  Nothing here runs at import time.  There is no
+``--use_fast_math``: the int8 KV writes of ``decode_chain.cu`` rely on
+IEEE division to write the same bytes as the plain version.
 """
 
 from __future__ import annotations
@@ -37,8 +39,10 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    digest = h.hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

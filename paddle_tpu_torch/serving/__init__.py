@@ -2,19 +2,25 @@
 (counterpart of paddle_tpu/serving/__init__.py ``GenerationEngine``).
 
 Ported: the block allocator with one scratch page per batch lane, request
-admission with a FIFO pending queue under pool pressure, atomic prefill
-through the cached forward and the pour into pool pages, the macro-step
-decode of D tokens per ``step()`` with finished lanes masked onto their
-scratch pages, EOS and ``max_len`` stops, and per-request temperature
-sampling.  In JAX the D-token macro-step is one ``lax.scan`` inside a
-jitted program; here it is a Python loop over eager device work with one
-device-to-host copy per ``step()``.  Options of the JAX engine that this
-package does not port yet raise ``NotImplementedError`` naming their
-ROADMAP item.
+admission with a FIFO pending queue under pool pressure, prefill through
+the cached forward (whole, or in ``prefill_chunk``-token chunks) and the
+pour into pool pages, bf16 or int8 pools (``kv_cache_dtype``), the
+macro-step decode of D tokens per ``step()`` with finished lanes masked
+onto their scratch pages, EOS and ``max_len`` stops, per-request
+temperature sampling, and the schedule searcher's serving chains: with
+``FLAGS_schedule_search`` the engine resolves once, at first use, a
+decode-chain and a prefill-chain verdict for its geometry
+(``_resolve_decode_chain`` / ``_resolve_prefill_chain``) and runs the
+accepted kernels; a flag change re-arms both.  In JAX the D-token
+macro-step is one ``lax.scan`` inside a jitted program; here it is a
+Python loop over eager device work with one device-to-host copy per
+``step()``.  Options of the JAX engine that this package does not port
+yet raise ``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
 
+import weakref
 from collections import deque
 from dataclasses import dataclass, field
 
@@ -23,18 +29,57 @@ import torch
 
 from paddle_tpu_torch._core import flags as _flags
 from paddle_tpu_torch._core.device import resolve_device
-from paddle_tpu_torch.models.llama import _decode_layers_paged, _model_forward_cached
+from paddle_tpu_torch.models.llama import (_decode_layers_paged, _model_forward_cached,
+                                           prefill_chain_scope)
+from paddle_tpu_torch.ops import decode_chain as dc
 from paddle_tpu_torch.ops import paged_attention as pa
 
-__all__ = ["GenerationEngine"]
+__all__ = ["GenerationEngine", "schedule_decode_stats", "reset_schedule_decode_stats"]
 
-_INT8_ITEM = "ROADMAP.md queue A item 3 (int8 pools)"
 _SERVING_ITEM = "ROADMAP.md queue A item 4 (serving features)"
 _DIST_ITEM = "ROADMAP.md queue A item 6 (distributed)"
 
 
 def _not_ported(what: str, item: str):
     return NotImplementedError(f"{what} is not ported yet ({item})")
+
+
+# Serving-chain counters of the schedule search: found = engines that
+# consulted the searcher for their decode (or chunked-prefill) geometry;
+# accepted = engines that adopted a kernel config; disabled = engines that
+# kept the plain ops (a measured loss, a cached loss, or a cached config
+# that failed its parity re-check).
+_SCHED_DECODE_STATS = {
+    "decode_chains_found": 0,
+    "decode_chains_accepted": 0,
+    "decode_chains_disabled": 0,
+    "prefill_chains_found": 0,
+    "prefill_chains_accepted": 0,
+    "prefill_chains_disabled": 0,
+}
+
+
+def schedule_decode_stats() -> dict:
+    return dict(_SCHED_DECODE_STATS)
+
+
+def reset_schedule_decode_stats():
+    for k in _SCHED_DECODE_STATS:
+        _SCHED_DECODE_STATS[k] = 0
+
+
+# Live engines: a flag change re-arms their chain verdicts, which are then
+# resolved again at the next use (the flags decide whether, and which,
+# chain an engine may run).
+_ENGINES: "weakref.WeakSet[GenerationEngine]" = weakref.WeakSet()
+_CHAIN_UNSET = object()
+
+
+@_flags.on_change
+def _rearm_chain_verdicts(_changed):
+    for eng in list(_ENGINES):
+        eng._decode_chain_cfg = _CHAIN_UNSET
+        eng._prefill_chain_cfg = _CHAIN_UNSET
 
 
 @dataclass
@@ -83,8 +128,8 @@ class GenerationEngine:
             raise _not_ported("speculative decoding (draft_model=)", _SERVING_ITEM)
         if adapters is not None:
             raise _not_ported("multi-tenant LoRA serving (adapters=)", _SERVING_ITEM)
-        if prefill_chunk is not None:
-            raise _not_ported("chunked prefill (prefill_chunk=)", _SERVING_ITEM)
+        if prefill_chunk is not None and int(prefill_chunk) < 1:
+            raise ValueError("prefill_chunk must be a positive token count")
         pcb = (prefill_chunk_blocks if prefill_chunk_blocks is not None
                else _flags.flag("FLAGS_prefill_chunk_blocks"))
         if int(pcb) < 0:
@@ -99,8 +144,6 @@ class GenerationEngine:
             "FLAGS_kv_cache_dtype")
         if kv_dt not in ("bf16", "int8"):
             raise ValueError(f"kv_cache_dtype must be 'bf16' or 'int8', got {kv_dt!r}")
-        if kv_dt == "int8":
-            raise _not_ported("int8 KV pools (kv_cache_dtype='int8')", _INT8_ITEM)
         if decode_chunk is not None and int(decode_chunk) < 1:
             raise ValueError("decode_chunk must be >= 1")
 
@@ -117,13 +160,17 @@ class GenerationEngine:
         self._nkv = cfg.num_key_value_heads
         self._head_dim = cfg.hidden_size // cfg.num_attention_heads
         self._decode_chunk = None if decode_chunk is None else int(decode_chunk)
+        self.prefill_chunk = None if prefill_chunk is None else int(prefill_chunk)
+        self._kv_dtype = kv_dt  # resolved once: the pools are allocated now
 
         # pool pages [num_blocks, Nkv, bs, H] per layer, plus one scratch
-        # page per lane (masked lanes write there, never the shared pool)
+        # page per lane (masked lanes write there, never the shared pool);
+        # int8 pools are QuantPools (payload plus per-page scales)
         self._num_blocks = int(num_blocks)
         total = self._num_blocks + self.max_batch
         pools = [pa.alloc_paged_cache(total, self._nkv, self.block_size, self._head_dim,
-                                      cfg.torch_dtype, self.device)
+                                      "int8" if kv_dt == "int8" else cfg.torch_dtype,
+                                      self.device)
                  for _ in range(self._n_layers)]
         self._kpools = [k for k, _ in pools]
         self._vpools = [v for _, v in pools]
@@ -137,6 +184,17 @@ class GenerationEngine:
             np.tile(np.asarray(self._scratch, np.int64)[:, None],
                     (1, self._max_blocks_per_seq)), device=self.device)
         self._req_counter = 0
+        # the schedule searcher's verdicts (Decisions) and the configs the
+        # engine runs, resolved at first use
+        self.decode_decision = self.prefill_decision = None
+        self._decode_chain_cfg = _CHAIN_UNSET
+        self._prefill_chain_cfg = _CHAIN_UNSET
+        _ENGINES.add(self)
+
+    def pool_bytes(self) -> int:
+        """Resident bytes of every layer's K and V pools (scratch pages and
+        int8 scales included)."""
+        return sum(pa.pool_nbytes(p) for p in self._kpools + self._vpools)
 
     # ------------------------------------------------------------ requests
     def has_work(self):
@@ -241,8 +299,18 @@ class GenerationEngine:
             caches = [(torch.zeros((1, 0, self._nkv, self._head_dim),
                                    dtype=model.config.torch_dtype, device=self.device),) * 2
                       for _ in range(self._n_layers)]
-            h, caches = _model_forward_cached(
-                model.model, torch.as_tensor(prompt, device=self.device), caches, 0)
+            ids = torch.as_tensor(prompt, device=self.device)
+            if self.prefill_chunk is None or s0 <= self.prefill_chunk:
+                h, caches = _model_forward_cached(model.model, ids, caches, 0)
+            else:
+                # fixed-size chunks through the cached forward (bottom-right
+                # causal against the cache so far) cap the activations of a
+                # long prompt; an accepted prefill-chain config runs each
+                # divisible chunk's attention core as its kernel
+                with prefill_chain_scope(self._resolve_prefill_chain()):
+                    for off in range(0, s0, self.prefill_chunk):
+                        h, caches = _model_forward_cached(
+                            model.model, ids[:, off:off + self.prefill_chunk], caches, off)
             logits_last = model._logits(h[:, -1:, :])[0, -1, :]
             self._pour(caches, blocks, s0)
         except BaseException:
@@ -295,6 +363,59 @@ class GenerationEngine:
             return self._decode_chunk
         return max(1, int(_flags.flag("FLAGS_decode_chunk")))
 
+    def _resolve_decode_chain(self):
+        """The engine's decode-chain verdict, resolved once (and again after
+        a flag change): with FLAGS_schedule_search and
+        FLAGS_schedule_search_decode on, the searcher serves this geometry's
+        cached verdict or searches it (parity against the plain twin, then
+        the measured-win gate); an accepted config makes every decode layer
+        run as one kernel launch, anything else keeps the plain ops."""
+        if self._decode_chain_cfg is not _CHAIN_UNSET:
+            return self._decode_chain_cfg
+        cfg = None
+        if _flags.flag("FLAGS_schedule_search") and _flags.flag("FLAGS_schedule_search_decode"):
+            _SCHED_DECODE_STATS["decode_chains_found"] += 1
+            spec = dc.DecodeChainSpec(
+                batch=self.max_batch, num_heads=self.model.config.num_attention_heads,
+                num_kv_heads=self._nkv, head_dim=self._head_dim, block_size=self.block_size,
+                max_blocks=self._max_blocks_per_seq,
+                num_blocks=self._num_blocks + self.max_batch, kv=self._kv_dtype,
+                dtype=self.model.config.dtype, device=self.device)
+            self.decode_decision = dc.ensure_decision(spec)
+            if self.decode_decision.accepted:
+                cfg = dict(self.decode_decision.config)
+                _SCHED_DECODE_STATS["decode_chains_accepted"] += 1
+            else:
+                _SCHED_DECODE_STATS["decode_chains_disabled"] += 1
+        self._decode_chain_cfg = cfg
+        return cfg
+
+    def _resolve_prefill_chain(self):
+        """The chunked-prefill twin of ``_resolve_decode_chain``: engines
+        with a ``prefill_chunk`` search the canonical mid-prompt geometry,
+        a chunk of ``prefill_chunk`` tokens against twice as many cached
+        positions; an accepted config runs every chunk it tiles as the
+        prefill-chain kernel."""
+        if self._prefill_chain_cfg is not _CHAIN_UNSET:
+            return self._prefill_chain_cfg
+        cfg = None
+        eff = self.prefill_chunk
+        if (eff is not None and eff >= 2 and _flags.flag("FLAGS_schedule_search")
+                and _flags.flag("FLAGS_schedule_search_decode")):
+            _SCHED_DECODE_STATS["prefill_chains_found"] += 1
+            spec = dc.PrefillChainSpec(seq=eff, kv_len=2 * eff,
+                                       num_heads=self.model.config.num_attention_heads,
+                                       head_dim=self._head_dim,
+                                       dtype=self.model.config.dtype, device=self.device)
+            self.prefill_decision = dc.ensure_decision(spec)
+            if self.prefill_decision.accepted:
+                cfg = dict(self.prefill_decision.config)
+                _SCHED_DECODE_STATS["prefill_chains_accepted"] += 1
+            else:
+                _SCHED_DECODE_STATS["prefill_chains_disabled"] += 1
+        self._prefill_chain_cfg = cfg
+        return cfg
+
     @torch.no_grad()
     def _decode(self, chunk, tokens, tables, lens, max_lens, done):
         """``chunk`` decode tokens for every lane, all on the device:
@@ -307,6 +428,7 @@ class GenerationEngine:
         samplers = [(i, s.temperature, s.generator) for i, s in enumerate(self._slots)
                     if s.active and s.temperature > 0.0]
         eos = self.eos_token_id
+        chain_cfg = self._resolve_decode_chain()
         out = []
         for _ in range(chunk):
             tables_eff = torch.where(done[:, None], self._scratch_tables, tables)
@@ -314,7 +436,7 @@ class GenerationEngine:
             h = mm.embed_tokens(tokens)
             h, self._kpools, self._vpools = _decode_layers_paged(
                 mm.layers, h, mm.rope_cos, mm.rope_sin, self._kpools, self._vpools,
-                tables_eff, lens_eff)
+                tables_eff, lens_eff, chain_cfg)
             lg = model._logits(mm.norm(h))[:, -1, :]
             nxt = torch.argmax(lg, dim=-1)
             for i, temperature, generator in samplers:

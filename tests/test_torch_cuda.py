@@ -9,7 +9,10 @@ not installed:
 Tolerances are bf16's: 2e-2 (one bf16 rounding of the output; the flash
 kernel also rounds P to bf16 before the P V product).  The backward
 kernels round P and dS to bf16 before their products and each gradient
-once at the end; they are held at 2e-2 absolute and relative too.
+once at the end; they are held at 2e-2 absolute and relative too.  The
+serving chains (``ops.decode_chain``) write the pools bit-exactly as their
+plain versions do (count of differing elements 0) and hold the attention
+output at 2e-2 for bf16 outputs and int8 pools, 2e-5 for f32.
 """
 
 import pytest
@@ -103,7 +106,8 @@ def test_backward_reaches_every_parameter(cuda):
     loss.backward()
     counts = ops.launch_counts()
     assert counts == {"fused_rms_norm": 5, "swiglu": 2, "flash_attention_fwd": 2,
-                      "flash_attention_bwd_dq": 2, "flash_attention_bwd_dkv": 2}
+                      "flash_attention_bwd_dq": 2, "flash_attention_bwd_dkv": 2,
+                      "decode_chain_batch": 0, "decode_chain_rows": 0, "prefill_chain": 0}
     assert torch.isfinite(loss)
     for name, p in model.named_parameters():
         assert p.grad is not None, name
@@ -131,3 +135,139 @@ def test_time_step_ms_on_the_card(cuda):
     ms = time_step_ms(lambda: calls.append(x.mul_(1.0)), inner=3, samples=2)
     synchronize()
     assert ms > 0 and len(calls) == 6
+
+
+# ------------------------------------------------------------ serving chains
+
+
+def _chain_args(device, b, n, nkv, h, bs, w, lens, kv, dtype, seed=5):
+    """Pools with every row owning disjoint random pages, plus the decode
+    step's q, k_new, v_new, tables and lens."""
+    from paddle_tpu_torch.ops import paged_attention as pa
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    nb = b * w + b
+    kc, vc = pa.alloc_paged_cache(nb, nkv, bs, h, "int8" if kv == "int8" else dtype, device)
+    ids = torch.arange(b * w, device=device).reshape(b, w)
+    for pool in (kc, vc):
+        pa.paged_pour_blocks(pool, torch.randn(b * w, nkv, bs, h, generator=g, device=device),
+                             ids.reshape(-1))
+
+    def rnd(*shape):
+        return (3 * torch.randn(*shape, generator=g, device=device)).to(dtype)
+
+    return (kc, vc, rnd(b, n, h), rnd(b, nkv, h), rnd(b, nkv, h), ids,
+            torch.tensor(lens, device=device))
+
+
+def _pools_equal(a, b):
+    from paddle_tpu_torch.ops import paged_attention as pa
+
+    if isinstance(a, pa.QuantPool):
+        return int((a.data != b.data).sum() + (a.scale != b.scale).sum())
+    return int((a != b).sum())
+
+
+@pytest.mark.parametrize("kv,dtype", [("bf16", torch.bfloat16), ("int8", torch.bfloat16),
+                                      ("bf16", torch.float32), ("int8", torch.float32)])
+@pytest.mark.parametrize("layout", ["batch", "rows2", "rows4"])
+@pytest.mark.parametrize("n,nkv,h,bs,lens", [
+    (4, 4, 128, 16, [18, 160, 290, 680]),
+    (8, 2, 64, 8, [1, 9, 16, 33]),     # fresh block (bs*k + 1) and a block's last slot
+    (32, 8, 128, 16, [17, 32, 49, 64])])
+def test_decode_chain_kernels(cuda, kv, dtype, layout, n, nkv, h, bs, lens):
+    from paddle_tpu_torch.ops import decode_chain as dc
+
+    if layout != "batch" and kv != "int8":
+        pytest.skip("the rows layout is for int8 pools only")
+    w = max(-(-x // bs) for x in lens) + 1
+    args = _chain_args(cuda, len(lens), n, nkv, h, bs, w, lens, kv, dtype)
+    ref_args = (args[0].clone(), args[1].clone()) + args[2:]
+    fn = dc.DecodeChainSpec(len(lens), n, nkv, h, bs, w, len(lens) * (w + 1), kv=kv,
+                            dtype=dtype, device=cuda).build(
+        {"layout": "batch"} if layout == "batch" else {"layout": "rows",
+                                                       "splits": int(layout[4:])})
+    name = "decode_chain_batch" if layout == "batch" else "decode_chain_rows"
+    before = ops.launch_counts()[name]
+    o, kc, vc = fn(*args)
+    assert ops.launch_counts()[name] == before + 1
+    r_o, r_kc, r_vc = dc.decode_chain_plain(*ref_args)
+    torch.cuda.synchronize()
+    assert _pools_equal(kc, r_kc) == 0 and _pools_equal(vc, r_vc) == 0
+    tol = dc._tolerance(dtype, kv)
+    assert o.dtype == dtype
+    torch.testing.assert_close(o.float(), r_o.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype,h", [(torch.bfloat16, 128), (torch.float32, 64),
+                                     (torch.float32, 128)])
+@pytest.mark.parametrize("block_q", [64, 128])
+@pytest.mark.parametrize("t", [128, 256, 640])
+def test_prefill_chain_kernel(cuda, dtype, h, block_q, t):
+    from paddle_tpu_torch.ops import decode_chain as dc
+
+    g = torch.Generator(device=cuda).manual_seed(6)
+    q = torch.randn(1, 128, 4, h, generator=g, device=cuda).to(dtype)
+    k = torch.randn(1, t, 4, h, generator=g, device=cuda).to(dtype)
+    v = torch.randn(1, t, 4, h, generator=g, device=cuda).to(dtype)
+    before = ops.launch_counts()["prefill_chain"]
+    got = dc.prefill_chain(q, k, v, block_q=block_q)
+    assert ops.launch_counts()["prefill_chain"] == before + 1
+    torch.cuda.synchronize()
+    tol = dc._tolerance(dtype)
+    torch.testing.assert_close(got.float(), dc.prefill_chain_plain(q, k, v).float(),
+                               atol=tol, rtol=tol)
+
+
+def test_chains_refuse_what_they_do_not_take(cuda):
+    from paddle_tpu_torch.ops import decode_chain as dc
+
+    args = _chain_args(cuda, 2, 4, 4, 128, 16, 2, [3, 5], "bf16", torch.bfloat16)
+    with pytest.raises(ValueError, match="int8"):
+        dc.decode_chain_rows(*args, splits=2)
+    args = _chain_args(cuda, 2, 4, 4, 96, 16, 2, [3, 5], "bf16", torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim"):
+        dc.decode_chain_batch(*args)
+    q = torch.zeros(1, 64, 2, 128, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="block_q"):
+        dc.prefill_chain(q, q, q, block_q=32)
+
+
+def test_chained_decode_step_matches_unfused(cuda):
+    """One step of every layer through the decode chain against the same
+    step unfused, on copies of the same int8 pools."""
+    from paddle_tpu_torch.models import LlamaForCausalLM, llama_tiny
+    from paddle_tpu_torch.models.llama import _decode_layers_paged
+
+    g = torch.Generator(device=cuda).manual_seed(7)
+    model = LlamaForCausalLM(llama_tiny(num_hidden_layers=2, num_key_value_heads=2),
+                             device=cuda, generator=g)
+    mm = model.model
+    b, w, bs = 3, 4, 16
+    kc, vc, _, _, _, tables, lens = _chain_args(cuda, b, 4, 2, 64, bs, w, [7, 17, 40], "int8",
+                                                torch.bfloat16)
+    pools = [(kc.clone(), vc.clone()) for _ in range(2)]
+    h = mm.embed_tokens(torch.tensor([[3], [9], [27]], device=cuda))
+    outs = []
+    with torch.no_grad():
+        for cfg in (None, {"layout": "batch"}):
+            kp = [p[0].clone() for p in pools]
+            vp = [p[1].clone() for p in pools]
+            hh, kp, vp = _decode_layers_paged(mm.layers, h, mm.rope_cos, mm.rope_sin, kp, vp,
+                                              tables, lens, cfg)
+            outs.append((model._logits(mm.norm(hh)).float(), kp, vp))
+    (ref, rk, rv), (got, gk, gv) = outs
+    assert all(_pools_equal(a, b) == 0 for a, b in zip(rk + rv, gk + gv))
+    assert float((got - ref).norm() / ref.norm()) <= TOL
+
+
+def test_cost_model_times_the_device(cuda):
+    """The searcher's measurement on the card: device time of a call,
+    positive, and larger for a call that does 8x the work."""
+    from paddle_tpu_torch.cost_model import OpCostModel
+
+    cm = OpCostModel(cuda)
+    x = torch.ones(1 << 22, device=cuda)
+    small = cm.measure("add", lambda a: a + 1, x)
+    big = cm.measure("add8", lambda a: [a + 1 for _ in range(8)], x)
+    assert 0 < small < big

@@ -37,7 +37,9 @@ def _is_reference(module: str) -> bool:
 def test_import_loads_no_jax_and_no_paddle_tpu():
     code = ("import sys, paddle_tpu_torch, paddle_tpu_torch.serving, paddle_tpu_torch.convert,"
             " paddle_tpu_torch.optimizer, paddle_tpu_torch.jit, paddle_tpu_torch.device,"
-            " paddle_tpu_torch.nn.clip, paddle_tpu_torch.optimizer.lr;"
+            " paddle_tpu_torch.nn.clip, paddle_tpu_torch.optimizer.lr,"
+            " paddle_tpu_torch.ops.decode_chain, paddle_tpu_torch.ops.autotune,"
+            " paddle_tpu_torch.static.schedule_search, paddle_tpu_torch.cost_model;"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'paddle_tpu'));"
             "print(bad); sys.exit(1 if bad else 0)")
@@ -160,3 +162,37 @@ def test_entry_points_default_to_cuda():
         time_step_ms(lambda: None)
     with pytest.raises(RuntimeError, match="CUDA"):
         synchronize()
+
+
+def test_chained_int8_run_never_reaches_library_kernels(monkeypatch, tmp_path):
+    """The int8, chunked-prefill engine with both serving chains adopted
+    runs on the CPU without torch's attention or any jax module."""
+    import sys
+
+    def _refuse(*args, **kwargs):
+        raise AssertionError("the port called a library kernel")
+
+    monkeypatch.setattr(torch.nn.functional, "scaled_dot_product_attention", _refuse)
+    from paddle_tpu_torch import set_flags
+    from paddle_tpu_torch.models import LlamaForCausalLM, llama_tiny
+    from paddle_tpu_torch.serving import GenerationEngine
+    from paddle_tpu_torch.static.schedule_search import measure_override
+
+    loaded = {m for m in sys.modules if m.split(".")[0] in ("jax", "paddle_tpu")}
+    g = torch.Generator().manual_seed(0)
+    model = LlamaForCausalLM(llama_tiny(num_hidden_layers=1, dtype="float32"), device="cpu",
+                             generator=g)
+    set_flags({"FLAGS_schedule_search": True, "FLAGS_autotune_cache_dir": str(tmp_path)})
+    try:
+        with measure_override(lambda fn, args, *, label, config: 1.0 if config else 2.0):
+            eng = GenerationEngine(model, max_batch=2, block_size=8, num_blocks=32,
+                                   device="cpu", decode_chunk=2, kv_cache_dtype="int8",
+                                   prefill_chunk=64)
+            eng.add_request("a", list(range(1, 70)), max_new_tokens=4)
+            while eng.has_work():
+                eng.step()
+    finally:
+        set_flags({"FLAGS_schedule_search": False, "FLAGS_autotune_cache_dir": ""})
+    assert eng._decode_chain_cfg and eng._prefill_chain_cfg
+    assert len(eng.result("a")) == 4
+    assert {m for m in sys.modules if m.split(".")[0] in ("jax", "paddle_tpu")} == loaded

@@ -247,7 +247,9 @@ def test_cpu_tensors_take_the_plain_versions():
     tops.flash_attention(torch.randn(1, 8, 2, 64), torch.randn(1, 8, 2, 64),
                          torch.randn(1, 8, 2, 64), causal=True)
     assert tops.launch_counts() == {"fused_rms_norm": 0, "swiglu": 0, "flash_attention_fwd": 0,
-                                    "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0}
+                                    "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,
+                                    "decode_chain_batch": 0, "decode_chain_rows": 0,
+                                    "prefill_chain": 0}
     with pytest.raises(ValueError, match="devices"):
         tops.use_kernel(x, torch.empty(1, device="meta"))
 
@@ -333,5 +335,10 @@ def test_pour_alloc_and_rope_rotation():
     got1 = tpa.rope_rotate_by_position(torch.from_numpy(t[:, 0]), torch.from_numpy(cos),
                                        torch.from_numpy(sin), torch.from_numpy(pos[:, 0]))
     np.testing.assert_allclose(got1.numpy(), np.asarray(want1), atol=F32_TOL, rtol=F32_TOL)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpa.alloc_paged_cache(5, 2, 4, 8, "int8")
+    # int8 allocates QuantPools of the JAX package's shapes and dtypes (the
+    # int8 arithmetic is tests/test_torch_decode_chain.py's)
+    jq, _ = jpa.alloc_paged_cache(5, 2, 4, 8, jnp.int8)
+    tq, _ = tpa.alloc_paged_cache(5, 2, 4, 8, "int8")
+    assert isinstance(tq, tpa.QuantPool)
+    assert tq.data.dtype == torch.int8 and tq.scale.dtype == torch.float32
+    assert (tuple(tq.data.shape), tuple(tq.scale.shape)) == (jq.data.shape, jq.scale.shape)

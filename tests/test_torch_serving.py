@@ -139,8 +139,7 @@ def test_unported_options_raise(models):
     _, tm = models
     kw = dict(max_batch=1, block_size=8, num_blocks=8, device="cpu")
     for bad in (dict(mesh=object()), dict(draft_model=tm), dict(adapters=4),
-                dict(kv_cache_dtype="int8"), dict(prefix_cache=True),
-                dict(prefill_chunk=4), dict(prefill_chunk_blocks=1)):
+                dict(prefix_cache=True), dict(prefill_chunk_blocks=1)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             GenerationEngine(tm, **kw, **bad)
     eng = GenerationEngine(tm, **kw)
