@@ -7,9 +7,9 @@ Phases, each of which raises (exit code != 0) on failure:
 
 1. Print the card's name and power limit (nvidia-smi) and build the
    kernels from the sources in this checkout: the CUDA C++ flash-attention
-   forward and backward and the serving chains (decode_chain.cu) with nvcc
-   (one process per source, all started together), the two Triton kernels
-   at their first launch.
+   forward and backward, the serving chains (decode_chain.cu) and the
+   matmul epilogue with nvcc (one process per source, all started
+   together), the three Triton kernels at their first launch.
 2. Hold each kernel against its plain PyTorch version on the card at the
    serving and training shapes, in bf16, and time the kernel, the plain
    version and, where one exists, the one PyTorch call that computes the
@@ -20,6 +20,10 @@ Phases, each of which raises (exit code != 0) on failure:
    with 2, 4 and 8 splits) at the 7B serving geometry, a GQA one and a ragged
    one must leave the pools bit-exact (0 differing elements); the prefill
    chain is held at a 128-token chunk against 128, 256 and 640 positions.
+   The fused LayerNorm at BERT-base's [4096, 768] rows (bf16 with and
+   without the residual, f32) and a ragged hidden size; the matmul
+   epilogue at BERT-base's FFN product for every activation, with and
+   without bias, in bf16 and f32, and at an odd shape (M 100, K 72, N 130).
 3. Serve 4 greedy requests (prompts of 17, 128, 250 and 640 tokens, 32 new
    tokens each) on LLaMA-7B at full width, bf16, all 32 layers, random
    weights from a seeded generator, each engine after one warm-up pass
@@ -43,7 +47,17 @@ Phases, each of which raises (exit code != 0) on failure:
    steps, checking every step's launch counts and that the loss falls.
    Print ms a step, tokens/s, the model-FLOP share and peak memory
    (tools/profile_torch_training.py says where the step's time goes).
-5. Print the ``kernels`` JSON line (all eight kernels, launches by main
+5. Run BERT-base (12 layers, hidden 768, bf16, seeded random weights)
+   through the static Program tier: capture
+   BertForSequenceClassification under static.program_guard, run
+   static.Executor (its PallasFusionPass puts the 25 residual adds +
+   LayerNorms and the 12 linear + GELUs on the fused LayerNorm and
+   matmul-epilogue kernels) on batches of 32 x 128 ids with ragged padding.
+   Checks the op counts after the pass, every run's launches, and the
+   logits against the eager forward, the unfused program (the flag
+   FLAGS_use_pallas_fusion off) and the f32 forward of the same weights;
+   prints ms a batch, sequences/s, tokens/s and peak memory.
+6. Print the ``kernels`` JSON line (all ten kernels, launches by main
    path), then the result line.
 
 The script needs the card: without CUDA, or run from a directory that
@@ -53,6 +67,7 @@ before printing any result.  It imports nothing of JAX or paddle_tpu.
 
 from __future__ import annotations
 
+import copy
 import gc
 import importlib
 import json
@@ -425,6 +440,124 @@ def check_prefill_chain(timer, F):
     return out
 
 
+F32_TOL_LN = 2e-5              # f32 LayerNorm: kernel and plain sum in other orders
+F32_TOL_MM = 1e-4              # f32 matmul epilogue: FMA vs the plain product, K <= 768
+
+
+def check_layer_norm(timer, F):
+    """fused_layer_norm against its plain version: BERT-base rows [4096,
+    768] in bf16 with and without the residual, in f32, and a ragged
+    hidden size (1000).  The written sum x + r must be bit-exact."""
+    from paddle_tpu_torch import ops
+    from paddle_tpu_torch.ops.fused_norm import layer_norm_plain
+
+    out, eps = [], 1e-12
+    g = torch.Generator(device=DEVICE).manual_seed(11)
+    for rows, hidden, dtype, residual in ((4096, 768, torch.bfloat16, True),
+                                          (4096, 768, torch.bfloat16, False),
+                                          (4096, 768, torch.float32, True),
+                                          (4096, 1000, torch.bfloat16, True)):
+        x = torch.randn(rows, hidden, generator=g, device=DEVICE).to(dtype)
+        r = torch.randn(rows, hidden, generator=g, device=DEVICE).to(dtype) if residual else None
+        w = (1 + 0.1 * torch.randn(hidden, generator=g, device=DEVICE)).to(dtype)
+        b = (0.1 * torch.randn(hidden, generator=g, device=DEVICE)).to(dtype)
+        tol = TOL if dtype == torch.bfloat16 else F32_TOL_LN
+
+        def kernel():
+            return ops.fused_layer_norm(x, w, b, epsilon=eps, residual=r)
+
+        def plain():
+            s = x + r if residual else x
+            return layer_norm_plain(s, w, b, eps), s
+
+        got, want = kernel(), plain()
+        if not residual:
+            got = (got, x)
+        torch.cuda.synchronize()
+        err = max_err(got[0], want[0])
+        shape = {"rows": [rows, hidden], "dtype": str(dtype).split(".")[-1],
+                 "residual": residual}
+        check(torch.allclose(got[0].float(), want[0].float(), atol=tol, rtol=tol),
+              f"fused_layer_norm {shape} disagrees with its plain version: {err}")
+        check(torch.equal(got[1], want[1]), f"fused_layer_norm {shape}: x + r is not bit-exact")
+        elt = x.element_size()
+        nbytes = ((4 if residual else 2) * x.numel() + 2 * hidden) * elt
+        b_ms, b_by = bound_ms(nbytes, (9 if residual else 8) * x.numel(), F32_FLOPS)
+        out.append({"check": "fused_layer_norm", "shape": shape, "max_abs_err": err,
+                    "tolerance": tol, "ms": timer(kernel), "plain_ms": timer(plain),
+                    "bound_ms": b_ms, "bound_by": b_by,
+                    "library_ms": timer(lambda: F.layer_norm(x + r if residual else x, (hidden,),
+                                                             w, b, eps))})
+        emit(out[-1])
+    return out
+
+
+def _library_epilogue(F, x, w, bias, act):
+    """One PyTorch call (two where no single call applies the activation)
+    computing act(x @ w + bias): the yardstick only."""
+    pre = (lambda: torch.addmm(bias, x, w)) if bias is not None else (lambda: torch.mm(x, w))
+    post = {"none": lambda v: v, "relu": F.relu, "gelu": F.gelu, "silu": F.silu,
+            "gelu_tanh": lambda v: F.gelu(v, approximate="tanh")}[act]
+    return lambda: post(pre())
+
+
+def check_matmul_epilogue(timer, F):
+    """matmul_bias_act against its plain version: BERT-base's FFN product
+    [4096, 768] x [768, 3072] for every activation, with and without bias,
+    in bf16 and f32, and an odd shape (M 100, K 72, N 130).  The first row
+    (gelu with bias in bf16, the main path's call) comes first."""
+    from paddle_tpu_torch import ops
+    from paddle_tpu_torch.ops.matmul_epilogue import ACTIVATIONS, matmul_bias_act_plain
+
+    out = []
+    g = torch.Generator(device=DEVICE).manual_seed(12)
+    acts = ["gelu"] + [a for a in ACTIVATIONS if a != "gelu"]
+    cases = [(4096, 768, 3072, dt, act, bias) for dt in (torch.bfloat16, torch.float32)
+             for act in acts for bias in (True, False)]
+    cases += [(100, 72, 130, dt, act, True) for dt in (torch.bfloat16, torch.float32)
+              for act in acts]
+    for m, k, n, dtype, act, bias in cases:
+        x = (torch.randn(m, k, generator=g, device=DEVICE) / k ** 0.5).to(dtype)
+        w = torch.randn(k, n, generator=g, device=DEVICE).to(dtype)
+        bvec = (0.5 * torch.randn(n, generator=g, device=DEVICE)).to(dtype) if bias else None
+        got = ops.matmul_bias_act(x, w, bvec, act)
+        want = matmul_bias_act_plain(x, w, bvec, act)
+        torch.cuda.synchronize()
+        err = max_err(got, want)
+        tol = TOL if dtype == torch.bfloat16 else F32_TOL_MM
+        shape = {"mkn": [m, k, n], "dtype": str(dtype).split(".")[-1], "activation": act,
+                 "bias": bias}
+        check(torch.allclose(got.float(), want.float(), atol=tol, rtol=tol),
+              f"matmul_bias_act {shape} disagrees with its plain version: {err}")
+        elt = x.element_size()
+        nbytes = (m * k + k * n + m * n + (n if bias else 0)) * elt
+        peak = BF16_TC_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
+        b_ms, b_by = bound_ms(nbytes, 2 * m * n * k, peak)
+        out.append({"check": "matmul_epilogue", "shape": shape, "max_abs_err": err,
+                    "tolerance": tol,
+                    "ms": timer(lambda: ops.matmul_bias_act(x, w, bvec, act)),
+                    "plain_ms": timer(lambda: matmul_bias_act_plain(x, w, bvec, act)),
+                    "bound_ms": b_ms, "bound_by": b_by,
+                    "library_ms": timer(_library_epilogue(F, x, w, bvec, act))})
+        emit(out[-1])
+    return out
+
+
+def triton_resources():
+    """Registers, spills and shared memory of every compiled variant of
+    the three Triton kernels (read from the JIT's cache after phase 2)."""
+    fused_norm = importlib.import_module("paddle_tpu_torch.ops.fused_norm")
+    swiglu = importlib.import_module("paddle_tpu_torch.ops.swiglu")
+    kernels = {"fused_rms_norm": fused_norm._KERNELS["_rms_norm_kernel"],
+               "fused_layer_norm": fused_norm._KERNELS["_layer_norm_kernel"],
+               "swiglu": swiglu._KERNEL}
+    out = {name: [{"registers": ck.n_regs, "spills": ck.n_spills,
+                   "shared_bytes": ck.metadata.shared}
+                  for entry in jit.device_caches.values() for ck in entry[0].values()]
+           for name, jit in kernels.items()}
+    emit({"triton_resources": out})
+
+
 def time_plain_backwards(timer):
     """The plain-torch backward of RMSNorm and SwiGLU at the training
     shapes (no kernel: the JAX package's backward is plain jnp too)."""
@@ -550,7 +683,8 @@ def expected_counts(engine, lengths, steps):
             "swiglu": layers * (forwards + iters), "flash_attention_fwd": layers * flash,
             "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,  # serving: no backward
             "decode_chain_batch": 0, "decode_chain_rows": 0,
-            "prefill_chain": layers * prefill_chain}
+            "prefill_chain": layers * prefill_chain,
+            "fused_layer_norm": 0, "matmul_epilogue": 0}  # LLaMA has neither
     dec_cfg = engine._decode_chain_cfg
     if dec_cfg:
         want[f"decode_chain_{dec_cfg['layout']}"] = layers * iters
@@ -806,7 +940,8 @@ def train(card):
     layers = cfg.num_hidden_layers
     per_step = {"fused_rms_norm": 2 * layers + 1, "swiglu": layers, "flash_attention_fwd": layers,
                 "flash_attention_bwd_dq": layers, "flash_attention_bwd_dkv": layers,
-                "decode_chain_batch": 0, "decode_chain_rows": 0, "prefill_chain": 0}
+                "decode_chain_batch": 0, "decode_chain_rows": 0, "prefill_chain": 0,
+                "fused_layer_norm": 0, "matmul_epilogue": 0}
     losses, totals = [], dict.fromkeys(per_step, 0)
     for i in range(warmup + timed):
         if i == warmup:
@@ -836,6 +971,135 @@ def train(card):
               "model_flop_share": flops / (step_ms / 1e3) / BF16_TC_FLOPS,
               "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
     emit(result)
+    return totals
+
+
+BERT_BATCH, BERT_SEQ = 32, 128   # benchmarks/bench_bert.py's batch for BERT-base
+BERT_LOGITS_REL_TOL = 5e-2       # relative L2 of bf16 logits against the f32 forward of the
+                                 # same weights and against each other: the eager bf16
+                                 # forward itself lies 0.035-0.039 from the f32 one on the
+                                 # H100 (12 layers; PERF.md)
+BERT_F32_RATIO = 1.5             # the fused program's distance from the f32 forward may be
+                                 # at most this times the eager bf16 forward's (0.95-1.03
+                                 # measured on the H100; the rest is room for the spread of
+                                 # bf16 rounding over batches)
+
+
+def bert_batches(cfg, n, g):
+    """``n`` batches of ids with ragged lengths: pad id 0 after each
+    sequence's length (8 ... 128), so the attention mask does work."""
+    out = []
+    for _ in range(n):
+        ids = torch.randint(1, cfg.vocab_size, (BERT_BATCH, BERT_SEQ), generator=g,
+                            device=DEVICE, dtype=torch.int32)
+        lengths = torch.randint(8, BERT_SEQ + 1, (BERT_BATCH,), generator=g, device=DEVICE)
+        lengths[0] = BERT_SEQ
+        pos = torch.arange(BERT_SEQ, device=DEVICE)
+        out.append(torch.where(pos[None, :] < lengths[:, None], ids, torch.zeros_like(ids)))
+    return out
+
+
+def capture_bert(model):
+    from paddle_tpu_torch import static
+
+    main = static.Program()
+    with static.program_guard(main):
+        logits = model(static.data("ids", [BERT_BATCH, BERT_SEQ], "int32"))
+    return main, logits
+
+
+def static_bert(card):
+    """Phase 5: BERT-base (bf16, full width and depth, seeded random
+    weights) captured as a static Program and run by the Executor, whose
+    PallasFusionPass puts 25 add + LayerNorms and 12 linear + GELUs on the
+    two kernels.  Checks the op counts after the pass, the launches of
+    every run, and the logits against the eager forward and the unfused
+    program; prints sequences/s, tokens/s, ms a batch and peak memory."""
+    from collections import Counter
+
+    from paddle_tpu_torch import ops, set_flags, static
+    from paddle_tpu_torch.models import BertConfig, BertForSequenceClassification
+
+    cfg = BertConfig()
+    layers = cfg.num_hidden_layers
+    t0 = time.perf_counter()
+    model_f32 = BertForSequenceClassification(
+        cfg, num_classes=2, device=DEVICE,
+        generator=torch.Generator(device=DEVICE).manual_seed(13)).eval()
+    model = copy.deepcopy(model_f32).to(torch.bfloat16).eval()
+    n_params = sum(p.numel() for p in model.parameters())
+    main, logits = capture_bert(model)
+    plain_main, plain_logits = capture_bert(model)
+    print(f"bert-base: {layers} layers, hidden {cfg.hidden_size}, bf16, {n_params} parameters, "
+          f"built and captured twice in {time.perf_counter() - t0:.1f} s", flush=True)
+    batches = bert_batches(cfg, 3, torch.Generator(device=DEVICE).manual_seed(14))
+    exe = static.Executor()
+
+    set_flags({"FLAGS_use_pallas_fusion": False})
+    try:
+        unfused = [exe.run(plain_main, feed={"ids": b}, fetch_list=[plain_logits],
+                           return_numpy=False)[0] for b in batches]
+    finally:
+        set_flags({"FLAGS_use_pallas_fusion": True})
+    check(not {"add_layer_norm", "matmul_epilogue"} & {op.type for op in
+                                                       plain_main.global_block().ops},
+          "the unfused program was fused")
+    exe.run(main, feed={"ids": batches[0]}, fetch_list=[logits], return_numpy=False)  # the pass
+    types = Counter(op.type for op in main.global_block().ops)
+    check(types["add_layer_norm"] == 2 * layers + 1 and types["matmul_epilogue"] == layers
+          and types["gelu"] == 0 and types["layer_norm"] == 0,
+          f"static BERT: op counts after the pass {dict(types)}")
+
+    per_run = dict.fromkeys(ops.launch_counts(), 0)
+    per_run.update(fused_layer_norm=2 * layers + 1, matmul_epilogue=layers)
+    errs = []
+    with torch.no_grad():
+        for b, want_unfused in zip(batches, unfused):
+            ops.reset_launch_counts()
+            (got,) = exe.run(main, feed={"ids": b}, fetch_list=[logits], return_numpy=False)
+            counts = ops.launch_counts()
+            check(counts == per_run, f"static BERT: launches {counts} != {per_run}")
+            eager, ref = model(b), model_f32(b)
+            check(got.shape == (BERT_BATCH, 2) and bool(torch.isfinite(got).all()),
+                  f"static BERT: logits {tuple(got.shape)} or not finite")
+            errs.append({"fused_vs_eager": _rel_l2(got, eager),
+                         "fused_vs_unfused": _rel_l2(got, want_unfused),
+                         "unfused_vs_eager": _rel_l2(want_unfused, eager),
+                         "fused_vs_f32": _rel_l2(got, ref), "eager_vs_f32": _rel_l2(eager, ref)})
+            check(max(errs[-1].values()) <= BERT_LOGITS_REL_TOL,
+                  f"static BERT: logits relative L2 {errs[-1]} > {BERT_LOGITS_REL_TOL}")
+            check(errs[-1]["fused_vs_f32"] <= BERT_F32_RATIO * errs[-1]["eager_vs_f32"],
+                  f"static BERT: the fused program is less accurate than eager: {errs[-1]}")
+
+    warmup, timed = 3, 10
+    totals = dict.fromkeys(per_run, 0)
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(warmup + timed):
+        if i == warmup:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        b = batches[i % len(batches)]
+        ops.reset_launch_counts()
+        exe.run(main, feed={"ids": b}, fetch_list=[logits], return_numpy=False)
+        counts = ops.launch_counts()
+        check(counts == per_run, f"static BERT run {i}: launches {counts} != {per_run}")
+        if i >= warmup:
+            totals = {k: totals[k] + counts[k] for k in totals}
+    torch.cuda.synchronize()
+    batch_ms = (time.perf_counter() - t0) * 1e3 / timed
+    real = sum(int((batches[i % len(batches)] != 0).sum()) for i in range(warmup,
+                                                                        warmup + timed))
+    emit({"static_bert": f"bert-base bf16 {layers} layers, batch {BERT_BATCH} x {BERT_SEQ}, "
+                         "ragged padding, static.Program + Executor (PallasFusionPass)",
+          "card": card, "parameters": n_params, "op_counts_after_pass": dict(types),
+          "launches_per_run": {k: v for k, v in per_run.items() if v},
+          "logits_rel_l2": errs, "tolerance": BERT_LOGITS_REL_TOL,
+          "f32_ratio_limit": BERT_F32_RATIO,
+          "warmup_runs": warmup, "timed_runs": timed, "ms_per_batch": batch_ms,
+          "sequences_per_s": BERT_BATCH / (batch_ms / 1e3),
+          "tokens_per_s": BERT_BATCH * BERT_SEQ / (batch_ms / 1e3),
+          "real_tokens_per_s": real / timed / (batch_ms / 1e3),
+          "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9})
     return totals
 
 
@@ -876,7 +1140,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.perf_counter()
-    logs = _cuda_build.build(["flash_attention_fwd", "flash_attention_bwd", "decode_chain"])
+    logs = _cuda_build.build(["flash_attention_fwd", "flash_attention_bwd", "decode_chain",
+                              "matmul_epilogue"])
     for name, log in logs.items():
         print(f"nvcc {name}:\n{log}", file=sys.stderr)
     print(f"built the CUDA kernels in {time.perf_counter() - t0:.1f} s", flush=True)
@@ -888,6 +1153,9 @@ def main() -> int:
         fl = check_flash(timer, F)
         chains = check_decode_chains(timer)
         pf = check_prefill_chain(timer, F)
+        ln = check_layer_norm(timer, F)
+        mm = check_matmul_epilogue(timer, F)
+    triton_resources()
     fb = check_flash_bwd(timer, F)
     with torch.no_grad():
         time_plain_backwards(timer)
@@ -896,8 +1164,17 @@ def main() -> int:
     gc.collect()  # the 7B engines are gone with serve(); return their memory
     torch.cuda.empty_cache()
     paths["training"] = train(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths["static_bert"] = static_bert(card)
+    llama_kernels = ("fused_rms_norm", "swiglu", "flash_attention_fwd")
     for path, counts in paths.items():
-        ran = [k for k in ("fused_rms_norm", "swiglu", "flash_attention_fwd") if counts[k] > 0]
+        if path == "static_bert":
+            check(counts["fused_layer_norm"] > 0 and counts["matmul_epilogue"] > 0
+                  and not any(counts[k] for k in llama_kernels),
+                  f"{path}: launches {counts}")
+            continue
+        ran = [k for k in llama_kernels if counts[k] > 0]
         check(len(ran) == 3, f"{path}: a forward kernel was never launched: {counts}")
     check(paths["training"]["flash_attention_bwd_dq"] > 0
           and paths["training"]["flash_attention_bwd_dkv"] > 0,
@@ -937,6 +1214,10 @@ def main() -> int:
                   chains["decode_chain_rows"], launches("decode_chain_rows")),
         summarize("prefill_chain", "cuda", chain_src, "paddle_tpu/ops/decode_chain.py:917", pf,
                   launches("prefill_chain")),
+        summarize("fused_layer_norm", "triton", "paddle_tpu_torch/ops/fused_norm.py",
+                  "paddle_tpu/ops/fused_norm.py:49", ln, launches("fused_layer_norm")),
+        summarize("matmul_epilogue", "cuda", "paddle_tpu_torch/csrc/matmul_epilogue.cu",
+                  "paddle_tpu/ops/matmul_epilogue.py:40", mm, launches("matmul_epilogue")),
     ]
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

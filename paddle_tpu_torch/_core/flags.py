@@ -142,3 +142,17 @@ define_flag(
     "Where the autotune cache is read and saved (empty = "
     "~/.cache/paddle_tpu_torch/autotune; never the package directory)",
 )
+define_flag(
+    "FLAGS_use_pallas_fusion",
+    True,
+    "Substitute attention/rms-norm/swiglu/matmul-epilogue/add-norm subgraphs "
+    "in captured Programs with the port's hand-written kernels before they "
+    "run (static.rewrite.PallasFusionPass; the name is the JAX package's)",
+)
+define_flag(
+    "FLAGS_verify_programs",
+    False,
+    "Verify-mode for the static IR (static/verify.py in the JAX package); "
+    "not ported: the port's Executor raises while it is on (ROADMAP.md "
+    "queue A item 5)",
+)

@@ -113,7 +113,8 @@ class LlamaAttention(nn.Module):
         self.num_heads = config.num_attention_heads
         self.num_kv_heads = config.num_key_value_heads
         self.head_dim = config.hidden_size // config.num_attention_heads
-        kw = {"device": device, "dtype": config.torch_dtype, "generator": generator}
+        kw = {"bias_attr": False, "device": device, "dtype": config.torch_dtype,
+              "generator": generator}
         self.q_proj = Linear(self.hidden_size, self.num_heads * self.head_dim, **kw)
         self.k_proj = Linear(self.hidden_size, self.num_kv_heads * self.head_dim, **kw)
         self.v_proj = Linear(self.hidden_size, self.num_kv_heads * self.head_dim, **kw)
@@ -159,7 +160,8 @@ class LlamaMLP(nn.Module):
 
     def __init__(self, config: LlamaConfig, *, device=None, generator=None):
         super().__init__()
-        kw = {"device": device, "dtype": config.torch_dtype, "generator": generator}
+        kw = {"bias_attr": False, "device": device, "dtype": config.torch_dtype,
+              "generator": generator}
         self.gate_up_proj = Linear(config.hidden_size, 2 * config.intermediate_size, **kw)
         self.down_proj = Linear(config.intermediate_size, config.hidden_size, **kw)
         self.intermediate_size = config.intermediate_size
@@ -230,8 +232,8 @@ class LlamaForCausalLM(nn.Module):
         self.config = config
         self.model = LlamaModel(config, device=device, generator=generator)
         self.lm_head = (None if config.tie_word_embeddings else
-                        Linear(config.hidden_size, config.vocab_size, device=device,
-                               dtype=config.torch_dtype, generator=generator))
+                        Linear(config.hidden_size, config.vocab_size, bias_attr=False,
+                               device=device, dtype=config.torch_dtype, generator=generator))
 
     @property
     def device(self) -> torch.device:

@@ -6,6 +6,8 @@ import math
 
 import torch
 
+from paddle_tpu_torch.static.program import apply
+
 __all__ = ["scaled_dot_product_attention"]
 
 
@@ -32,19 +34,24 @@ def _masked_attention(q, k, v, attn_mask, is_causal, scale):
     return out.transpose(1, 2).to(q.dtype)
 
 
+def _sdpa(query, key, value, attn_mask=None, *, is_causal):
+    scale = 1.0 / math.sqrt(query.shape[-1])
+    if attn_mask is None:
+        from paddle_tpu_torch import ops
+
+        return ops.flash_attention(query, key, value, causal=is_causal, scale=scale)
+    return _masked_attention(query, key, value, attn_mask, is_causal, scale)
+
+
 def scaled_dot_product_attention(query, key, value, attn_mask=None, dropout_p=0.0,
                                  is_causal=False, training=True):
     """Inputs are ``[batch, seq, heads, head_dim]`` (Paddle's layout).
 
     With no mask this is ``ops.flash_attention``: the hand-written kernel
     on the card, its plain version on the CPU.  With a mask it takes the
-    plain masked path."""
+    plain masked path.  One op while a static Program is captured."""
     if dropout_p > 0.0 and training:
         raise NotImplementedError(
             "attention dropout is not ported yet (ROADMAP.md queue A item 2)")
-    scale = 1.0 / math.sqrt(query.shape[-1])
-    if attn_mask is None:
-        from paddle_tpu_torch import ops
-
-        return ops.flash_attention(query, key, value, causal=bool(is_causal), scale=scale)
-    return _masked_attention(query, key, value, attn_mask, bool(is_causal), scale)
+    args = (query, key, value) if attn_mask is None else (query, key, value, attn_mask)
+    return apply("scaled_dot_product_attention", _sdpa, *args, is_causal=bool(is_causal))

@@ -26,7 +26,8 @@ import torch
 
 _LAUNCHES = {"fused_rms_norm": 0, "swiglu": 0, "flash_attention_fwd": 0,
              "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,
-             "decode_chain_batch": 0, "decode_chain_rows": 0, "prefill_chain": 0}
+             "decode_chain_batch": 0, "decode_chain_rows": 0, "prefill_chain": 0,
+             "fused_layer_norm": 0, "matmul_epilogue": 0}
 
 
 def launch_counts() -> dict:
@@ -45,11 +46,13 @@ def count_launch(name: str):
 
 def use_kernel(*tensors: torch.Tensor) -> bool:
     """True when every tensor lies on a CUDA device (launch the kernel),
-    False when every tensor lies on the CPU (take the plain version)."""
+    False when every tensor lies on the CPU (take the plain version) or is
+    a meta tensor (a static Program's shape inference: the plain version
+    computes nothing there)."""
     kinds = {t.device.type for t in tensors}
     if kinds == {"cuda"}:
         return True
-    if kinds == {"cpu"}:
+    if kinds in ({"cpu"}, {"meta"}):  # meta: shape inference while a Program is captured
         return False
     raise ValueError(f"tensors lie on mixed or unsupported devices: {sorted(kinds)}")
 
@@ -57,5 +60,6 @@ def use_kernel(*tensors: torch.Tensor) -> bool:
 from .flash_attention import (flash_attention, flash_attention_bwd,  # noqa: E402,F401
                               flash_attention_bwd_reference, flash_attention_fwd,
                               flash_attention_reference)
-from .fused_norm import fused_rms_norm  # noqa: E402,F401
+from .fused_norm import fused_layer_norm, fused_rms_norm  # noqa: E402,F401
+from .matmul_epilogue import matmul_bias_act  # noqa: E402,F401
 from .swiglu import swiglu  # noqa: E402,F401

@@ -32,6 +32,8 @@ import math
 
 import torch
 
+from paddle_tpu_torch.static.program import apply
+
 from . import count_launch, use_kernel
 
 __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_bwd",
@@ -279,6 +281,12 @@ class _FlashAttentionFn(torch.autograd.Function):
         return dq, dk, dv, None, None
 
 
+def _flash_attention(q, k, v, *, causal, scale):
+    return _FlashAttentionFn.apply(q, k, v, causal, scale)
+
+
 def flash_attention(q, k, v, *, causal=False, scale=None):
-    """Blockwise flash attention, q/k/v in ``[B, S, N, H]``, differentiable."""
-    return _FlashAttentionFn.apply(q, k, v, bool(causal), _scale(q, scale))
+    """Blockwise flash attention, q/k/v in ``[B, S, N, H]``, differentiable;
+    one op while a static Program is captured."""
+    return apply("flash_attention", _flash_attention, q, k, v, causal=bool(causal),
+                 scale=_scale(q, scale))

@@ -25,6 +25,8 @@ from __future__ import annotations
 
 import torch
 
+from paddle_tpu_torch.static.program import apply
+
 from . import count_launch, use_kernel
 
 __all__ = ["swiglu", "swiglu_plain", "swiglu_bwd"]
@@ -110,10 +112,15 @@ class _SwiGLUFn(torch.autograd.Function):
         return swiglu_bwd(*ctx.saved_tensors, g)
 
 
-def swiglu(x: torch.Tensor, y: torch.Tensor | None = None) -> torch.Tensor:
-    """``silu(x) * y``; with ``y=None``, x is split in half on the last
-    axis (the contract of paddle_tpu.ops.swiglu).  Differentiable in both."""
+def _swiglu(x, y=None):
     if y is None:
         x, y = x.chunk(2, dim=-1)
     shape = x.shape
     return _SwiGLUFn.apply(x.reshape(-1, shape[-1]), y.reshape(-1, shape[-1])).reshape(shape)
+
+
+def swiglu(x: torch.Tensor, y: torch.Tensor | None = None) -> torch.Tensor:
+    """``silu(x) * y``; with ``y=None``, x is split in half on the last
+    axis (the contract of paddle_tpu.ops.swiglu).  Differentiable in both;
+    one op while a static Program is captured."""
+    return apply("swiglu", _swiglu, *((x,) if y is None else (x, y)))

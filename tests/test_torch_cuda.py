@@ -107,7 +107,8 @@ def test_backward_reaches_every_parameter(cuda):
     counts = ops.launch_counts()
     assert counts == {"fused_rms_norm": 5, "swiglu": 2, "flash_attention_fwd": 2,
                       "flash_attention_bwd_dq": 2, "flash_attention_bwd_dkv": 2,
-                      "decode_chain_batch": 0, "decode_chain_rows": 0, "prefill_chain": 0}
+                      "decode_chain_batch": 0, "decode_chain_rows": 0, "prefill_chain": 0,
+                      "fused_layer_norm": 0, "matmul_epilogue": 0}
     assert torch.isfinite(loss)
     for name, p in model.named_parameters():
         assert p.grad is not None, name
@@ -271,3 +272,93 @@ def test_cost_model_times_the_device(cuda):
     small = cm.measure("add", lambda a: a + 1, x)
     big = cm.measure("add8", lambda a: [a + 1 for _ in range(8)], x)
     assert 0 < small < big
+
+
+@pytest.mark.parametrize("rows,hidden,dtype,residual", [
+    (4096, 768, torch.bfloat16, True), (4096, 768, torch.bfloat16, False),
+    (37, 1000, torch.bfloat16, True), (64, 768, torch.float32, True),
+    (5, 1000, torch.float32, False)])
+def test_layer_norm_kernel(cuda, rows, hidden, dtype, residual):
+    """f32 statistics, one rounding of the output: 2e-2 in bf16; in f32 the
+    kernel and the plain version differ only in summation order (2e-5).
+    The written sum x + r is rounded once in both, so it is bit-equal."""
+    from paddle_tpu_torch.ops.fused_norm import layer_norm_plain
+
+    g = torch.Generator(device=cuda).manual_seed(10)
+    x = torch.randn(rows, hidden, generator=g, device=cuda).to(dtype)
+    r = torch.randn(rows, hidden, generator=g, device=cuda).to(dtype) if residual else None
+    w = (1 + 0.1 * torch.randn(hidden, generator=g, device=cuda)).to(dtype)
+    b = (0.1 * torch.randn(hidden, generator=g, device=cuda)).to(dtype)
+    before = ops.launch_counts()["fused_layer_norm"]
+    got = ops.fused_layer_norm(x, w, b, epsilon=1e-12, residual=r)
+    assert ops.launch_counts()["fused_layer_norm"] == before + 1
+    tol = TOL if dtype == torch.bfloat16 else 2e-5
+    if residual:
+        got, s = got
+        assert torch.equal(s, x + r)
+        x = x + r
+    torch.testing.assert_close(got.float(), layer_norm_plain(x, w, b, 1e-12).float(),
+                               atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("m,k,n,dtype", [
+    (4096, 768, 3072, torch.bfloat16), (100, 72, 130, torch.bfloat16),
+    (33, 77, 40, torch.bfloat16), (100, 72, 130, torch.float32)])
+@pytest.mark.parametrize("act", ["none", "relu", "gelu", "gelu_tanh", "silu"])
+@pytest.mark.parametrize("bias", [True, False])
+def test_matmul_epilogue_kernel(cuda, m, k, n, dtype, act, bias):
+    """bf16: one rounding of the output after an f32 sum (2e-2); f32: the
+    FMA kernel and the plain product differ in summation order (1e-4 over
+    K up to 768).  Odd M, K and N run the kernel too (predicated edges;
+    K 77 and N 130 take the element loads)."""
+    from paddle_tpu_torch.ops.matmul_epilogue import matmul_bias_act_plain
+
+    g = torch.Generator(device=cuda).manual_seed(11)
+    x = (torch.randn(m, k, generator=g, device=cuda) / k ** 0.5).to(dtype)
+    w = torch.randn(k, n, generator=g, device=cuda).to(dtype)
+    bvec = (0.5 * torch.randn(n, generator=g, device=cuda)).to(dtype) if bias else None
+    before = ops.launch_counts()["matmul_epilogue"]
+    got = ops.matmul_bias_act(x, w, bvec, act)
+    assert ops.launch_counts()["matmul_epilogue"] == before + 1
+    tol = TOL if dtype == torch.bfloat16 else 1e-4
+    torch.testing.assert_close(got.float(), matmul_bias_act_plain(x, w, bvec, act).float(),
+                               atol=tol, rtol=tol)
+
+
+def test_new_kernels_refuse_what_they_do_not_take(cuda):
+    x = torch.zeros(8, 64, device=cuda, dtype=torch.float16)
+    with pytest.raises(TypeError, match="bf16 or f32"):
+        ops.matmul_bias_act(x, x.t().contiguous())
+    x = torch.zeros(8, 64, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="against weight"):
+        ops.matmul_bias_act(x, torch.zeros(32, 8, device=cuda, dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="unit column stride"):
+        ops.matmul_bias_act(x, torch.zeros(8, 64, device=cuda, dtype=torch.bfloat16).t())
+    w = torch.ones(64, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="residual"):
+        ops.fused_layer_norm(x, w, w, residual=x.float())
+
+
+def test_static_bert_runs_the_new_kernels(cuda):
+    """bert_tiny in bf16 captured as a Program: the Executor's pass puts 5
+    add + LayerNorms and 2 linear + GELUs on the kernels, one launch each a
+    run; the logits stay within bf16's tolerance of the eager forward."""
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.models import BertForSequenceClassification, bert_tiny
+
+    g = torch.Generator(device=cuda).manual_seed(12)
+    model = BertForSequenceClassification(bert_tiny(), device=cuda, generator=g)
+    model = model.to(torch.bfloat16).eval()
+    ids = torch.randint(1, 1024, (4, 64), generator=g, device=cuda, dtype=torch.int32)
+    ids[1, 40:] = 0
+    main = static.Program()
+    with static.program_guard(main):
+        logits = model(static.data("ids", [4, 64], "int32"))
+    exe = static.Executor()
+    ops.reset_launch_counts()
+    (got,) = exe.run(main, feed={"ids": ids}, fetch_list=[logits], return_numpy=False)
+    counts = ops.launch_counts()
+    assert counts["fused_layer_norm"] == 5 and counts["matmul_epilogue"] == 2, counts
+    with torch.no_grad():
+        want = model(ids)
+    assert float((got.float() - want.float()).norm() / want.float().norm()) <= TOL

@@ -2,9 +2,9 @@
 
 - importing paddle_tpu_torch loads neither jax nor any paddle_tpu module;
 - no module of the package imports them (AST scan);
-- the package never calls torch's scaled_dot_product_attention or
-  rms_norm, nor torch.compile (AST scan, and a CPU run with those
-  entry points made to raise);
+- the package never calls torch's scaled_dot_product_attention,
+  rms_norm or layer_norm, nor torch.compile (AST scan, and CPU runs with
+  those entry points, and torch._addmm_activation, made to raise);
 - the training path uses no torch.optim (AST scan, and a CPU TrainStep
   run with torch.optim's optimizers made to raise);
 - the entry points default to the CUDA card and raise without one.
@@ -20,7 +20,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "paddle_tpu_torch"
-FORBIDDEN_CALLS = {"scaled_dot_product_attention", "rms_norm"}
+FORBIDDEN_CALLS = {"scaled_dot_product_attention", "rms_norm", "layer_norm"}
 
 
 def _sources():
@@ -39,7 +39,9 @@ def test_import_loads_no_jax_and_no_paddle_tpu():
             " paddle_tpu_torch.optimizer, paddle_tpu_torch.jit, paddle_tpu_torch.device,"
             " paddle_tpu_torch.nn.clip, paddle_tpu_torch.optimizer.lr,"
             " paddle_tpu_torch.ops.decode_chain, paddle_tpu_torch.ops.autotune,"
-            " paddle_tpu_torch.static.schedule_search, paddle_tpu_torch.cost_model;"
+            " paddle_tpu_torch.static.schedule_search, paddle_tpu_torch.cost_model,"
+            " paddle_tpu_torch.static, paddle_tpu_torch.models.bert,"
+            " paddle_tpu_torch.ops.matmul_epilogue;"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'paddle_tpu'));"
             "print(bad); sys.exit(1 if bad else 0)")
@@ -162,6 +164,15 @@ def test_entry_points_default_to_cuda():
         time_step_ms(lambda: None)
     with pytest.raises(RuntimeError, match="CUDA"):
         synchronize()
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.models import BertForSequenceClassification, bert_tiny
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        static.Executor()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        BertForSequenceClassification(bert_tiny(num_hidden_layers=1))
+    static.Executor(place="cpu")
+    BertForSequenceClassification(bert_tiny(num_hidden_layers=1), device="cpu")
 
 
 def test_chained_int8_run_never_reaches_library_kernels(monkeypatch, tmp_path):
@@ -196,3 +207,32 @@ def test_chained_int8_run_never_reaches_library_kernels(monkeypatch, tmp_path):
     assert eng._decode_chain_cfg and eng._prefill_chain_cfg
     assert len(eng.result("a")) == 4
     assert {m for m in sys.modules if m.split(".")[0] in ("jax", "paddle_tpu")} == loaded
+
+
+def test_static_bert_cpu_run_never_reaches_library_kernels(monkeypatch):
+    """The static BERT path (capture, PallasFusionPass, Executor) on the
+    CPU calls none of torch's layer_norm, attention or fused
+    matmul-activation: the port's own plain versions stand in."""
+    import collections
+
+    def _refuse(*args, **kwargs):
+        raise AssertionError("the port called a library kernel")
+
+    for mod, name in ((torch.nn.functional, "layer_norm"), (torch, "layer_norm"),
+                      (torch.nn.functional, "scaled_dot_product_attention"),
+                      (torch, "_addmm_activation")):
+        monkeypatch.setattr(mod, name, _refuse)
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.models import BertForSequenceClassification, bert_tiny
+
+    g = torch.Generator().manual_seed(0)
+    model = BertForSequenceClassification(bert_tiny(), device="cpu", generator=g).eval()
+    main = static.Program()
+    with static.program_guard(main):
+        logits = model(static.data("ids", [2, 16], "int32"))
+    ids = torch.randint(1, 1024, (2, 16), generator=g, dtype=torch.int32)
+    ids[1, 9:] = 0
+    (out,) = static.Executor("cpu").run(main, feed={"ids": ids}, fetch_list=[logits])
+    counts = collections.Counter(op.type for op in main.global_block().ops)
+    assert counts["add_layer_norm"] == 5 and counts["matmul_epilogue"] == 2
+    assert out.shape == (2, 2)

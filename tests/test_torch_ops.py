@@ -246,10 +246,13 @@ def test_cpu_tensors_take_the_plain_versions():
     tops.swiglu(x, x)
     tops.flash_attention(torch.randn(1, 8, 2, 64), torch.randn(1, 8, 2, 64),
                          torch.randn(1, 8, 2, 64), causal=True)
+    tops.fused_layer_norm(x, torch.ones(64), torch.zeros(64), residual=x)
+    tops.matmul_bias_act(x, torch.randn(64, 32), torch.randn(32), "gelu")
     assert tops.launch_counts() == {"fused_rms_norm": 0, "swiglu": 0, "flash_attention_fwd": 0,
                                     "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,
                                     "decode_chain_batch": 0, "decode_chain_rows": 0,
-                                    "prefill_chain": 0}
+                                    "prefill_chain": 0, "fused_layer_norm": 0,
+                                    "matmul_epilogue": 0}
     with pytest.raises(ValueError, match="devices"):
         tops.use_kernel(x, torch.empty(1, device="meta"))
 
