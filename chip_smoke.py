@@ -8,8 +8,10 @@ Phases, each of which raises (exit code != 0) on failure:
 1. Print the card's name and power limit (nvidia-smi) and build the
    kernels from the sources in this checkout: the CUDA C++ flash-attention
    forward and backward, the serving chains (decode_chain.cu) and the
-   matmul epilogue with nvcc (one process per source, all started
-   together), the three Triton kernels at their first launch.
+   matmul epilogue with nvcc, and the generated sources of the codegen
+   cases of phase 2 (csrc/codegen/ templates; one nvcc process per
+   source, all started together), the three Triton kernels at their
+   first launch.
 2. Hold each kernel against its plain PyTorch version on the card at the
    serving and training shapes, in bf16, and time the kernel, the plain
    version and, where one exists, the one PyTorch call that computes the
@@ -24,6 +26,14 @@ Phases, each of which raises (exit code != 0) on failure:
    without the residual, f32) and a ragged hidden size; the matmul
    epilogue at BERT-base's FFN product for every activation, with and
    without bias, in bf16 and f32, and at an odd shape (M 100, K 72, N 130).
+   The generated kernels: the elementwise chain (#11; BERT's mask chain
+   and the JAX package's test chain at BERT-base's FFN size) at its
+   default and tuned launch shapes, and every enumerated config of the
+   schedule-search subgraphs (#12, #13 split-K: the BERT pooler,
+   bench_schedule_search.py's three programs at its chip shapes, the
+   softmax at BERT-base's logits), each against the replay of the
+   recorded ops (bf16 one bf16 step, f32 1e-5), with registers and nvcc
+   seconds from -Xptxas -v.
 3. Serve 4 greedy requests (prompts of 17, 128, 250 and 640 tokens, 32 new
    tokens each) on LLaMA-7B at full width, bf16, all 32 layers, random
    weights from a seeded generator, each engine after one warm-up pass
@@ -57,7 +67,15 @@ Phases, each of which raises (exit code != 0) on failure:
    logits against the eager forward, the unfused program (the flag
    FLAGS_use_pallas_fusion off) and the f32 forward of the same weights;
    prints ms a batch, sequences/s, tokens/s and peak memory.
-6. Print the ``kernels`` JSON line (all ten kernels, launches by main
+6. The codegen passes: the same BERT-base after pallas_fusion and
+   generic_elementwise_fusion, run by the Executor with
+   FLAGS_schedule_search on and a fresh verdict cache (op counts, every
+   run's launches, the pooler's decision, logits as in phase 5, ms a
+   batch); then bench_schedule_search.py's three programs through the
+   Executor with the real search (decisions, outputs against the unfused
+   program); then fresh captures of all four, whose verdicts must come
+   from the cache with no new search.
+7. Print the ``kernels`` JSON line (all thirteen kernels, launches by main
    path), then the result line.
 
 The script needs the card: without CUDA, or run from a directory that
@@ -75,6 +93,8 @@ import math
 import shutil
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -558,6 +578,241 @@ def triton_resources():
     emit({"triton_resources": out})
 
 
+# ------------------------------------------------------- the codegen kernels
+
+CODEGEN_F32_REL = 1e-5           # f32: 1e-5 relative (+ a tenth of it at the largest
+                                 # magnitude: products summed in another order)
+VPU_LAUNCHES = [(128, 4), (256, 4), (256, 8), (512, 8)]  # (threads, elements a thread)
+
+
+def _capture(build, feeds):
+    from paddle_tpu_torch import static
+
+    main = static.Program()
+    with static.program_guard(main):
+        out = build(*[static.data(n, list(s), d) for n, s, d in feeds])
+    return main, out
+
+
+def bert_mask_chain(ids):
+    """BertModel.forward's additive attention mask, the same ops."""
+    m = (ids != 0).to(torch.int32)
+    return (1 - m.float()) * -1e4
+
+
+def jax_test_chain(a, b):
+    """The JAX package's generic-fusion test chain (8 ops)."""
+    return torch.sqrt(torch.exp(torch.tanh(a * b + a) * 0.5) + 1.0) * b
+
+
+def softmax_dag(x):
+    """The decomposed softmax of bench_schedule_search.py."""
+    t = torch.exp(x - torch.max(x, -1, keepdim=True).values)
+    return t / torch.sum(t, -1, keepdim=True)
+
+
+def matmul_mean(x, w, b):
+    return torch.mean(torch.relu(torch.matmul(x, w) + b), -1, keepdim=True)
+
+
+def relu_linear(x, w, b):
+    return torch.relu(torch.matmul(x, w) + b)
+
+
+def pooler(x, w, b):
+    from paddle_tpu_torch.nn import functional as PF
+
+    return PF.tanh(PF.linear(x, w, b))
+
+
+VPU_CASES = {  # name -> (chain, feeds): BERT's mask at phase 6's batch; the JAX test chain at
+               # BERT-base's FFN activation size
+    "bert_mask": (bert_mask_chain, [("ids", (32, 128), "int32")]),
+    "jax_chain_bf16": (jax_test_chain, [("a", (4096, 3072), "bfloat16"),
+                                        ("b", (4096, 3072), "bfloat16")]),
+}
+SCHED_CASES = {  # bench_schedule_search.py:106-108's shapes on the chip; BERT-base's pooler;
+                 # the softmax at BERT-base's attention logits.  The first whole-K and the
+                 # first split case are the ones the main paths run (phase 6).
+    "softmax_f32": (softmax_dag, [("x", (8, 128, 512), "float32")]),
+    "pooler_bf16": (pooler, [("x", (32, 768), "bfloat16"), ("w", (768, 768), "bfloat16"),
+                             ("b", (768,), "bfloat16")]),
+    "softmax_bf16": (softmax_dag, [("x", (32, 12, 128, 128), "bfloat16")]),
+    "matmul_mean_f32": (matmul_mean, [("x", (1024, 512), "float32"),
+                                      ("w", (512, 512), "float32"), ("b", (512,), "float32")]),
+    "ktiled_f32": (relu_linear, [("x", (1024, 2048), "float32"), ("w", (2048, 1024), "float32"),
+                                 ("b", (1024,), "float32")]),
+}
+SCHED_PROGRAMS = ("matmul_mean_f32", "ktiled_f32", "softmax_f32")  # phase 6's programs
+
+
+def codegen_cases():
+    """Phase 2's generated kernels, captured and discovered on the host:
+    the elementwise chains' kernels and the subgraph specs, with every
+    generated source (built together with csrc/ in phase 1)."""
+    from paddle_tpu_torch.static import schedule_search as ss
+    from paddle_tpu_torch.static.passes import apply_pass
+    from paddle_tpu_torch.static.rewrite import ProgramGraph
+
+    vpu, specs = {}, {}
+    for name, (build, feeds) in VPU_CASES.items():
+        main, out = _capture(build, feeds)
+        check(apply_pass(main, "generic_elementwise_fusion", fetch_vids=[out._vid]) == 1,
+              f"{name}: the elementwise chain was not fused")
+        vpu[name] = main.global_block().ops[-1]
+    for name, (build, feeds) in SCHED_CASES.items():
+        main, out = _capture(build, feeds)
+        graph = ProgramGraph(main, (out._vid,))
+        found = [sp for sp in (ss.match_subgraph(op, graph, device=DEVICE)
+                               for op in main.global_block().ops) if sp]
+        check(len(found) == 1, f"{name}: {len(found)} subgraphs discovered")
+        specs[name] = found[0]
+    sources = {n: op.fn.source for n, op in vpu.items()}
+    sources.update({n: sp.source() for n, sp in specs.items()})
+    return vpu, specs, sources
+
+
+def ptxas_resources(log):
+    """(kernel -> registers, spill bytes) from nvcc's -Xptxas -v output."""
+    import re
+
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+            out[name] = {"registers": 0, "spill_bytes": 0}
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and name:
+            out[name]["spill_bytes"] = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out[name]["registers"] = int(m.group(1))
+    return out
+
+
+def _resources(build_info, source):
+    """The generated library's nvcc seconds, and its kernels' registers
+    (min, max) and spill bytes, from -Xptxas -v."""
+    from paddle_tpu_torch.ops import _cuda_build
+
+    info = build_info.get(str(_cuda_build.generated_path(source)), {"log": "", "seconds": 0.0})
+    res = ptxas_resources(info["log"])
+    regs = [r["registers"] for r in res.values()] or [0]
+    return {"nvcc_s": info["seconds"], "kernels": len(res), "registers": [min(regs), max(regs)],
+            "spill_bytes": sum(r["spill_bytes"] for r in res.values())}
+
+
+def _codegen_close(got, want, dtype):
+    from paddle_tpu_torch.static.schedule_search import parity_tolerance
+
+    rtol, atol = parity_tolerance(dtype, want)
+    return bool(torch.allclose(got.float(), want.float(), rtol=rtol, atol=atol,
+                               equal_nan=True)), rtol
+
+
+def check_vpu_chains(timer, vpu, build_info):
+    """#11 at its default and tuned launch shapes against the replay of
+    the recorded ops: the mask chain bit-exact, bf16 within one bf16
+    step.  Rows: the mask chain (the static BERT path's call) first."""
+    g = torch.Generator(device=DEVICE).manual_seed(31)
+    out = []
+    for name, op in vpu.items():
+        kernel = op.fn
+        if name == "bert_mask":
+            ids = torch.randint(0, 3, (32, 128), generator=g, device=DEVICE, dtype=torch.int32)
+            inputs = [ids != 0]
+        else:
+            inputs = [torch.randn(*VPU_CASES[name][1][i][1], generator=g, device=DEVICE)
+                      .to(torch.bfloat16) for i in range(2)]
+        want = kernel.replay(*inputs)
+        default = kernel.default_launch()
+        launch_ms, err = {}, 0.0
+        for launch in [default] + [l for l in VPU_LAUNCHES if l != default]:
+            got = kernel(*inputs, launch=launch)
+            torch.cuda.synchronize()
+            ok, tol = _codegen_close(got, want, want.dtype)
+            if name == "bert_mask":
+                ok, tol = torch.equal(got, want), 0.0
+            err = max(err, max_err(got, want))
+            check(ok, f"vpu_chain {name} at launch {launch} disagrees with the replay: {err}")
+            launch_ms[f"{launch[0]}x{launch[1]}"] = timer(
+                lambda launch=launch: kernel(*inputs, launch=launch))
+        nbytes = sum(t.numel() * t.element_size() for t in inputs) + want.numel() * \
+            want.element_size()
+        b_ms, b_by = bound_ms(nbytes, len(kernel.ops) * want.numel(), F32_FLOPS)
+        out.append({"check": "vpu_chain", "case": name, "shape": {
+                        "shape": list(want.shape), "inputs": [str(t.dtype).split(".")[-1]
+                                                              for t in inputs],
+                        "out": str(want.dtype).split(".")[-1], "ops": len(kernel.ops)},
+                    "max_abs_err": err, "tolerance": tol,
+                    "ms": launch_ms[f"{default[0]}x{default[1]}"], "launch_default": default,
+                    "launch_ms": launch_ms, "plain_ms": timer(lambda: kernel.replay(*inputs)),
+                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                    **_resources(build_info, kernel.source)})
+        emit(out[-1])
+    return out
+
+
+def _spec_bound(spec):
+    nbytes = sum(math.prod(e.shape) * e.dtype.itemsize for e in spec.ext)
+    nbytes += math.prod(spec.out_shape) * spec.out_dtype.itemsize
+    flops = sum(2.0 * spec.rows * k * spec.cols for k in spec.k_dims)
+    flops += (len(spec.ops) - len(spec.k_dims)) * spec.rows * spec.cols
+    mm_bf16 = spec.kind == "matmul" and any(e.dtype == torch.bfloat16 for e in spec.ext)
+    return bound_ms(nbytes, flops, BF16_TC_FLOPS if mm_bf16 else F32_FLOPS)
+
+
+def check_sched_chains(timer, specs, build_info):
+    """#12 and #13 at every enumerated config of each subgraph against the
+    replay (the gate's twin) on the spec's synthetic inputs, within the
+    parity gate's tolerance (bf16 one step, f32 1e-5).  Returns the rows of
+    sched_chain (the best whole-K config of each case; the softmax program
+    of phase 6 first) and of sched_chain_ktiled (the best split config;
+    the BERT pooler first)."""
+    F = torch.nn.functional
+    whole, split = [], []
+    for name, spec in specs.items():
+        args = spec.synthetic_args()
+        want = spec.reference()(*args)
+        configs, err = [], 0.0
+        for cfg in spec.enumerate_configs():
+            fn = spec.build(cfg)
+            got = fn(*args)
+            torch.cuda.synchronize()
+            ok, tol = _codegen_close(got, want, spec.out_dtype)
+            e = max_err(got, want)
+            err = max(err, e)
+            check(ok, f"sched_chain {name} {spec.config_label(cfg)} disagrees with the "
+                      f"replay: {e}")
+            is_split = bool(cfg.get("block_k")) and cfg["block_k"] < spec.k_dims[0]
+            configs.append({"config": spec.config_label(cfg), "split": is_split,
+                            "ms": timer(lambda fn=fn: fn(*args)), "max_abs_err": e,
+                            "smem_bytes": spec.smem_bytes(cfg)})
+        b_ms, b_by = _spec_bound(spec)
+        library = None
+        if name.startswith("softmax"):
+            library = timer(lambda: torch.softmax(args[0], -1))
+        shape = {"rows": spec.rows, "cols": spec.cols, "k": list(spec.k_dims),
+                 "dtype": str(spec.out_dtype).split(".")[-1], "ops": [o.type for o in spec.ops]}
+        common = {"case": name, "shape": shape, "max_abs_err": err, "tolerance": tol,
+                  "plain_ms": timer(lambda: spec.reference()(*args)), "bound_ms": b_ms,
+                  "bound_by": b_by, "library_ms": library, **_resources(build_info,
+                                                                          spec.source())}
+        for rows_out, kernel, pick in ((whole, "sched_chain", False),
+                                       (split, "sched_chain_ktiled", True)):
+            mine = [c for c in configs if c["split"] == pick]
+            if mine:
+                best = min(mine, key=lambda c: c["ms"])
+                rows_out.append({"check": kernel, **common, "ms": best["ms"],
+                                 "config": best["config"], "configs": mine})
+        emit({"check": "sched_chain configs", "case": name, "configs": configs})
+    for row in whole + split:
+        emit({k: v for k, v in row.items() if k != "configs"})
+    return whole, split
+
+
 def time_plain_backwards(timer):
     """The plain-torch backward of RMSNorm and SwiGLU at the training
     shapes (no kernel: the JAX package's backward is plain jnp too)."""
@@ -684,7 +939,8 @@ def expected_counts(engine, lengths, steps):
             "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,  # serving: no backward
             "decode_chain_batch": 0, "decode_chain_rows": 0,
             "prefill_chain": layers * prefill_chain,
-            "fused_layer_norm": 0, "matmul_epilogue": 0}  # LLaMA has neither
+            "fused_layer_norm": 0, "matmul_epilogue": 0,  # LLaMA has neither
+            "vpu_chain": 0, "sched_chain": 0, "sched_chain_ktiled": 0}  # nor a static Program
     dec_cfg = engine._decode_chain_cfg
     if dec_cfg:
         want[f"decode_chain_{dec_cfg['layout']}"] = layers * iters
@@ -941,7 +1197,8 @@ def train(card):
     per_step = {"fused_rms_norm": 2 * layers + 1, "swiglu": layers, "flash_attention_fwd": layers,
                 "flash_attention_bwd_dq": layers, "flash_attention_bwd_dkv": layers,
                 "decode_chain_batch": 0, "decode_chain_rows": 0, "prefill_chain": 0,
-                "fused_layer_norm": 0, "matmul_epilogue": 0}
+                "fused_layer_norm": 0, "matmul_epilogue": 0, "vpu_chain": 0, "sched_chain": 0,
+                "sched_chain_ktiled": 0}
     losses, totals = [], dict.fromkeys(per_step, 0)
     for i in range(warmup + timed):
         if i == warmup:
@@ -1100,6 +1357,172 @@ def static_bert(card):
           "tokens_per_s": BERT_BATCH * BERT_SEQ / (batch_ms / 1e3),
           "real_tokens_per_s": real / timed / (batch_ms / 1e3),
           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9})
+    return totals, (model, model_f32, batches)
+
+
+def _verdicts():
+    """The search's verdicts in the current autotune cache: kernel ->
+    {shape key: {config, ms, meta}}."""
+    from paddle_tpu_torch.ops import autotune as at
+
+    c = at.cache()
+    return {k: c.entries(k) for k in ("schedule/matmul", "schedule/reduce")}
+
+
+def _adopted(verdict):
+    return verdict is not None and not verdict["config"].get("disabled")
+
+
+def _sched_kernel(spec, config):
+    """The launch counter a searched config runs on."""
+    split = bool(config.get("block_k")) and config["block_k"] < spec.k_dims[0]
+    return "sched_chain_ktiled" if split else "sched_chain"
+
+
+def static_codegen(card, model, model_f32, batches):
+    """Phase 6: the codegen passes on the card.  BERT-base (phase 5's
+    weights and batches) after pallas_fusion and generic_elementwise_fusion,
+    run by the Executor with FLAGS_schedule_search on and a fresh verdict
+    cache; then bench_schedule_search.py's three programs through the
+    Executor with the real search; then fresh captures of all four, whose
+    verdicts must come from the cache with no new search."""
+    from collections import Counter
+
+    from paddle_tpu_torch import ops, set_flags, static
+    from paddle_tpu_torch.ops import autotune as at
+    from paddle_tpu_torch.static import schedule_search as ss
+    from paddle_tpu_torch.static.passes import apply_pass
+    from paddle_tpu_torch.static.rewrite import PallasFusionPass, ProgramGraph
+
+    layers = model.bert.config.num_hidden_layers
+    cache_dir = tempfile.mkdtemp(prefix="pt_sched_verdicts_")
+    set_flags({"FLAGS_autotune_cache_dir": cache_dir, "FLAGS_schedule_search": True})
+    at._CACHES.clear()
+    ss.reset_schedule_search_stats()
+    totals = dict.fromkeys(ops.launch_counts(), 0)
+    try:
+        main, logits = capture_bert(model)
+        PallasFusionPass([logits._vid]).apply(main)
+        n_vpu = apply_pass(main, "generic_elementwise_fusion", fetch_vids=[logits._vid])
+        graph = ProgramGraph(main, (logits._vid,))
+        pooler_spec = [sp for sp in (ss.match_subgraph(op, graph) for op in graph.block.ops)
+                       if sp]
+        check(len(pooler_spec) == 1 and [o.type for o in pooler_spec[0].ops] == ["linear", "tanh"],
+              f"static codegen BERT: discovered {[[o.type for o in sp.ops] for sp in pooler_spec]}")
+        exe = static.Executor()
+        t0 = time.perf_counter()
+        exe.run(main, feed={"ids": batches[0]}, fetch_list=[logits], return_numpy=False)
+        torch.cuda.synchronize()
+        search_s = time.perf_counter() - t0
+        types = Counter(op.type for op in main.global_block().ops)
+        verdicts = _verdicts()
+        (pooler_key, pooler_verdict), = verdicts["schedule/matmul"].items()
+        adopted = _adopted(pooler_verdict)
+        check(n_vpu == 1 and types["vpu_chain_4"] == 1 and types["sched_chain_2"] == int(adopted)
+              and types["tanh"] == 1 - int(adopted) and types["add_layer_norm"] == 2 * layers + 1
+              and types["matmul_epilogue"] == layers,
+              f"static codegen BERT: op counts after the passes {dict(types)}")
+        per_run = dict.fromkeys(ops.launch_counts(), 0)
+        per_run.update(fused_layer_norm=2 * layers + 1, matmul_epilogue=layers, vpu_chain=1)
+        if adopted:
+            per_run[_sched_kernel(pooler_spec[-1], pooler_verdict["config"])] = 1
+        errs = []
+        with torch.no_grad():
+            for b in batches:
+                ops.reset_launch_counts()
+                (got,) = exe.run(main, feed={"ids": b}, fetch_list=[logits], return_numpy=False)
+                counts = ops.launch_counts()
+                check(counts == per_run, f"static codegen BERT: launches {counts} != {per_run}")
+                eager, ref = model(b), model_f32(b)
+                check(got.shape == (BERT_BATCH, 2) and bool(torch.isfinite(got).all()),
+                      f"static codegen BERT: logits {tuple(got.shape)} or not finite")
+                errs.append({"fused_vs_eager": _rel_l2(got, eager), "fused_vs_f32": _rel_l2(got, ref),
+                             "eager_vs_f32": _rel_l2(eager, ref)})
+                check(max(errs[-1].values()) <= BERT_LOGITS_REL_TOL,
+                      f"static codegen BERT: logits relative L2 {errs[-1]}")
+                check(errs[-1]["fused_vs_f32"] <= BERT_F32_RATIO * errs[-1]["eager_vs_f32"],
+                      f"static codegen BERT: less accurate than eager: {errs[-1]}")
+        warmup, timed = 3, 10
+        for i in range(warmup + timed):
+            if i == warmup:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            ops.reset_launch_counts()
+            exe.run(main, feed={"ids": batches[i % len(batches)]}, fetch_list=[logits],
+                    return_numpy=False)
+            counts = ops.launch_counts()
+            check(counts == per_run, f"static codegen BERT run {i}: launches {counts}")
+            if i >= warmup:
+                totals = {k: totals[k] + counts[k] for k in totals}
+        torch.cuda.synchronize()
+        batch_ms = (time.perf_counter() - t0) * 1e3 / timed
+        emit({"static_codegen_bert": f"bert-base bf16 {layers} layers, batch {BERT_BATCH} x "
+                                     f"{BERT_SEQ}, pallas_fusion + generic_elementwise_fusion + "
+                                     "FLAGS_schedule_search", "card": card,
+              "op_counts_after_passes": {k: v for k, v in types.items()
+                                         if k.startswith(("vpu_", "sched_", "add_layer", "matmul_ep",
+                                                          "tanh"))},
+              "pooler_decision": {"key": pooler_key, **pooler_verdict, "adopted": adopted},
+              "first_run_with_search_s": search_s, "launches_per_run":
+                  {k: v for k, v in per_run.items() if v}, "logits_rel_l2": errs,
+              "ms_per_batch": batch_ms, "sequences_per_s": BERT_BATCH / (batch_ms / 1e3),
+              "schedule_search_stats": ss.schedule_search_stats()})
+
+        g = torch.Generator(device=DEVICE).manual_seed(32)
+        feeds = {}
+        for name in SCHED_PROGRAMS:
+            build, spec_feeds = SCHED_CASES[name]
+            feeds[name] = {n: torch.randn(*shp, generator=g, device=DEVICE).to(
+                getattr(torch, dt)) for n, shp, dt in spec_feeds}
+            prog, out = _capture(build, spec_feeds)
+            plain, pout = _capture(build, spec_feeds)
+            set_flags({"FLAGS_schedule_search": False})
+            (want,) = exe.run(plain, feed=feeds[name], fetch_list=[pout], return_numpy=False)
+            set_flags({"FLAGS_schedule_search": True})
+            exe.run(prog, feed=feeds[name], fetch_list=[out], return_numpy=False)  # the search
+            spec = next(sp for sp in (ss.match_subgraph(op, ProgramGraph(plain, (pout._vid,)))
+                                      for op in plain.global_block().ops) if sp)
+            verdict = at.cache().get(spec.kernel_name(), spec.key())
+            adopted = verdict is not None and not verdict.get("disabled")
+            ops.reset_launch_counts()
+            (got,) = exe.run(prog, feed=feeds[name], fetch_list=[out], return_numpy=False)
+            counts = ops.launch_counts()
+            want_counts = dict.fromkeys(counts, 0)
+            if adopted:
+                want_counts[_sched_kernel(spec, verdict)] = 1
+            check(counts == want_counts, f"{name}: launches {counts} != {want_counts}")
+            totals = {k: totals[k] + counts[k] for k in totals}
+            ok, _ = _codegen_close(got, want, spec.out_dtype)
+            check(ok, f"{name}: the searched program disagrees with the unfused one: "
+                      f"{max_err(got, want)}")
+            entry = _verdicts()[spec.kernel_name()][at._key_str(spec.key())]
+            emit({"static_codegen_program": name, "card": card,
+                  "op_types": [op.type for op in prog.global_block().ops],
+                  "decision": {**entry, "adopted": adopted},
+                  "max_abs_err_vs_unfused": max_err(got, want)})
+
+        # a second capture of every program: verdicts from the cache, no search
+        before = ss.schedule_search_stats()
+        main2, logits2 = capture_bert(model)
+        PallasFusionPass([logits2._vid]).apply(main2)
+        apply_pass(main2, "generic_elementwise_fusion", fetch_vids=[logits2._vid])
+        static.Executor().run(main2, feed={"ids": batches[0]}, fetch_list=[logits2],
+                              return_numpy=False)
+        for name in SCHED_PROGRAMS:
+            prog, out = _capture(*SCHED_CASES[name])
+            static.Executor().run(prog, feed=feeds[name], fetch_list=[out], return_numpy=False)
+        after = ss.schedule_search_stats()
+        served = (after["cache_hits"] + after["disabled_hits"]
+                  - before["cache_hits"] - before["disabled_hits"])
+        check(after["subgraphs_found"] == before["subgraphs_found"]
+              and after["measured"] == before["measured"] and served == 4,
+              f"static codegen: the second captures searched again: {before} -> {after}")
+        emit({"static_codegen_cached": "BERT-base and the three programs captured again",
+              "served_from_cache": served, "stats_before": before, "stats_after": after})
+    finally:
+        set_flags({"FLAGS_autotune_cache_dir": "", "FLAGS_schedule_search": False})
+        at._CACHES.clear()
+        shutil.rmtree(cache_dir, ignore_errors=True)
     return totals
 
 
@@ -1114,7 +1537,8 @@ def summarize(name, route, source, replaces, rows, launches, **pick):
     return {"name": name, "route": route, "source": source, "replaces": replaces,
             "launches": sum(launches.values()), "launches_by_path": launches,
             "max_abs_err": max(errs), **{k: top[v] for k, v in keys.items()},
-            "timed_shape": top["shape"], "tolerance": TOL, "per_shape": rows}
+            "timed_shape": top["shape"], "tolerance": top.get("tolerance", TOL),
+            "per_shape": [{k: v for k, v in r.items() if k != "configs"} for r in rows]}
 
 
 def main() -> int:
@@ -1140,11 +1564,23 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.perf_counter()
-    logs = _cuda_build.build(["flash_attention_fwd", "flash_attention_bwd", "decode_chain",
-                              "matmul_epilogue"])
+    vpu, specs, sources = codegen_cases()
+    gen = {}
+    gen_build = threading.Thread(
+        target=lambda: gen.update(_cuda_build.build_generated(list(sources.values()))))
+    gen_build.start()  # the generated sources build beside csrc/'s, one nvcc each
+    try:
+        logs = _cuda_build.build(["flash_attention_fwd", "flash_attention_bwd", "decode_chain",
+                                  "matmul_epilogue"])
+    finally:
+        gen_build.join()
+    check(len(gen) == len(set(sources.values())), "a generated source failed to build")
     for name, log in logs.items():
         print(f"nvcc {name}:\n{log}", file=sys.stderr)
-    print(f"built the CUDA kernels in {time.perf_counter() - t0:.1f} s", flush=True)
+    for path, info in gen.items():
+        print(f"nvcc {path} ({info['seconds']:.1f} s):\n{info['log']}", file=sys.stderr)
+    print(f"built the CUDA kernels ({len(logs)} sources and {len(gen)} generated) in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     timer = Timer()
     with torch.no_grad():
@@ -1155,6 +1591,8 @@ def main() -> int:
         pf = check_prefill_chain(timer, F)
         ln = check_layer_norm(timer, F)
         mm = check_matmul_epilogue(timer, F)
+        vc = check_vpu_chains(timer, vpu, gen)
+        sc, sk = check_sched_chains(timer, specs, gen)
     triton_resources()
     fb = check_flash_bwd(timer, F)
     with torch.no_grad():
@@ -1166,14 +1604,21 @@ def main() -> int:
     paths["training"] = train(card)
     gc.collect()
     torch.cuda.empty_cache()
-    paths["static_bert"] = static_bert(card)
+    paths["static_bert"], bert = static_bert(card)
+    paths["static_codegen"] = static_codegen(card, *bert)
+    del bert
     llama_kernels = ("fused_rms_norm", "swiglu", "flash_attention_fwd")
+    codegen_kernels = ("vpu_chain", "sched_chain", "sched_chain_ktiled")
     for path, counts in paths.items():
-        if path == "static_bert":
+        if path.startswith("static_"):
             check(counts["fused_layer_norm"] > 0 and counts["matmul_epilogue"] > 0
                   and not any(counts[k] for k in llama_kernels),
                   f"{path}: launches {counts}")
+            ran = [k for k in codegen_kernels if counts[k] > 0]
+            check(ran == ([] if path == "static_bert" else list(codegen_kernels)),
+                  f"{path}: codegen kernels launched {ran}: {counts}")
             continue
+        check(not any(counts[k] for k in codegen_kernels), f"{path}: launches {counts}")
         ran = [k for k in llama_kernels if counts[k] > 0]
         check(len(ran) == 3, f"{path}: a forward kernel was never launched: {counts}")
     check(paths["training"]["flash_attention_bwd_dq"] > 0
@@ -1218,6 +1663,13 @@ def main() -> int:
                   "paddle_tpu/ops/fused_norm.py:49", ln, launches("fused_layer_norm")),
         summarize("matmul_epilogue", "cuda", "paddle_tpu_torch/csrc/matmul_epilogue.cu",
                   "paddle_tpu/ops/matmul_epilogue.py:40", mm, launches("matmul_epilogue")),
+        summarize("vpu_chain", "cuda", "paddle_tpu_torch/csrc/codegen/vpu_chain.cuh",
+                  "paddle_tpu/static/rewrite.py:804", vc, launches("vpu_chain")),
+        summarize("sched_chain", "cuda", "paddle_tpu_torch/csrc/codegen/sched_chain.cuh",
+                  "paddle_tpu/static/schedule_search.py:883", sc, launches("sched_chain")),
+        summarize("sched_chain_ktiled", "cuda",
+                  "paddle_tpu_torch/csrc/codegen/sched_chain_ktiled.cuh",
+                  "paddle_tpu/static/schedule_search.py:773", sk, launches("sched_chain_ktiled")),
     ]
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

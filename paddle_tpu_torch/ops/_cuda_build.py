@@ -7,6 +7,16 @@ of the checkout (the hash is of the source and of the shared headers
 loaded with ctypes.  Nothing here runs at import time.  There is no
 ``--use_fast_math``: the int8 KV writes of ``decode_chain.cu`` rely on
 IEEE division to write the same bytes as the plain version.
+
+Generated sources (the codegen passes, ``static/codegen.py``) take
+``build_generated``: the text is compiled against the templates of
+``csrc/codegen/`` into ``build/kernels/codegen/lib<hash>.so``, the hash of
+the text, of every header it can include (``csrc/codegen/*.cuh``,
+``csrc/*.cuh``) and of the flags.  One nvcc process per source (a
+subgraph's every candidate config is one translation unit), all sources
+of one call compiled together.  They also build with ``--fmad=false``: a
+generated chain rounds each recorded op on its own, as the op-by-op
+replay does (the kernels' products call ``fmaf`` and ``mma`` explicitly).
 """
 
 from __future__ import annotations
@@ -16,12 +26,16 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+GEN_DIR = BUILD_DIR / "codegen"
+GEN_FLAGS = NVCC_FLAGS + ["--fmad=false", "-I", str(CSRC / "codegen"), "-I", str(CSRC)]
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 
@@ -78,4 +92,54 @@ def load(name: str) -> ctypes.CDLL:
     if lib is None:
         build([name])
         lib = _LIBS[name] = ctypes.CDLL(str(library_path(name)))
+    return lib
+
+
+def generated_path(source: str) -> Path:
+    h = hashlib.sha256(source.encode())
+    for header in sorted(CSRC.glob("codegen/*.cuh")) + sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(GEN_FLAGS[:-4]).encode())
+    return GEN_DIR / f"lib{h.hexdigest()[:16]}.so"
+
+
+def build_generated(sources) -> dict[str, dict]:
+    """Compile every generated source that has no library yet, one nvcc
+    process each, all started together.  Returns, per library path, the
+    compiler's output and its wall seconds (0 for a library already
+    built)."""
+    GEN_DIR.mkdir(parents=True, exist_ok=True)
+    procs, out = {}, {}
+    for src in dict.fromkeys(sources):
+        lib = generated_path(src)
+        if lib.exists() or str(lib) in procs:
+            out[str(lib)] = {"log": "", "seconds": 0.0}
+            continue
+        cu = lib.with_suffix(".cu")
+        cu.write_text(src)
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *GEN_FLAGS, "-o", str(tmp), str(cu)]
+        procs[str(lib)] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.STDOUT, text=True), tmp, lib,
+                           time.perf_counter())
+    failed = []
+    for key, (proc, tmp, lib, t0) in procs.items():
+        log = proc.communicate()[0]
+        out[key] = {"log": log, "seconds": time.perf_counter() - t0}
+        if proc.returncode != 0:
+            failed.append(f"{lib.with_suffix('.cu')}:\n{log}")
+            continue
+        os.replace(tmp, lib)
+    if failed:
+        raise RuntimeError("nvcc failed for generated source " + "\n".join(failed))
+    return out
+
+
+def load_generated(source: str) -> ctypes.CDLL:
+    """The loaded library of a generated source, built first if needed."""
+    path = str(generated_path(source))
+    lib = _LIBS.get(path)
+    if lib is None:
+        build_generated([source])
+        lib = _LIBS[path] = ctypes.CDLL(path)
     return lib

@@ -71,6 +71,10 @@ class AutotuneCache:
         self._data.setdefault(kernel, {})[_key_str(key)] = entry
         self._dirty = True
 
+    def entries(self, kernel: str) -> dict:
+        """Every recorded (shape key -> {config, ms, meta}) of ``kernel``."""
+        return {k: dict(v) for k, v in self._data.get(kernel, {}).items()}
+
     def save(self):
         """Write the cache file if anything changed; returns its path."""
         if not self._dirty:

@@ -4,14 +4,17 @@ The JAX Executor traces the Program's op list once under ``jax.jit``; here
 the pruned op list runs eagerly under ``torch.no_grad()`` on the
 Executor's device, each op a torch call (the fused ones launch the port's
 kernels on the card).  Before a run the default pass pipeline
-(``PallasFusionPass`` while ``FLAGS_use_pallas_fusion`` is on, as in the
-JAX package) rewrites the program, memoised per (program version, fetch
-set).  Persistent state (parameters) lives in a Scope keyed by var id; the
+(``PallasFusionPass`` while ``FLAGS_use_pallas_fusion`` is on, then
+``ScheduleSearchPass`` on the Executor's device while
+``FLAGS_schedule_search`` is on, as in the JAX package) rewrites the
+program, each stage memoised per (program version, fetch set).  Persistent state (parameters) lives in a Scope keyed by var id; the
 scope holds each parameter's own storage (no copy: the port donates no
 buffers, and no program of this tier writes state yet).
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -140,8 +143,6 @@ class Executor:
         fetch_list = fetch_list or []
         if flags.flag("FLAGS_verify_programs"):
             raise _unported("FLAGS_verify_programs (static/verify.py)")
-        if flags.flag("FLAGS_schedule_search"):
-            raise _unported("FLAGS_schedule_search over a static Program (ScheduleSearchPass)")
         if not program.global_block().ops and not program.param_inits and not fetch_list:
             return []
 
@@ -165,6 +166,14 @@ class Executor:
             from .rewrite import PallasFusionPass
 
             self._rewrite_stage(program, fetch_vids, "_pallas_fused_at", PallasFusionPass)
+        if flags.flag("FLAGS_schedule_search"):
+            # discovered reduction-/matmul-rooted subgraphs, searched on this
+            # device after the named patterns took theirs; an accepted
+            # verdict is served from the autotune cache on later programs
+            from .rewrite import ScheduleSearchPass
+
+            self._rewrite_stage(program, fetch_vids, "_sched_searched_at",
+                                functools.partial(ScheduleSearchPass, device=self.place))
 
         key = (program, program.version, fetch_vids)  # the program itself: its id may recur
         if key not in self._cache:

@@ -1,7 +1,8 @@
 """Static-Program pass infrastructure (counterpart of
 paddle_tpu/static/passes.py): the pass protocol, a pass manager, dead-code
 elimination and ``apply_pass``.  Of the JAX package's registered passes
-only ``dead_code_elimination`` and ``pallas_fusion`` are ported; every
+``dead_code_elimination``, ``pallas_fusion`` and the codegen passes
+``generic_elementwise_fusion`` and ``schedule_search`` are ported; every
 other name raises ``NotImplementedError`` naming its ROADMAP item.
 """
 
@@ -74,15 +75,27 @@ def _pallas_fusion_factory(**kwargs):
     return PallasFusionPass(**kwargs)
 
 
+def _generic_elementwise_factory(**kwargs):
+    from .rewrite import GenericElementwiseFusionPass
+
+    return GenericElementwiseFusionPass(**kwargs)
+
+
+def _schedule_search_factory(**kwargs):
+    from .rewrite import ScheduleSearchPass
+
+    return ScheduleSearchPass(**kwargs)
+
+
 _REGISTRY = {
     "dead_code_elimination": DeadCodeEliminationPass,
     "pallas_fusion": _pallas_fusion_factory,
+    "generic_elementwise_fusion": _generic_elementwise_factory,
+    "schedule_search": _schedule_search_factory,
 }
 # the JAX package's other passes, each with the ROADMAP item that ports it
 _UNPORTED = {
     "weight_only_quant": "queue A item 5 (static passes)",
-    "generic_elementwise_fusion": "queue A item 5, queue B #11",
-    "schedule_search": "queue A items 3 and 5, queue B #12-13",
     "auto_parallel_fp16": "queue A item 6",
     "auto_parallel_recompute": "queue A item 6",
     "auto_parallel_gradient_merge": "queue A item 6",

@@ -17,7 +17,10 @@ funnel.  Every torch call that touches a ``Variable`` or an
 - a torch call found in ``_torch_ops()``'s table records under the JAX package's
   name (``Tensor.add`` -> ``add``, ``torch.softmax`` -> ``softmax`` with
   its axis in ``kwargs``), reflected operators in mathematical order
-  (``1 - v`` is ``subtract(1, v)``);
+  (``1 - v`` is ``subtract(1, v)``); the attributes the codegen passes
+  read (reduction axis and keepdim, ``alpha``, clip bounds, activation
+  slopes) go into ``kwargs`` too, and ``torch.max(x, dim)`` records its
+  values only, as the JAX package's single-output ``max``;
 - any other torch call records under its torch name (``torch.<name>`` or
   ``Tensor.<name>``), so no call is run on meta tensors and dropped.
 
@@ -35,6 +38,7 @@ import contextlib
 import itertools
 import operator
 import threading
+import warnings
 from dataclasses import dataclass
 from typing import Any
 
@@ -264,6 +268,18 @@ class Program:
     __str__ = to_string
 
 
+def replay(ops, in_vids, vals, out_vid):
+    """The value of ``out_vid`` after running the recorded ``ops`` on
+    ``vals`` (the values of ``in_vids``): the plain version of every
+    fused op the codegen passes make, and the schedule search's twin."""
+    env = dict(zip(in_vids, vals))
+    with suspend_capture():
+        for op in ops:
+            out = op.fn(*[env[s[1]] for s in op.arg_spec if s[0] == "var"])
+            env.update(zip(op.out_vids, pytree.tree_leaves(out)))
+    return env[out_vid]
+
+
 # ------------------------------------------------------------------ context
 
 class _StaticState(threading.local):
@@ -315,19 +331,94 @@ def apply(type_, fn, *args, **kwargs):
 
 # ---------------------------------------------------- the torch call table
 
+def _attrs(*params, rename=None, keyword_only=False):
+    """attrs(args, kwargs) reading the named parameters after the input
+    (positional unless ``keyword_only``, or keyword) with their defaults;
+    ``rename`` maps torch's parameter names onto the JAX package's."""
+    rename = rename or {}
+
+    def read(args, kwargs):
+        out = {}
+        for i, (name, default) in enumerate(params):
+            if not keyword_only and len(args) > i + 1:
+                v = args[i + 1]
+            else:
+                v = kwargs.get(name, default)
+            out[rename.get(name, name)] = v
+        return out
+
+    return read
+
+
 def _softmax_attrs(args, kwargs):
     dim = args[1] if len(args) > 1 else kwargs.get("dim")
-    return {"axis": -1 if dim is None else dim}
+    if dim is None:  # F.softmax's implicit dim, the one torch will use
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            dim = torch.nn.functional._get_softmax_dim("softmax", args[0].dim(), 3)
+    return {"axis": dim}
 
 
-def _mean_attrs(args, kwargs):
-    dim = args[1] if len(args) > 1 else kwargs.get("dim")
-    keep = args[2] if len(args) > 2 else kwargs.get("keepdim", False)
-    return {"axis": dim, "keepdim": bool(keep)}
+_reduce_attrs = _attrs(("dim", None), ("keepdim", False), rename={"dim": "axis"})
 
 
 def _gelu_attrs(args, kwargs):
     return {"approximate": kwargs.get("approximate", "none") == "tanh"}
+
+
+def _minmax_call(func, args, kwargs):
+    """torch.max / torch.min: ``(x, other)`` is elementwise maximum/minimum;
+    ``(x, dim)`` a reduction whose values alone are recorded (the JAX op
+    has one output); ``(x)`` a full reduction."""
+    other = args[1] if len(args) > 1 else kwargs.get("other", kwargs.get("dim"))
+    name = "max" if func in (torch.max, torch.Tensor.max) else "min"
+    if isinstance(other, torch.Tensor):
+        return ("maximum" if name == "max" else "minimum"), func, {}
+    if other is None:
+        return name, func, {"axis": None, "keepdim": False}
+
+    def values(*a, _func=func, **kw):
+        return _func(*a, **kw).values
+
+    return name, values, _reduce_attrs(args, kwargs)
+
+
+class _ValuesIndices:
+    """What a captured ``torch.max(x, dim)`` returns: ``.values`` (the one
+    recorded ``max`` op) and ``.indices``, recorded as an ``argmax`` op only
+    when read (``v, i = ...`` reads it), so a program that uses the values
+    alone holds the JAX package's single-output op and nothing else."""
+
+    def __init__(self, values, record_indices):
+        self.values = values
+        self._record_indices = record_indices
+        self._indices = None
+
+    @property
+    def indices(self):
+        if self._indices is None:
+            self._indices = self._record_indices()
+        return self._indices
+
+    def __iter__(self):
+        return iter((self.values, self.indices))
+
+    def __getitem__(self, i):
+        return (self.values, self.indices)[i]
+
+    def __len__(self):
+        return 2
+
+
+def _record_minmax_dim(func, args, kwargs):
+    type_, _, attrs = _minmax_call(func, args, kwargs)
+    dim, keep = attrs["axis"], bool(attrs["keepdim"])
+    prog = _st.main_program
+    values = prog.record(type_, lambda x, _f=func: _f(x, dim, keep).values, [args[0]], {})
+    prog.global_block().ops[-1].kwargs = dict(attrs)
+    arg = torch.argmax if type_ == "max" else torch.argmin
+    return _ValuesIndices(values, lambda: prog.record(
+        "arg" + type_, lambda x, _f=arg: _f(x, dim, keep), [args[0]], {}))
 
 
 # JAX op types whose python-number operands are recorded as const inputs
@@ -364,12 +455,36 @@ def _torch_ops():
             "rsqrt": (torch.rsqrt, T.rsqrt),
             "sqrt": (torch.sqrt, T.sqrt),
             "exp": (torch.exp, T.exp),
+            "log": (torch.log, T.log),
+            "abs": (torch.abs, T.abs, T.__abs__),
+            "erf": (torch.erf, T.erf),
+            "sin": (torch.sin, T.sin),
+            "cos": (torch.cos, T.cos),
+            "floor": (torch.floor, T.floor),
+            "ceil": (torch.ceil, T.ceil),
+            "round": (torch.round, T.round),
+            "clip": (torch.clamp, T.clamp, torch.clip, T.clip),
             "tanh": (torch.tanh, T.tanh, F.tanh),
             "sigmoid": (torch.sigmoid, T.sigmoid, F.sigmoid),
             "square": (torch.square, T.square),
             "relu": (torch.relu, T.relu, F.relu),
             "silu": (F.silu,),
             "gelu": (F.gelu,),
+            "leaky_relu": (F.leaky_relu,),
+            "elu": (F.elu,),
+            "hardtanh": (F.hardtanh,),
+            "softplus": (F.softplus,),
+            "mish": (F.mish,),
+            "hardswish": (F.hardswish,),
+            "hardsigmoid": (F.hardsigmoid,),
+            "sum": (torch.sum, T.sum),
+            "nansum": (torch.nansum, T.nansum),
+            "nanmean": (torch.nanmean, T.nanmean),
+            "prod": (torch.prod, T.prod),
+            "amax": (torch.amax, T.amax),
+            "amin": (torch.amin, T.amin),
+            "logsumexp": (torch.logsumexp, T.logsumexp),
+            "log_softmax": (torch.log_softmax, T.log_softmax, F.log_softmax),
             "reshape": (torch.reshape, T.reshape, T.view),
             "unsqueeze": (torch.unsqueeze, T.unsqueeze),
             "expand": (T.expand,),
@@ -377,7 +492,19 @@ def _torch_ops():
             "cast": (T.to, T.float, T.int, T.long, T.bfloat16, T.half, T.type),
             "getitem": (T.__getitem__,),
         }
-        attrs = {"softmax": _softmax_attrs, "mean": _mean_attrs, "gelu": _gelu_attrs}
+        attrs = {"softmax": _softmax_attrs, "log_softmax": _softmax_attrs, "gelu": _gelu_attrs,
+                 "add": _attrs(("alpha", 1), keyword_only=True),
+                 "subtract": _attrs(("alpha", 1), keyword_only=True),
+                 "divide": _attrs(("rounding_mode", None), keyword_only=True),
+                 "round": _attrs(("decimals", 0), keyword_only=True),
+                 "clip": _attrs(("min", None), ("max", None)),
+                 "leaky_relu": _attrs(("negative_slope", 0.01)),
+                 "elu": _attrs(("alpha", 1.0)),
+                 "hardtanh": _attrs(("min_val", -1.0), ("max_val", 1.0)),
+                 "softplus": _attrs(("beta", 1.0), ("threshold", 20.0)),
+                 "prod": _reduce_attrs, "logsumexp": _reduce_attrs}
+        for name in ("mean", "sum", "nansum", "nanmean", "amax", "amin"):
+            attrs[name] = _reduce_attrs
         table = {}
         for name, fns in names.items():
             for f in fns:
@@ -406,7 +533,13 @@ def _record_torch_call(func, args, kwargs):
     if func in reflected:
         type_, fn = reflected[func]
         return prog.record(type_, fn, [args[1], args[0]], {})
-    type_, attrs = table.get(func, (None, None))
+    if func in (torch.max, torch.Tensor.max, torch.min, torch.Tensor.min):
+        type_, func, attr_vals = _minmax_call(func, args, kwargs)
+        if type_ in ("max", "min") and attr_vals["axis"] is not None:
+            return _record_minmax_dim(torch.max if type_ == "max" else torch.min, args, kwargs)
+        attrs = lambda a, k, _v=attr_vals: _v  # noqa: E731
+    else:
+        type_, attrs = table.get(func, (None, None))
     if type_ is None:
         type_ = _torch_name(func)
     # the op's inputs: every tensor leaf of the call, and the python

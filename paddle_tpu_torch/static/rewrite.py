@@ -14,20 +14,28 @@ skipped, the epsilon must be recoverable, and AddNorm replaces the add at
 its own position.  Replaced final ops keep their output vids, so
 consumers and fetches are untouched.
 
+The codegen passes (the JAX package's CINN roles) follow:
+``GenericElementwiseFusionPass`` (maximal same-shape elementwise chains
+of at least three ops, one generated kernel each, op type
+``vpu_chain_{n}``; not gated, as in JAX) and ``ScheduleSearchPass``
+(discovered reduction-/matmul-rooted subgraphs, searched and gated by
+``static/schedule_search.py``, op type ``sched_chain_{n}``).  Their kernels
+are generated CUDA C++ (``static/codegen.py``).
+
 Not ported: the fp16 program rewrite's ``fp16::`` low-precision variants
-(the rewrite itself belongs to ROADMAP A.6), the generic elementwise
-codegen pass (queue B #11) and the schedule-search pass (#12-13).
+(the rewrite itself belongs to ROADMAP A.6).
 """
 
 from __future__ import annotations
 
+import ctypes
 from collections import defaultdict
 
 import numpy as np
 import torch
 from torch.utils import _pytree as pytree
 
-from .program import Operator
+from .program import Operator, replay
 
 __all__ = [
     "ProgramGraph",
@@ -39,6 +47,9 @@ __all__ = [
     "SwiGLUPattern",
     "MatmulEpiloguePattern",
     "AddNormPattern",
+    "GenericElementwiseFusionPass",
+    "ScheduleSearchPattern",
+    "ScheduleSearchPass",
 ]
 
 
@@ -615,3 +626,300 @@ class PallasFusionPass(PatternRewritePass):
     def __init__(self, fetch_vids=()):
         super().__init__([FlashAttentionPattern(), RMSNormPattern(), SwiGLUPattern(),
                           MatmulEpiloguePattern(), AddNormPattern()], fetch_vids=fetch_vids)
+
+
+# ---------------------------------------------------------------------------
+# generic elementwise-chain fusion (the CINN auto-discovery role)
+
+# the JAX package's whitelist; amp_cast, fake_quant and scale are JAX op
+# types the port's capture never records
+_ELEMENTWISE = {
+    "add", "subtract", "multiply", "divide", "maximum", "minimum", "pow",
+    "exp", "log", "tanh", "sigmoid", "relu", "gelu", "silu", "abs", "neg",
+    "sqrt", "rsqrt", "square", "floor", "ceil", "round", "clip", "cast",
+    "scale", "leaky_relu", "elu", "hardtanh", "softplus", "mish",
+    "hardswish", "hardsigmoid", "erf", "sin", "cos", "amp_cast",
+    "fake_quant",
+}
+
+
+class GenericElementwiseFusionPass:
+    """Discover maximal chains of same-shape elementwise ops and generate
+    ONE kernel per chain (``csrc/codegen/vpu_chain.cuh``), so an N-op
+    chain makes one pass over the data instead of N.
+
+    The JAX package's rules: a chain is a tree of single-use whitelisted
+    producers, every participating var has the output's shape, the root is
+    the downstream end (its output feeds no further fusible op alone), at
+    least ``min_chain`` ops, op type ``vpu_chain_{n}``.  One more rule: an
+    op the translator cannot read exactly (``codegen.check_op``) is not
+    eligible."""
+
+    name = "generic_elementwise_fusion"
+
+    def __init__(self, fetch_vids=(), min_chain=3):
+        self._fetch_vids = tuple(fetch_vids)
+        self._min_chain = int(min_chain)
+
+    def _eligible(self, op, graph, shape):
+        from . import codegen
+
+        if _base_type(op.type) not in _ELEMENTWISE:
+            return False
+        if not op.out_vids or len(op.out_vids) != 1:
+            return False
+        if graph.shape(op.out_vids[0]) != shape:
+            return False
+        for s in op.arg_spec:
+            if s[0] == "var" and graph.shape(s[1]) != shape:
+                return False
+        return codegen.check_op(op, graph, shape[-1])
+
+    def _collect_chain(self, root, graph):
+        """The fusible upstream tree of ``root``, in execution order."""
+        shape = graph.shape(root.out_vids[0])
+        chain = {id(root): root}
+        frontier = [root]
+        while frontier:
+            op = frontier.pop()
+            for s in op.arg_spec:
+                if s[0] != "var":
+                    continue
+                prod = graph.def_op(s[1])
+                if (prod is None or id(prod) in chain or not graph.single_use(s[1])
+                        or not self._eligible(prod, graph, shape)):
+                    continue
+                chain[id(prod)] = prod
+                frontier.append(prod)
+        return [op for op in graph.block.ops if id(op) in chain]
+
+    def apply(self, program) -> int:
+        n = 0
+        while True:
+            graph = ProgramGraph(program, self._fetch_vids)
+            block = graph.block
+            done = False
+            for root in reversed(list(block.ops)):
+                shape = graph.shape(root.out_vids[0]) if root.out_vids else None
+                if shape is None or len(shape) < 1:
+                    continue
+                if not self._eligible(root, graph, shape):
+                    continue
+                # the root is the downstream end: its output does not feed
+                # one further fusible op alone
+                out_vid = root.out_vids[0]
+                cons = graph.consumers.get(out_vid, [])
+                if (len(cons) == 1 and graph.single_use(out_vid)
+                        and self._eligible(cons[0], graph, shape)):
+                    continue
+                ordered = self._collect_chain(root, graph)
+                if len(ordered) < self._min_chain:
+                    continue
+                in_chain = {vid for op in ordered for vid in op.out_vids}
+                ext_vids = []
+                for op in ordered:
+                    for s in op.arg_spec:
+                        if s[0] == "var" and s[1] not in in_chain and s[1] not in ext_vids:
+                            ext_vids.append(s[1])
+                fused = ElementwiseChainKernel(ordered, ext_vids, out_vid, graph)
+                block.ops[block.ops.index(root)] = _make_op(
+                    f"vpu_chain_{len(ordered)}", fused, ext_vids, root)
+                for op in ordered:
+                    if op is not root and op in block.ops:
+                        block.ops.remove(op)
+                program.version += 1
+                n += 1
+                done = True
+                break
+            if not done:
+                return n
+
+
+class ElementwiseChainKernel:
+    """The generated kernel of one elementwise chain (queue B #11), called
+    on the chain's external inputs: on CUDA tensors one launch of
+    ``csrc/codegen/vpu_chain.cuh`` with the chain in registers (the
+    library is compiled at the first launch); on CPU tensors the replay of
+    the recorded ops, its plain version.
+
+    The launch shape (threads a block, elements a thread) comes from the
+    autotune cache's ``vpu_chain`` entry for (rows, cols, n_ops, dtype),
+    as the JAX pass reads its block shape, else 256 threads of 8 elements
+    (16-bit data) or 4."""
+
+    def __init__(self, ordered, ext_vids, out_vid, graph):
+        from . import codegen
+
+        self.ops = list(ordered)
+        self.ext_vids = list(ext_vids)
+        self.out_vid = out_vid
+        self.shape = tuple(graph.shape(out_vid))
+        self.dtype = graph.dtype(out_vid)
+        chain = codegen.Chain(inputs=[codegen.CInput(graph.dtype(v), "flat") for v in ext_vids],
+                              ops=[], cols=self.shape[-1], out_cols=self.shape[-1])
+        vid_index = {v: k for k, v in enumerate(ext_vids)}
+        val_index = {}
+        for i, op in enumerate(self.ops):
+            args = codegen.op_entries(op, vid_index, val_index, chain)
+            chain.ops.append(codegen.COp(_base_type(op.type), dict(op.kwargs), args,
+                                         graph.dtype(op.out_vids[0])))
+            val_index[op.out_vids[0]] = i
+        self.chain = chain
+        self.source = codegen.elementwise_source(chain)
+        self._wide = {}
+        self._fns = {}  # elements a thread -> the loaded entry point
+        self._launch_shape = None
+
+    def replay(self, *vals):
+        return replay(self.ops, self.ext_vids, vals, self.out_vid)
+
+    def launch_key(self):
+        numel = int(np.prod(self.shape))
+        return {"rows": numel // max(1, self.shape[-1]), "cols": self.shape[-1],
+                "n_ops": len(self.ops), "dtype": str(self.dtype).split(".")[-1]}
+
+    def default_launch(self):
+        widest = max([t.itemsize for t in [self.dtype] + [i.dtype for i in self.chain.inputs]])
+        return 256, (8 if widest <= 2 else 4)
+
+    def __call__(self, *vals, launch=None):
+        from paddle_tpu_torch import ops
+
+        if not ops.use_kernel(*vals):
+            return self.replay(*vals)
+        return self._launch(vals, launch)
+
+    def _launch(self, vals, launch):
+        from paddle_tpu_torch.ops import _cuda_build
+        from paddle_tpu_torch.ops import autotune as at
+        from paddle_tpu_torch import ops
+
+        from . import codegen
+
+        if launch is None:
+            if self._launch_shape is None:
+                tuned = at.lookup("vpu_chain", self.launch_key())
+                self._launch_shape = ((int(tuned["threads"]), int(tuned["elems"])) if tuned
+                                      else self.default_launch())
+            launch = self._launch_shape
+        threads, elems = launch
+        if elems not in (4, 8):
+            raise ValueError(f"vpu_chain: {elems} elements a thread (4 or 8)")
+        dev = vals[0].device
+        ins = []
+        for v, inp in zip(vals, self.chain.inputs):
+            if v.dtype != inp.dtype or tuple(v.shape) != self.shape:
+                raise TypeError(f"vpu_chain input {tuple(v.shape)} {v.dtype}, expected "
+                                f"{self.shape} {inp.dtype}")
+            ins.append(v.contiguous())
+        if dev not in self._wide:
+            self._wide[dev] = [w.to(device=dev, dtype=torch.float32).contiguous().reshape(-1)
+                               for w in self.chain.wide_values]
+        ins += self._wide[dev]
+        out = torch.empty(self.shape, dtype=self.dtype, device=dev)
+        n = out.numel()
+        if n == 0:
+            return out
+        fn = self._fns.get(elems)
+        if fn is None:  # built and typed once: a launch costs no hashing or lookups
+            fn = self._fns[elems] = codegen.entry_point(
+                _cuda_build.load_generated(self.source), f"pt_vpu_{elems}", "vpu")
+        vec = all(t.data_ptr() % 16 == 0 for t in ins + [out])
+        a = codegen.args_block([t.data_ptr() for t in ins], [0] * len(ins), out.data_ptr())
+        with torch.cuda.device(dev):
+            err = fn(ctypes.byref(a), n, threads, int(vec),
+                     torch.cuda.current_stream(dev).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"vpu_chain: launch failed with CUDA error {err}")
+        ops.count_launch("vpu_chain")
+        return out
+
+
+# ---------------------------------------------------------------------------
+# schedule-searched fusion
+
+
+class ScheduleSearchPattern(RewritePattern):
+    """Discover a reduction-/matmul-rooted subgraph anchored at ``op`` (the
+    downstream end), hand it to the ScheduleSearcher, and substitute ONE
+    generated kernel when the searched config beat the plain twin.  A
+    site is searched once per pattern (``_seen``); side-effect ops are
+    never crossed; fetched interior values are refused by the pass's
+    structural rollback."""
+
+    name = "schedule_search"
+    root_type = None
+
+    def __init__(self, searcher=None, device="cpu"):
+        self._searcher = searcher
+        self._device = device
+        self._seen: set = set()
+
+    def match_and_rewrite(self, op, graph):
+        from . import schedule_search as ss
+
+        spec = ss.match_subgraph(op, graph, device=self._device)
+        if spec is None:
+            return False
+        tag = (spec.sig, id(spec.root))
+        if tag in self._seen:
+            return False  # searched already (disabled or rolled back)
+        self._seen.add(tag)
+        if self._searcher is None:
+            self._searcher = ss.ScheduleSearcher()
+        decision = self._searcher.search(spec)
+        if not decision.accepted:
+            return False
+        try:
+            fused = ss.build_kernel(spec, decision.config)
+        except ValueError:
+            return False  # a cached config this geometry no longer takes
+        new_op = _make_op(f"sched_chain_{len(spec.ops)}", fused, [e.vid for e in spec.ext],
+                          spec.root, kwargs={"kind": spec.kind,
+                                             "schedule": dict(decision.config)})
+        graph.replace_op(spec.root, new_op)
+        for o in spec.ops:
+            if o is not spec.root and o in graph.block.ops:
+                graph.block.ops.remove(o)
+        return True
+
+
+class ScheduleSearchPass(PatternRewritePass):
+    """Schedule-searched substitution over discovered subgraphs; the
+    Executor runs it after PallasFusionPass under FLAGS_schedule_search,
+    so the named patterns keep their kernels and their fused ops break
+    chains here.  ``device`` is where candidates are built, checked and
+    timed (None: the CUDA card).  On the card the libraries of every
+    discovered subgraph are compiled together before the search."""
+
+    name = "schedule_search"
+
+    def __init__(self, fetch_vids=(), searcher=None, device=None):
+        from paddle_tpu_torch._core.device import resolve_device
+
+        self._device = resolve_device(device)
+        super().__init__([ScheduleSearchPattern(searcher, self._device)], fetch_vids=fetch_vids)
+
+    def apply(self, program) -> int:
+        if self._device.type == "cuda":
+            self._prebuild(program)
+        return super().apply(program)
+
+    def _prebuild(self, program):
+        from paddle_tpu_torch.ops import _cuda_build
+        from paddle_tpu_torch.ops import autotune as at
+
+        from . import schedule_search as ss
+
+        graph = ProgramGraph(program, self._fetch_vids)
+        sources = []
+        for op in graph.block.ops:
+            spec = ss.match_subgraph(op, graph, device=self._device)
+            if spec is None:
+                continue
+            cached = at.lookup(spec.kernel_name(), spec.key())
+            if cached is not None and cached.get("disabled"):
+                continue
+            sources.append(spec.source(ss._tiles(spec, [cached]) if cached else ()))
+        if sources:
+            _cuda_build.build_generated(sources)

@@ -108,7 +108,8 @@ def test_backward_reaches_every_parameter(cuda):
     assert counts == {"fused_rms_norm": 5, "swiglu": 2, "flash_attention_fwd": 2,
                       "flash_attention_bwd_dq": 2, "flash_attention_bwd_dkv": 2,
                       "decode_chain_batch": 0, "decode_chain_rows": 0, "prefill_chain": 0,
-                      "fused_layer_norm": 0, "matmul_epilogue": 0}
+                      "fused_layer_norm": 0, "matmul_epilogue": 0, "vpu_chain": 0,
+                      "sched_chain": 0, "sched_chain_ktiled": 0}
     assert torch.isfinite(loss)
     for name, p in model.named_parameters():
         assert p.grad is not None, name
@@ -362,3 +363,202 @@ def test_static_bert_runs_the_new_kernels(cuda):
     with torch.no_grad():
         want = model(ids)
     assert float((got.float() - want.float()).norm() / want.float().norm()) <= TOL
+
+
+# ------------------------------------------------- the generated kernels
+
+def _capture(build, *feeds):
+    """A Program over ``static.data`` feeds [(name, shape, dtype)], its
+    output, and the plain replay of the unfused copy."""
+    from paddle_tpu_torch import static
+
+    main = static.Program()
+    with static.program_guard(main):
+        out = build(*[static.data(n, list(s), d) for n, s, d in feeds])
+    return main, out
+
+
+def _codegen_tol(dtype):
+    return {torch.bfloat16: 2.0 ** -7, torch.float16: 2.0 ** -10}.get(dtype, 1e-5)
+
+
+def _mask_chain(ids):
+    """BERT's additive mask chain: bool -> int32 -> f32 -> 1 - m -> * -1e4."""
+    m = (ids != 0).to(torch.int32)
+    return (1 - m.float()) * -1e4
+
+
+def _jax_test_chain(a, b):
+    return torch.sqrt(torch.exp(torch.tanh(a * b + a) * 0.5) + 1.0) * b
+
+
+@pytest.mark.parametrize("shape,dtype", [((64, 3072), torch.bfloat16), ((37, 129), torch.float32),
+                                         ((4096, 3072), torch.bfloat16)])
+@pytest.mark.parametrize("launch", [None, (128, 4), (512, 8)])
+def test_vpu_chain_kernel(cuda, shape, dtype, launch):
+    """#11: the JAX package's test chain, one launch; f32 bit-equal in
+    most elements and within 1e-5 relative (the kernel evaluates each op
+    as torch's CUDA kernel does; transcendental library calls may differ
+    in the last bit), bf16 within one bf16 step."""
+    from paddle_tpu_torch.static.passes import apply_pass
+
+    dt = str(dtype).split(".")[-1]
+    main, out = _capture(_jax_test_chain, ("a", shape, dt), ("b", shape, dt))
+    assert apply_pass(main, "generic_elementwise_fusion", fetch_vids=[out._vid]) == 1
+    (op,) = main.global_block().ops
+    assert op.type == "vpu_chain_8"
+    g = torch.Generator(device=cuda).manual_seed(21)
+    a = torch.randn(*shape, generator=g, device=cuda).to(dtype)
+    b = torch.randn(*shape, generator=g, device=cuda).to(dtype)
+    before = ops.launch_counts()["vpu_chain"]
+    got = op.fn(a, b, launch=launch)
+    assert ops.launch_counts()["vpu_chain"] == before + 1
+    want = op.fn.replay(a, b)
+    tol = _codegen_tol(dtype)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol * 1e-2)
+
+
+def test_vpu_chain_bert_mask_bool_input(cuda):
+    from paddle_tpu_torch.static.passes import apply_pass
+
+    main, out = _capture(_mask_chain, ("ids", (32, 128), "int32"))
+    assert apply_pass(main, "generic_elementwise_fusion", fetch_vids=[out._vid]) == 1
+    op = main.global_block().ops[-1]
+    assert op.type == "vpu_chain_4"
+    g = torch.Generator(device=cuda).manual_seed(22)
+    ids = torch.randint(0, 3, (32, 128), generator=g, device=cuda, dtype=torch.int32)
+    m = ids != 0
+    got = op.fn(m)
+    assert got.dtype == torch.float32 and torch.equal(got, op.fn.replay(m))
+
+
+def _mixed_chain(i, h):
+    """int64 arithmetic, a cast to f16, f16 math: 2-, 8-byte vectors."""
+    return torch.exp((i * 3 + 1).to(torch.float16) * 0.01 + h) - h
+
+
+@pytest.mark.parametrize("shape", [(8, 1000), (3, 7)])
+def test_vpu_chain_kernel_mixed_dtypes(cuda, shape):
+    from paddle_tpu_torch.static.passes import apply_pass
+
+    main, out = _capture(_mixed_chain, ("i", shape, "int64"), ("h", shape, "float16"))
+    assert apply_pass(main, "generic_elementwise_fusion", fetch_vids=[out._vid]) == 1
+    op = main.global_block().ops[-1]
+    g = torch.Generator(device=cuda).manual_seed(23)
+    i = torch.randint(-50, 50, shape, generator=g, device=cuda)
+    h = torch.randn(*shape, generator=g, device=cuda).to(torch.float16)
+    got, want = op.fn(i, h), op.fn.replay(i, h)
+    assert got.dtype == torch.float16
+    torch.testing.assert_close(got.float(), want.float(), rtol=2.0 ** -10, atol=1e-3)
+
+
+def _sched_spec(build, *feeds, device):
+    from paddle_tpu_torch.static import schedule_search as ss
+    from paddle_tpu_torch.static.rewrite import ProgramGraph
+
+    main, out = _capture(build, *feeds)
+    graph = ProgramGraph(main, (out._vid,))
+    (spec,) = [s for s in (ss.match_subgraph(op, graph, device=device)
+                           for op in main.global_block().ops) if s]
+    return spec
+
+
+def _softmax_dag(x):
+    m = torch.amax(x, dim=-1, keepdim=True)
+    t = torch.exp(x - m)
+    return t / torch.sum(t, dim=-1, keepdim=True)
+
+
+def _matmul_mean(x, w, b):
+    import torch.nn.functional as F
+
+    return torch.mean(F.relu(torch.matmul(x, w) + b), dim=-1, keepdim=True)
+
+
+def _linear_tanh(x, w, b):
+    from paddle_tpu_torch.nn import functional as F
+
+    return F.tanh(F.linear(x, w, b))
+
+
+def _relu_linear(x, w, b):
+    import torch.nn.functional as F
+
+    return F.relu(torch.matmul(x, w) + b)
+
+
+def _log_softmax_tail(x):
+    import torch.nn.functional as F
+
+    return F.log_softmax(x * 0.5, dim=-1) - torch.logsumexp(x, dim=-1, keepdim=True)
+
+
+_SCHED_CASES = {
+    "softmax_f32": (_softmax_dag, [("x", (8, 128, 512), "float32")]),
+    "softmax_bf16": (_softmax_dag, [("x", (4, 12, 128, 128), "bfloat16")]),
+    "log_softmax_lse": (_log_softmax_tail, [("x", (33, 300), "float32")]),
+    "matmul_mean_f32": (_matmul_mean, [("x", (100, 72), "float32"), ("w", (72, 130), "float32"),
+                                       ("b", (130,), "float32")]),
+    "matmul_mean_bf16": (_matmul_mean, [("x", (256, 512), "bfloat16"),
+                                        ("w", (512, 512), "bfloat16"), ("b", (512,), "bfloat16")]),
+    "pooler_bf16": (_linear_tanh, [("x", (32, 768), "bfloat16"), ("w", (768, 768), "bfloat16"),
+                                   ("b", (768,), "bfloat16")]),
+    "relu_linear_f32": (_relu_linear, [("x", (96, 512), "float32"), ("w", (512, 200), "float32"),
+                                       ("b", (200,), "float32")]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_SCHED_CASES))
+def test_sched_chain_every_config(cuda, case):
+    """#12 and #13: every enumerated config of each subgraph (the split-K
+    ones too) against the replay on the same inputs, within the parity
+    gate's tolerance; each launch counted on its own kernel."""
+    from paddle_tpu_torch.static import schedule_search as ss
+
+    build, feeds = _SCHED_CASES[case]
+    spec = _sched_spec(build, *feeds, device=cuda)
+    args = spec.synthetic_args()
+    want = spec.reference()(*args)
+    configs = spec.enumerate_configs()
+    assert configs
+    rtol, atol = ss.parity_tolerance(spec.out_dtype, want)
+    for cfg in configs:
+        fn = spec.build(cfg)
+        split = bool(cfg.get("block_k")) and cfg["block_k"] < spec.k_dims[0]
+        name = "sched_chain_ktiled" if split else "sched_chain"
+        before = ops.launch_counts()[name]
+        got = fn(*args)
+        assert ops.launch_counts()[name] == before + 1, (case, cfg)
+        err = float((got.float() - want.float()).abs().max())
+        assert got.shape == want.shape and torch.allclose(
+            got.float(), want.float(), rtol=rtol, atol=atol), (case, cfg, err, atol)
+
+
+def test_sched_chain_executor_searches_on_the_card(cuda, tmp_path):
+    """FLAGS_schedule_search through the Executor with a fresh verdict
+    cache: the search measures on the card, a substitution (if the gate
+    adopts one) matches the unfused program, and a second capture is
+    served from the cache with no fresh search."""
+    from paddle_tpu_torch import set_flags, static
+    from paddle_tpu_torch.ops import autotune as at
+    from paddle_tpu_torch.static import schedule_search as ss
+
+    build, feeds = _SCHED_CASES["softmax_f32"]
+    set_flags({"FLAGS_autotune_cache_dir": str(tmp_path), "FLAGS_schedule_search": True})
+    at._CACHES.clear()
+    ss.reset_schedule_search_stats()
+    try:
+        x = torch.randn(8, 128, 512, device=cuda)
+        main, out = _capture(build, *feeds)
+        (got,) = static.Executor().run(main, feed={"x": x}, fetch_list=[out], return_numpy=False)
+        stats = ss.schedule_search_stats()
+        assert stats["subgraphs_found"] == 1 and stats["measured"] >= 1, stats
+        torch.testing.assert_close(got, _softmax_dag(x), rtol=1e-5, atol=1e-7)
+        main2, out2 = _capture(build, *feeds)
+        static.Executor().run(main2, feed={"x": x}, fetch_list=[out2], return_numpy=False)
+        stats2 = ss.schedule_search_stats()
+        assert stats2["subgraphs_found"] == 1, stats2
+        assert stats2["cache_hits"] + stats2["disabled_hits"] == 1, stats2
+    finally:
+        set_flags({"FLAGS_autotune_cache_dir": "", "FLAGS_schedule_search": False})
+        at._CACHES.clear()

@@ -41,7 +41,8 @@ def test_import_loads_no_jax_and_no_paddle_tpu():
             " paddle_tpu_torch.ops.decode_chain, paddle_tpu_torch.ops.autotune,"
             " paddle_tpu_torch.static.schedule_search, paddle_tpu_torch.cost_model,"
             " paddle_tpu_torch.static, paddle_tpu_torch.models.bert,"
-            " paddle_tpu_torch.ops.matmul_epilogue;"
+            " paddle_tpu_torch.ops.matmul_epilogue, paddle_tpu_torch.static.codegen,"
+            " paddle_tpu_torch.static.rewrite;"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'paddle_tpu'));"
             "print(bad); sys.exit(1 if bad else 0)")
@@ -173,6 +174,36 @@ def test_entry_points_default_to_cuda():
         BertForSequenceClassification(bert_tiny(num_hidden_layers=1))
     static.Executor(place="cpu")
     BertForSequenceClassification(bert_tiny(num_hidden_layers=1), device="cpu")
+    from paddle_tpu_torch.static.rewrite import ScheduleSearchPass
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ScheduleSearchPass()
+    ScheduleSearchPass(device="cpu")
+
+
+def test_generated_kernels_call_no_library():
+    """The codegen templates and a generated source (an elementwise chain
+    and a matmul-rooted subgraph) include no library's kernels: no
+    cuBLAS, cuDNN, torch headers or CUTLASS device-level GEMMs."""
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.static import schedule_search as ss
+    from paddle_tpu_torch.static.rewrite import ProgramGraph
+
+    main = static.Program()
+    with static.program_guard(main):
+        x = static.data("x", [16, 64], "bfloat16")
+        w = static.data("w", [64, 32], "bfloat16")
+        out = torch.tanh(torch.matmul(x, w) + 1.0)
+        chain = torch.exp(torch.sigmoid(x * 2.0) + 1.0)
+    graph = ProgramGraph(main, (out._vid, chain._vid))
+    (spec,) = [sp for sp in (ss.match_subgraph(op, graph) for op in main.global_block().ops) if sp]
+    static.passes.apply_pass(main, "generic_elementwise_fusion", fetch_vids=[chain._vid])
+    texts = [spec.source(), main.global_block().ops[-1].fn.source]
+    texts += [p.read_text() for p in sorted((PKG / "csrc" / "codegen").glob("*.cuh"))]
+    for text in texts:
+        low = text.lower()
+        for word in ("cublas", "cudnn", "torch/", "cutlass", "aten"):
+            assert word not in low, word
 
 
 def test_chained_int8_run_never_reaches_library_kernels(monkeypatch, tmp_path):

@@ -5,9 +5,11 @@
 
 Builds the ``chip_smoke.py`` phase-5 configuration (BERT-base, bf16,
 batch 32 x 128 with ragged padding), captures it twice as a static
-Program, and for three ways of running the same batch (the fused program
-through ``static.Executor``, the unfused program with
-FLAGS_use_pallas_fusion off, the eager forward) prints one JSON line
+Program, and for four ways of running the same batch (the fused program
+through ``static.Executor``, the same after ``generic_elementwise_fusion``
+and with FLAGS_schedule_search on (a fresh verdict cache: the first
+warm-up run searches), the unfused program with FLAGS_use_pallas_fusion
+off, the eager forward) prints one JSON line
 each: ms a batch on the host clock over 10 unprofiled runs after 3
 warm-up runs, and two runs under ``torch.profiler``: the time the card
 was busy (kernel, copy and memset events only, overlaps counted once),
@@ -21,6 +23,7 @@ from __future__ import annotations
 
 import json
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -73,11 +76,17 @@ def main() -> int:
         generator=torch.Generator(device="cuda").manual_seed(13)).to(torch.bfloat16).eval()
     main_prog, logits = chip_smoke.capture_bert(model)
     plain_prog, plain_logits = chip_smoke.capture_bert(model)
+    gen_prog, gen_logits = chip_smoke.capture_bert(model)
+    static.passes.apply_pass(gen_prog, "generic_elementwise_fusion",
+                             fetch_vids=[gen_logits._vid])
     (ids,) = chip_smoke.bert_batches(cfg, 1, torch.Generator(device="cuda").manual_seed(14))
     exe = static.Executor()
 
     def fused():
         exe.run(main_prog, feed={"ids": ids}, fetch_list=[logits], return_numpy=False)
+
+    def codegen():
+        exe.run(gen_prog, feed={"ids": ids}, fetch_list=[gen_logits], return_numpy=False)
 
     def unfused():
         exe.run(plain_prog, feed={"ids": ids}, fetch_list=[plain_logits], return_numpy=False)
@@ -87,6 +96,15 @@ def main() -> int:
             model(ids)
 
     print(json.dumps(profile_runs("static program, PallasFusionPass", fused)), flush=True)
+    with tempfile.TemporaryDirectory() as verdicts:
+        set_flags({"FLAGS_schedule_search": True, "FLAGS_autotune_cache_dir": verdicts})
+        try:
+            row = profile_runs("static program, PallasFusionPass + codegen passes", codegen)
+        finally:
+            set_flags({"FLAGS_schedule_search": False, "FLAGS_autotune_cache_dir": ""})
+    row["op_types"] = sorted({op.type for op in gen_prog.global_block().ops
+                              if op.type.startswith(("vpu_chain", "sched_chain"))})
+    print(json.dumps(row), flush=True)
     set_flags({"FLAGS_use_pallas_fusion": False})
     try:
         print(json.dumps(profile_runs("static program, unfused", unfused)), flush=True)
