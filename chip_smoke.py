@@ -7,7 +7,8 @@ Phases, each of which raises (exit code != 0) on failure:
 
 1. Print the card's name and power limit (nvidia-smi) and build the
    kernels from the sources in this checkout: the CUDA C++ flash-attention
-   forward and backward, the serving chains (decode_chain.cu) and the
+   forward (the TMA/wgmma kernel of flash_attention_fwd_sm90.cu and the
+   general one) and backward, the serving chains (decode_chain.cu) and the
    matmul epilogue with nvcc, and the generated sources of the codegen
    cases of phase 2 (csrc/codegen/ templates; one nvcc process per
    source, all started together), the three Triton kernels at their
@@ -18,7 +19,14 @@ Phases, each of which raises (exit code != 0) on failure:
    same function (a yardstick only: the port never calls it) with CUDA
    events, L2 flushed before every launch.  One JSON line per kernel and
    shape; also the plain backward of RMSNorm and SwiGLU at the training
-   shapes.  The decode chains (bf16 and int8 pools; the split int8 layout
+   shapes.  The flash forward at the serving and training shapes (causal
+   and not, bf16 and f16: the TMA/wgmma route, with the general kernel's
+   time at the main shapes and the host cost of encoding the tensor maps)
+   and at small sizes on the general route (f32, head dims 32, 96 and 256,
+   strides that are not 16-byte multiples), each row naming its route;
+   the flash backward in bf16, f16 and f32 at head dims 32 to 256; f32
+   cases within 1e-4.  Then llama_tiny in f32 takes a forward and a
+   backward on the card against the CPU's plain run of the same weights.  The decode chains (bf16 and int8 pools; the split int8 layout
    with 2, 4 and 8 splits) at the 7B serving geometry, a GQA one and a ragged
    one must leave the pools bit-exact (0 differing elements); the prefill
    chain is held at a 128-token chunk against 128, 256 and 640 positions.
@@ -43,7 +51,7 @@ Phases, each of which raises (exit code != 0) on failure:
    FLAGS_autotune_cache_dir, so the searcher measures both chains against
    their plain twins in every run and must accept both.  For each engine:
    the streams, that every kernel's launch counter grew by exactly what
-   the run implies, that its first-token logits of the longest prompt
+   the run implies (every flash forward on the TMA/wgmma route), that its first-token logits of the longest prompt
    (through its own prefill path) match a forward built only from the
    plain versions; for the chained engines also the searcher's decisions
    and one decode step with the accepted config against the same step
@@ -211,10 +219,16 @@ def check_swiglu(timer):
     return out
 
 
-def _qkv(g, bsz, sq, sk, n, nkv, h):
-    return (torch.randn(bsz, sq, n, h, generator=g, device=DEVICE).to(torch.bfloat16),
-            torch.randn(bsz, sk, nkv, h, generator=g, device=DEVICE).to(torch.bfloat16),
-            torch.randn(bsz, sk, nkv, h, generator=g, device=DEVICE).to(torch.bfloat16))
+def _qkv(g, bsz, sq, sk, n, nkv, h, dtype=torch.bfloat16, layout="contiguous"):
+    """q, k, v of the given dtype; layout "narrow" gives views of tensors H + 4
+    wide, whose row strides are not 16-byte multiples (the general route)."""
+    def make(*shape):
+        if layout == "narrow":
+            wide = torch.randn(*shape[:-1], shape[-1] + 4, generator=g, device=DEVICE)
+            return wide.to(dtype)[..., :shape[-1]]
+        return torch.randn(*shape, generator=g, device=DEVICE).to(dtype)
+
+    return make(bsz, sq, n, h), make(bsz, sk, nkv, h), make(bsz, sk, nkv, h)
 
 
 def _library_views(q, k, v):
@@ -225,10 +239,12 @@ def _library_views(q, k, v):
             v.repeat_interleave(group, dim=2).transpose(1, 2))
 
 
-def _library_sdpa(F, qt, kt, vt):
+def _library_sdpa(F, qt, kt, vt, causal=True):
     """torch's attention with the port's causal semantics: is_causal when
     Sq == Sk, else an explicit bottom-right mask (torch's is top-left)."""
     sq, sk = qt.shape[2], kt.shape[2]
+    if not causal:
+        return lambda: F.scaled_dot_product_attention(qt, kt, vt)
     if sq == sk:
         return lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
     mask = torch.ones(sq, sk, dtype=torch.bool, device=DEVICE).tril(sk - sq)
@@ -242,65 +258,136 @@ def _allowed_pairs(sq, sk, causal):
     return sum(min(sk, max(0, i + off + 1)) for i in range(sq))
 
 
-def check_flash(timer, F):
-    from paddle_tpu_torch import ops
-    from paddle_tpu_torch.ops.flash_attention import _reference_with_lse
+F32_ATTN_TOL = 1e-4  # f32 FMA kernels against the plain f32 einsums: other summation orders
 
-    cases = [  # (B, Sq, Sk, N, Nkv): the serving slice's prefill shapes (the
-        (1, 640, 640, 32, 32),   # longest prompt first), one ragged, one
-        (1, 128, 128, 32, 32),   # cross-length, one GQA; then the training
-        (1, 1000, 1000, 32, 32),  # shape
-        (1, 128, 640, 32, 32),
-        (1, 512, 512, 32, 8),
-        (4, 1024, 1024, 16, 16),
-    ]
-    out, h = [], 128
+# (B, Sq, Sk, N, Nkv, H, causal, dtype, layout): the serving slice's prefill
+# shapes (the longest prompt first), one ragged, one cross-length, one GQA,
+# the training shape, both main shapes non-causal, an f16 serving prefill;
+# then the general route's cases at small sizes (f32, head dims 32 and 96
+# and 256, f16, strides that are not 16-byte multiples)
+FLASH_CASES = [
+    (1, 640, 640, 32, 32, 128, True, torch.bfloat16, "contiguous"),
+    (1, 128, 128, 32, 32, 128, True, torch.bfloat16, "contiguous"),
+    (1, 1000, 1000, 32, 32, 128, True, torch.bfloat16, "contiguous"),
+    (1, 128, 640, 32, 32, 128, True, torch.bfloat16, "contiguous"),
+    (1, 512, 512, 32, 8, 128, True, torch.bfloat16, "contiguous"),
+    (4, 1024, 1024, 16, 16, 128, True, torch.bfloat16, "contiguous"),
+    (1, 640, 640, 32, 32, 128, False, torch.bfloat16, "contiguous"),
+    (4, 1024, 1024, 16, 16, 128, False, torch.bfloat16, "contiguous"),
+    (1, 640, 640, 32, 32, 128, True, torch.float16, "contiguous"),
+    (2, 256, 256, 4, 4, 64, True, torch.float32, "contiguous"),
+    (2, 256, 256, 4, 4, 32, True, torch.bfloat16, "contiguous"),
+    (2, 256, 256, 4, 2, 96, True, torch.bfloat16, "contiguous"),
+    (2, 256, 256, 4, 4, 256, True, torch.float16, "contiguous"),
+    (2, 256, 256, 4, 4, 128, True, torch.bfloat16, "narrow"),
+]
+
+
+def _route_of(added):
+    """Which forward kernel a call launched, from the launch counts it added."""
+    check(added["flash_attention_fwd"] == 1, f"flash forward launches {added}")
+    return "sm90" if added["flash_attention_fwd_sm90"] == 1 else "general"
+
+
+def check_flash(timer, F):
+    """The forward against the plain version on every case of FLASH_CASES,
+    each row naming the route that ran; the TMA kernel's host cost of
+    encoding its tensor maps; the general kernel's time at the main shapes
+    beside the TMA kernel's."""
+    from paddle_tpu_torch import ops
+
+    fa = importlib.import_module("paddle_tpu_torch.ops.flash_attention")
+    out = []
     g = torch.Generator(device=DEVICE).manual_seed(3)
-    for bsz, sq, sk, n, nkv in cases:
-        q, k, v = _qkv(g, bsz, sq, sk, n, nkv, h)
-        got, lse = ops.flash_attention_fwd(q, k, v, causal=True)
-        want, want_lse = _reference_with_lse(q, k, v, True, h ** -0.5)
+    for bsz, sq, sk, n, nkv, h, causal, dtype, layout in FLASH_CASES:
+        q, k, v = _qkv(g, bsz, sq, sk, n, nkv, h, dtype, layout)
+        scale = h ** -0.5
+        before = ops.launch_counts()
+        got, lse = ops.flash_attention_fwd(q, k, v, causal=causal)
+        after = ops.launch_counts()
+        route = _route_of({key: after[key] - before[key] for key in after})
+        want, want_lse = fa._reference_with_lse(q, k, v, causal, scale)
         torch.cuda.synchronize()
+        tol = F32_ATTN_TOL if dtype == torch.float32 else TOL
         err = max_err(got, want)
-        shape = (bsz, sq, sk, n, nkv)
-        check(torch.allclose(got.float(), want.float(), atol=TOL, rtol=TOL),
-              f"flash_attention {shape} disagrees with its plain version: {err}")
+        shape = {"q": list(q.shape), "kv": list(k.shape), "causal": causal,
+                 "dtype": str(dtype).replace("torch.", ""), "layout": layout}
+        check(torch.allclose(got.float(), want.float(), atol=tol, rtol=tol),
+              f"flash_attention {shape} ({route}) disagrees with its plain version: {err}")
         lse_err = max_err(lse, want_lse)
-        check(lse_err <= TOL, f"flash_attention {shape}: lse off by {lse_err}")
+        check(lse_err <= tol, f"flash_attention {shape}: lse off by {lse_err}")
         qt, kt, vt = _library_views(q, k, v)
-        lib = _library_sdpa(F, qt, kt, vt)
-        nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2 + bsz * n * sq * 4
-        flops = 4 * bsz * n * h * _allowed_pairs(sq, sk, True)
-        b_ms, b_by = bound_ms(nbytes, flops, BF16_TC_FLOPS)
-        out.append({"check": "flash_attention_fwd", "shape": {"q": list(q.shape),
-                    "kv": list(k.shape), "causal": True}, "max_abs_err": err,
-                    "ms": timer(lambda: ops.flash_attention_fwd(q, k, v, causal=True)),
-                    "plain_ms": timer(lambda: ops.flash_attention_reference(q, k, v, causal=True),
-                                      iters=3, warmup=1),
-                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": timer(lib)})
-        emit(out[-1])
+        lib = _library_sdpa(F, qt, kt, vt, causal)
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size() + bsz * n * sq * 4
+        flops = 4 * bsz * n * h * _allowed_pairs(sq, sk, causal)
+        b_ms, b_by = bound_ms(nbytes, flops, F32_FLOPS if dtype == torch.float32 else BF16_TC_FLOPS)
+        row = {"check": "flash_attention_fwd", "shape": shape, "route": route,
+               "max_abs_err": err, "tolerance": tol,
+               "ms": timer(lambda: ops.flash_attention_fwd(q, k, v, causal=causal)),
+               "plain_ms": timer(lambda: ops.flash_attention_reference(q, k, v, causal=causal),
+                                 iters=3, warmup=1),
+               "bound_ms": b_ms, "bound_by": b_by, "library_ms": timer(lib)}
+        if route == "sm90" and layout == "contiguous" and sq >= 640:
+            # the same call on the general kernel, and the sm90 launch's
+            # host cost of encoding its three tensor maps
+            args = (q, k, v, torch.empty_like(q), torch.empty_like(lse), bsz, sq, sk, n, nkv, h,
+                    *q.stride(), *k.stride(), *v.stride(), *q.stride()[:3],
+                    fa._DTYPES[dtype], scale, int(causal))
+            row["general_ms"] = timer(lambda: fa._launch("flash_attention_fwd",
+                                                         "paddle_flash_attention_fwd", *args))
+            row["encode_us"] = _encode_us(q, k, v)
+        out.append(row)
+        emit(row)
     return out
+
+
+def _encode_us(q, k, v, iters=2000):
+    """Host microseconds the sm90 launch spends encoding its tensor maps."""
+    import ctypes
+
+    from paddle_tpu_torch.ops import _cuda_build
+
+    fn = _cuda_build.load("flash_attention_fwd_sm90").paddle_flash_attention_fwd_sm90_encode_us
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 9
+                   + [ctypes.c_int] * 2)
+    fn.restype = ctypes.c_double
+    b, sq, n, h = q.shape
+    us = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), b, sq, k.shape[1], n, k.shape[2], h,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], int(q.dtype == torch.float16),
+            iters)
+    check(us > 0, "encoding the sm90 tensor maps failed")
+    return us
 
 
 def check_flash_bwd(timer, F):
     """The two backward kernels against the plain backward, at the training
-    shape first, then GQA, a ragged length and Sq != Sk (all causal)."""
+    shape first, then GQA, a ragged length and Sq != Sk (all causal, bf16,
+    H 128); then f16 and f32 and head dims 32, 96 and 256 at small sizes."""
     from paddle_tpu_torch import ops
 
     # the module: ops.flash_attention is the function of the same name
     fa = importlib.import_module("paddle_tpu_torch.ops.flash_attention")
-    cases = [  # (B, Sq, Sk, N, Nkv)
-        (4, 1024, 1024, 16, 16),
-        (2, 1024, 1024, 16, 4),
-        (2, 1000, 1000, 16, 16),
-        (2, 256, 1024, 16, 16),
+    cases = [  # (B, Sq, Sk, N, Nkv, H, dtype)
+        (4, 1024, 1024, 16, 16, 128, torch.bfloat16),
+        (2, 1024, 1024, 16, 4, 128, torch.bfloat16),
+        (2, 1000, 1000, 16, 16, 128, torch.bfloat16),
+        (2, 256, 1024, 16, 16, 128, torch.bfloat16),
+        (2, 256, 256, 4, 4, 128, torch.float16),
+        (2, 256, 256, 4, 2, 64, torch.float32),
+        (2, 200, 200, 4, 4, 32, torch.float32),
+        (2, 256, 256, 4, 4, 32, torch.bfloat16),
+        (2, 256, 256, 4, 2, 96, torch.float16),
+        (2, 200, 200, 4, 4, 256, torch.float16),
     ]
-    out, h, scale = [], 128, 128 ** -0.5
+    out = []
     g = torch.Generator(device=DEVICE).manual_seed(4)
-    for bsz, sq, sk, n, nkv in cases:
-        shape = (bsz, sq, sk, n, nkv)
-        q, k, v = _qkv(g, bsz, sq, sk, n, nkv, h)
-        do = torch.randn(q.shape, generator=g, device=DEVICE).to(torch.bfloat16)
+    for bsz, sq, sk, n, nkv, h, dtype in cases:
+        scale = h ** -0.5
+        shape = (bsz, sq, sk, n, nkv, h, str(dtype))
+        tol = F32_ATTN_TOL if dtype == torch.float32 else TOL
+        peak = F32_FLOPS if dtype == torch.float32 else BF16_TC_FLOPS
+        q, k, v = _qkv(g, bsz, sq, sk, n, nkv, h, dtype)
+        do = torch.randn(q.shape, generator=g, device=DEVICE).to(dtype)
         o, lse = ops.flash_attention_fwd(q, k, v, causal=True)
         got = ops.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
         want = ops.flash_attention_bwd_reference(q, k, v, o, lse, do, causal=True)
@@ -308,7 +395,7 @@ def check_flash_bwd(timer, F):
         errs = {}
         for name, a, b in zip(("dq", "dk", "dv"), got, want):
             errs[name] = max_err(a, b)
-            check(torch.allclose(a.float(), b.float(), atol=TOL, rtol=TOL),
+            check(torch.allclose(a.float(), b.float(), atol=tol, rtol=tol),
                   f"flash backward {shape}: {name} disagrees with its plain version: "
                   f"{errs[name]}")
         do_c, delta = fa._bwd_inputs(q, k, v, o, lse, do)
@@ -322,17 +409,18 @@ def check_flash_bwd(timer, F):
             return torch.autograd.grad(lib_out, (qt, kt, vt), do_t, retain_graph=True)
 
         pairs = bsz * n * _allowed_pairs(sq, sk, True)
-        qbytes, kbytes = q.numel() * 2, k.numel() * 2
+        qbytes, kbytes = q.numel() * q.element_size(), k.numel() * k.element_size()
         rows = bsz * n * sq * 4  # one f32 per q row: lse, delta
         # dQ: reads q, k, v, dO, lse, delta, writes dQ; S, dP, dS K
-        dq_bound = bound_ms(3 * qbytes + 2 * kbytes + 2 * rows, 6 * h * pairs, BF16_TC_FLOPS)
+        dq_bound = bound_ms(3 * qbytes + 2 * kbytes + 2 * rows, 6 * h * pairs, peak)
         # dK/dV: reads q, k, v, dO, lse, delta, writes dK, dV; S, dP, P^T dO, dS^T Q
-        dkv_bound = bound_ms(2 * qbytes + 4 * kbytes + 2 * rows, 8 * h * pairs, BF16_TC_FLOPS)
+        dkv_bound = bound_ms(2 * qbytes + 4 * kbytes + 2 * rows, 8 * h * pairs, peak)
         # the whole backward: reads q, k, v, o, dO, lse, writes dQ, dK, dV
-        pair_bound = bound_ms(4 * qbytes + 4 * kbytes + rows, 10 * h * pairs, BF16_TC_FLOPS)
+        pair_bound = bound_ms(4 * qbytes + 4 * kbytes + rows, 10 * h * pairs, peak)
         row = {"check": "flash_attention_bwd",
-               "shape": {"q": list(q.shape), "kv": list(k.shape), "causal": True},
-               "max_abs_err": errs,
+               "shape": {"q": list(q.shape), "kv": list(k.shape), "causal": True,
+                         "dtype": str(dtype).replace("torch.", "")},
+               "max_abs_err": errs, "tolerance": tol,
                "dq_ms": timer(lambda: fa._bwd_dq_cuda(q, k, v, do_c, lse, delta, True, scale)),
                "dq_bound_ms": dq_bound[0], "dq_bound_by": dq_bound[1],
                "dkv_ms": timer(lambda: fa._bwd_dkv_cuda(q, k, v, do_c, lse, delta, True, scale)),
@@ -346,6 +434,49 @@ def check_flash_bwd(timer, F):
         emit(row)
         del lib_out
     return out
+
+
+F32_MODEL_REL_TOL = 1e-4  # relative L2, f32 model on the card vs the CPU: sums in other orders
+
+
+def f32_llama(card):
+    """LlamaForCausalLM(llama_tiny(dtype="float32")) takes a forward and a
+    backward on the card (f32 at head_dim 64: the general flash kernels,
+    FMA) against the CPU's plain run of the same weights."""
+    from paddle_tpu_torch import ops
+    from paddle_tpu_torch.models import LlamaForCausalLM, llama_tiny
+
+    model = LlamaForCausalLM(llama_tiny(dtype="float32"), device="cpu",
+                             generator=torch.Generator().manual_seed(7))
+    layers = model.config.num_hidden_layers
+    ids = torch.randint(0, model.config.vocab_size, (2, 128),
+                        generator=torch.Generator().manual_seed(8))
+    runs = {}
+    for device in ("cpu", DEVICE):
+        model.to(device)
+        model.zero_grad(set_to_none=True)
+        ops.reset_launch_counts()
+        loss, logits = model(ids.to(device), labels=ids.to(device))
+        loss.backward()
+        runs[device] = (ops.launch_counts(), logits.detach().cpu(),
+                        {n: p.grad.detach().cpu() for n, p in model.named_parameters()})
+    (cpu_counts, want, want_grads), (counts, got, grads) = runs["cpu"], runs[DEVICE]
+    check(not any(cpu_counts.values()), f"f32 llama_tiny on the CPU launched {cpu_counts}")
+    check(counts["flash_attention_fwd"] == layers and counts["flash_attention_fwd_sm90"] == 0
+          and counts["flash_attention_bwd_dq"] == layers
+          and counts["flash_attention_bwd_dkv"] == layers,
+          f"f32 llama_tiny on the card: flash launches {counts}")
+    rel = {"logits": _rel_l2(got, want)}
+    rel.update({n: _rel_l2(grads[n], want_grads[n]) for n in want_grads})
+    worst = max(rel, key=rel.get)
+    check(bool(torch.isfinite(got).all()) and rel[worst] <= F32_MODEL_REL_TOL,
+          f"f32 llama_tiny: {worst} relative L2 {rel[worst]} > {F32_MODEL_REL_TOL}")
+    row = {"f32_llama_tiny": "forward + backward, batch 2 x 128, against the CPU", "card": card,
+           "launches": counts, "logits_rel_l2": rel["logits"],
+           "max_grad_rel_l2": max(v for n, v in rel.items() if n != "logits"),
+           "tolerance": F32_MODEL_REL_TOL}
+    emit(row)
+    return row
 
 
 def _chain_pools(g, kv, b, w, nkv, h, bs, lens):
@@ -524,8 +655,9 @@ def _library_epilogue(F, x, w, bias, act):
 def check_matmul_epilogue(timer, F):
     """matmul_bias_act against its plain version: BERT-base's FFN product
     [4096, 768] x [768, 3072] for every activation, with and without bias,
-    in bf16 and f32, and an odd shape (M 100, K 72, N 130).  The first row
-    (gelu with bias in bf16, the main path's call) comes first."""
+    in bf16 and f32, and an odd shape (M 100, K 72, N 130); then f16 (gelu
+    with bias) at both shapes.  The first row (gelu with bias in bf16, the
+    main path's call) comes first."""
     from paddle_tpu_torch import ops
     from paddle_tpu_torch.ops.matmul_epilogue import ACTIVATIONS, matmul_bias_act_plain
 
@@ -536,6 +668,8 @@ def check_matmul_epilogue(timer, F):
              for act in acts for bias in (True, False)]
     cases += [(100, 72, 130, dt, act, True) for dt in (torch.bfloat16, torch.float32)
               for act in acts]
+    cases += [(m, k, n, torch.float16, "gelu", True) for m, k, n in ((4096, 768, 3072),
+                                                                      (100, 72, 130))]
     for m, k, n, dtype, act, bias in cases:
         x = (torch.randn(m, k, generator=g, device=DEVICE) / k ** 0.5).to(dtype)
         w = torch.randn(k, n, generator=g, device=DEVICE).to(dtype)
@@ -544,14 +678,14 @@ def check_matmul_epilogue(timer, F):
         want = matmul_bias_act_plain(x, w, bvec, act)
         torch.cuda.synchronize()
         err = max_err(got, want)
-        tol = TOL if dtype == torch.bfloat16 else F32_TOL_MM
+        tol = F32_TOL_MM if dtype == torch.float32 else TOL
         shape = {"mkn": [m, k, n], "dtype": str(dtype).split(".")[-1], "activation": act,
                  "bias": bias}
         check(torch.allclose(got.float(), want.float(), atol=tol, rtol=tol),
               f"matmul_bias_act {shape} disagrees with its plain version: {err}")
         elt = x.element_size()
         nbytes = (m * k + k * n + m * n + (n if bias else 0)) * elt
-        peak = BF16_TC_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
+        peak = F32_FLOPS if dtype == torch.float32 else BF16_TC_FLOPS
         b_ms, b_by = bound_ms(nbytes, 2 * m * n * k, peak)
         out.append({"check": "matmul_epilogue", "shape": shape, "max_abs_err": err,
                     "tolerance": tol,
@@ -936,6 +1070,7 @@ def expected_counts(engine, lengths, steps):
     iters = steps * engine._effective_chunk()
     want = {"fused_rms_norm": (2 * layers + 1) * (forwards + iters),
             "swiglu": layers * (forwards + iters), "flash_attention_fwd": layers * flash,
+            "flash_attention_fwd_sm90": layers * flash,  # every LLaMA prefill takes the TMA kernel
             "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,  # serving: no backward
             "decode_chain_batch": 0, "decode_chain_rows": 0,
             "prefill_chain": layers * prefill_chain,
@@ -1195,8 +1330,8 @@ def train(card):
                                   weight_decay=0.01), _loss_fn)
     layers = cfg.num_hidden_layers
     per_step = {"fused_rms_norm": 2 * layers + 1, "swiglu": layers, "flash_attention_fwd": layers,
-                "flash_attention_bwd_dq": layers, "flash_attention_bwd_dkv": layers,
-                "decode_chain_batch": 0, "decode_chain_rows": 0, "prefill_chain": 0,
+                "flash_attention_fwd_sm90": layers, "flash_attention_bwd_dq": layers,
+                "flash_attention_bwd_dkv": layers, "decode_chain_batch": 0, "decode_chain_rows": 0, "prefill_chain": 0,
                 "fused_layer_norm": 0, "matmul_epilogue": 0, "vpu_chain": 0, "sched_chain": 0,
                 "sched_chain_ktiled": 0}
     losses, totals = [], dict.fromkeys(per_step, 0)
@@ -1570,8 +1705,8 @@ def main() -> int:
         target=lambda: gen.update(_cuda_build.build_generated(list(sources.values()))))
     gen_build.start()  # the generated sources build beside csrc/'s, one nvcc each
     try:
-        logs = _cuda_build.build(["flash_attention_fwd", "flash_attention_bwd", "decode_chain",
-                                  "matmul_epilogue"])
+        logs = _cuda_build.build(["flash_attention_fwd", "flash_attention_fwd_sm90",
+                                  "flash_attention_bwd", "decode_chain", "matmul_epilogue"])
     finally:
         gen_build.join()
     check(len(gen) == len(set(sources.values())), "a generated source failed to build")
@@ -1595,6 +1730,7 @@ def main() -> int:
         sc, sk = check_sched_chains(timer, specs, gen)
     triton_resources()
     fb = check_flash_bwd(timer, F)
+    f32_llama(card)
     with torch.no_grad():
         time_plain_backwards(timer)
         paths = serve(card)
@@ -1607,7 +1743,7 @@ def main() -> int:
     paths["static_bert"], bert = static_bert(card)
     paths["static_codegen"] = static_codegen(card, *bert)
     del bert
-    llama_kernels = ("fused_rms_norm", "swiglu", "flash_attention_fwd")
+    llama_kernels = ("fused_rms_norm", "swiglu", "flash_attention_fwd", "flash_attention_fwd_sm90")
     codegen_kernels = ("vpu_chain", "sched_chain", "sched_chain_ktiled")
     for path, counts in paths.items():
         if path.startswith("static_"):
@@ -1620,7 +1756,11 @@ def main() -> int:
             continue
         check(not any(counts[k] for k in codegen_kernels), f"{path}: launches {counts}")
         ran = [k for k in llama_kernels if counts[k] > 0]
-        check(len(ran) == 3, f"{path}: a forward kernel was never launched: {counts}")
+        check(len(ran) == 4, f"{path}: a forward kernel was never launched: {counts}")
+        # every LLaMA path's flash forward (H 128, bf16, contiguous) takes the TMA kernel
+        check(counts["flash_attention_fwd_sm90"] == counts["flash_attention_fwd"],
+              f"{path}: flash forward launches {counts['flash_attention_fwd']}, of them "
+              f"{counts['flash_attention_fwd_sm90']} on the sm90 route")
     check(paths["training"]["flash_attention_bwd_dq"] > 0
           and paths["training"]["flash_attention_bwd_dkv"] > 0,
           f"training: a backward kernel was never launched: {paths['training']}")
@@ -1642,8 +1782,17 @@ def main() -> int:
                   "paddle_tpu/ops/fused_norm.py:42", rms, launches("fused_rms_norm")),
         summarize("swiglu", "triton", "paddle_tpu_torch/ops/swiglu.py",
                   "paddle_tpu/ops/swiglu.py:17", sw, launches("swiglu")),
-        summarize("flash_attention_fwd", "cuda", "paddle_tpu_torch/csrc/flash_attention_fwd.cu",
-                  "paddle_tpu/ops/flash_attention.py:97", fl, launches("flash_attention_fwd")),
+        # two routes: the TMA/wgmma kernel (the main paths' launches) and the
+        # general kernel (f32, other head dims and strides); per_shape rows
+        # name the route each case ran
+        dict(summarize("flash_attention_fwd", "cuda",
+                       "paddle_tpu_torch/csrc/flash_attention_fwd_sm90.cu",
+                       "paddle_tpu/ops/flash_attention.py:97", fl, launches("flash_attention_fwd")),
+             routes={"sm90": {"source": "paddle_tpu_torch/csrc/flash_attention_fwd_sm90.cu",
+                              "launches": sum(launches("flash_attention_fwd_sm90").values())},
+                     "general": {"source": "paddle_tpu_torch/csrc/flash_attention_fwd.cu",
+                                 "launches": sum(launches("flash_attention_fwd").values())
+                                 - sum(launches("flash_attention_fwd_sm90").values())}}),
         # each backward kernel's own time and bound; plain_ms and library_ms
         # compute dQ, dK and dV together (no call computes one alone)
         summarize("flash_attention_bwd_dq", "cuda", bwd_src,

@@ -12,8 +12,8 @@
 // What bounds it on this card: operations.  The BERT-base FFN product
 // [4096, 768] x [768, 3072] does 19.3 GFLOP on 11 MB of operands, about
 // 1,800 operations per byte against the H100's ~295: tensor cores.  Design:
-// bf16 operands on the tensor cores with mma.sync m16n8k16 (f32
-// accumulate, the helper of mma_tiles.cuh), eight warps of 64 x 32 outputs
+// bf16 and f16 operands on the tensor cores with mma.sync m16n8k16 (.bf16
+// or .f16 in, f32 accumulate, the helpers of mma_tiles.cuh), eight warps of 64 x 32 outputs
 // each; a 32-deep K tile of x and w staged in padded shared memory
 // (conflict-free fragment reads; w's fragments come transposed through
 // ldmatrix.trans), the next K tile loaded into registers while the current
@@ -37,7 +37,7 @@
 namespace {
 
 using paddle_tiles::ld32;
-using paddle_tiles::mma_bf16_16816;
+using paddle_tiles::mma_16816;
 
 enum Act { kNone = 0, kRelu = 1, kGelu = 2, kGeluTanh = 3, kSilu = 4 };
 
@@ -64,7 +64,7 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const uint16
 }
 
 // ---------------------------------------------------------------------------
-// bf16 on the tensor cores.
+// bf16 and f16 on the tensor cores (F16 picks the type).
 
 constexpr int kBM = 128;
 constexpr int kBN = 128;
@@ -98,9 +98,9 @@ __device__ __forceinline__ uint4 load_chunk(const uint16_t* __restrict__ src, in
   }
 }
 
-template <bool VEC>
+template <bool F16, bool VEC>
 __global__ void __launch_bounds__(kThreads)
-matmul_epilogue_bf16(const uint16_t* __restrict__ x, const uint16_t* __restrict__ w,
+matmul_epilogue_16(const uint16_t* __restrict__ x, const uint16_t* __restrict__ w,
                      const uint16_t* __restrict__ bias, uint16_t* __restrict__ out, int M,
                      int N, int K, int64_t lda, int64_t ldb, int64_t ldo, int act) {
   __shared__ __align__(16) uint16_t sA[kBM * kLdA];
@@ -178,7 +178,7 @@ matmul_epilogue_bf16(const uint16_t* __restrict__ x, const uint16_t* __restrict_
 #pragma unroll
       for (int mt = 0; mt < 4; ++mt)
 #pragma unroll
-        for (int nt = 0; nt < 4; ++nt) mma_bf16_16816(acc[mt][nt], af[mt], bf[nt][0], bf[nt][1]);
+        for (int nt = 0; nt < 4; ++nt) mma_16816<F16>(acc[mt][nt], af[mt], bf[nt][0], bf[nt][1]);
     }
     __syncthreads();  // the next tile overwrites sA / sB
   }
@@ -190,7 +190,7 @@ matmul_epilogue_bf16(const uint16_t* __restrict__ x, const uint16_t* __restrict_
     for (int j = 0; j < 2; ++j) {
       const int col = n0 + wn + nt * 8 + t * 2 + j;
       if (col >= N) continue;
-      const float b = bias != nullptr ? __bfloat162float(__ushort_as_bfloat16(bias[col])) : 0.f;
+      const float b = bias != nullptr ? paddle_tiles::to_float<F16>(bias[col]) : 0.f;
 #pragma unroll
       for (int mt = 0; mt < 4; ++mt) {
 #pragma unroll
@@ -198,7 +198,7 @@ matmul_epilogue_bf16(const uint16_t* __restrict__ x, const uint16_t* __restrict_
           const int row = m0 + wm + mt * 16 + g + h * 8;
           if (row >= M) continue;
           const float v = activate(acc[mt][nt][h * 2 + j] + b, act);
-          out[(int64_t)row * ldo + col] = __bfloat16_as_ushort(__float2bfloat16_rn(v));
+          out[(int64_t)row * ldo + col] = paddle_tiles::round16<F16>(v);
         }
       }
     }
@@ -265,18 +265,19 @@ matmul_epilogue_f32(const float* __restrict__ x, const float* __restrict__ w,
 
 // out [M, N] = act(x [M, K] @ w [K, N] + bias [N]) on `stream`; row pitches
 // in elements, unit column strides; bias may be null; act 0 none, 1 relu,
-// 2 gelu, 3 gelu_tanh, 4 silu; io_f32: f32 operands and output, else bf16.
+// 2 gelu, 3 gelu_tanh, 4 silu; dtype of the operands, bias and output: 0
+// bf16, 1 f16, 2 f32.
 // Returns cudaGetLastError() after the launch (0 when accepted), or
 // cudaErrorInvalidValue for arguments the kernels do not take.
 extern "C" int paddle_matmul_epilogue(const void* x, const void* w, const void* bias, void* out,
                                       int M, int N, int K, long long lda, long long ldb,
-                                      long long ldo, int act, int io_f32, void* stream) {
+                                      long long ldo, int act, int dtype, void* stream) {
   if (M <= 0 || N <= 0 || K < 0 || act < kNone || act > kSilu || lda < K || ldb < N ||
-      ldo < N) {
+      ldo < N || dtype < 0 || dtype > 2) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (io_f32) {
+  if (dtype == 2) {
     const dim3 grid((M + kFT - 1) / kFT, (N + kFT - 1) / kFT);
     matmul_epilogue_f32<<<grid, 256, 0, s>>>(
         static_cast<const float*>(x), static_cast<const float*>(w),
@@ -291,12 +292,20 @@ extern "C" int paddle_matmul_epilogue(const void* x, const void* w, const void* 
   const auto* wb = static_cast<const uint16_t*>(w);
   const auto* bb = static_cast<const uint16_t*>(bias);
   auto* ob = static_cast<uint16_t*>(out);
-  if (vec) {
-    matmul_epilogue_bf16<true><<<grid, kThreads, 0, s>>>(xb, wb, bb, ob, M, N, K, lda, ldb,
-                                                          ldo, act);
+  if (dtype == 1) {
+    if (vec) {
+      matmul_epilogue_16<true, true><<<grid, kThreads, 0, s>>>(xb, wb, bb, ob, M, N, K, lda, ldb,
+                                                               ldo, act);
+    } else {
+      matmul_epilogue_16<true, false><<<grid, kThreads, 0, s>>>(xb, wb, bb, ob, M, N, K, lda,
+                                                                ldb, ldo, act);
+    }
+  } else if (vec) {
+    matmul_epilogue_16<false, true><<<grid, kThreads, 0, s>>>(xb, wb, bb, ob, M, N, K, lda, ldb,
+                                                              ldo, act);
   } else {
-    matmul_epilogue_bf16<false><<<grid, kThreads, 0, s>>>(xb, wb, bb, ob, M, N, K, lda, ldb,
-                                                           ldo, act);
+    matmul_epilogue_16<false, false><<<grid, kThreads, 0, s>>>(xb, wb, bb, ob, M, N, K, lda, ldb,
+                                                               ldo, act);
   }
   return (int)cudaGetLastError();
 }

@@ -72,6 +72,14 @@ class LlamaConfig:
     rope_theta: float = 10000.0
     tie_word_embeddings: bool = False
     dtype: str = "bfloat16"
+    # the JAX package's parallel and memory hints, accepted so that its
+    # configs carry across; only their defaults are ported (LlamaModel
+    # raises on any other value)
+    tensor_parallel_degree: int = 1
+    sequence_parallel: bool = False
+    use_recompute: bool = False
+    recompute_granularity: str = "full"
+    fuse_layer_stack: bool = False
 
     @property
     def torch_dtype(self) -> torch.dtype:
@@ -196,9 +204,24 @@ class LlamaDecoderLayer(nn.Module):
         return out
 
 
+# config field -> (its only ported value, the ROADMAP item that ports the rest)
+_UNPORTED = {"tensor_parallel_degree": (1, "A.6"), "sequence_parallel": (False, "A.6"),
+             "use_recompute": (False, "A.3.4"), "recompute_granularity": ("full", "A.3.4"),
+             "fuse_layer_stack": (False, "A.3.4")}
+
+
+def _check_ported(config: LlamaConfig):
+    for name, (default, item) in _UNPORTED.items():
+        if getattr(config, name) != default:
+            raise NotImplementedError(
+                f"LlamaConfig.{name}={getattr(config, name)!r} is not ported yet "
+                f"(ROADMAP.md {item}); the port builds {name}={default!r}")
+
+
 class LlamaModel(nn.Module):
     def __init__(self, config: LlamaConfig, *, device=None, generator=None):
         super().__init__()
+        _check_ported(config)
         self.config = config
         self.embed_tokens = Embedding(config.vocab_size, config.hidden_size, device=device,
                                       dtype=config.torch_dtype, generator=generator)

@@ -1,13 +1,21 @@
 """Flash attention: CUDA C++ kernels for Hopper beside their plain
 versions, joined by a ``torch.autograd.Function``.
 
-Counterpart of paddle_tpu/ops/flash_attention.py.  The forward kernel
-(``csrc/flash_attention_fwd.cu``) replaces the TPU kernel ``_fwd_kernel``;
-the two backward kernels (``csrc/flash_attention_bwd.cu``) replace
-``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``.  Each source's header says
-what bounds it and how it is built.  The public layout is Paddle's
-``[B, S, N, H]``; the kernels read it through its strides instead of
-transposing to ``[B, N, S, H]``.
+Counterpart of paddle_tpu/ops/flash_attention.py.  Two forward kernels
+replace the TPU kernel ``_fwd_kernel``: ``csrc/flash_attention_fwd_sm90.cu``
+(TMA loads into an mbarrier ring, wgmma for both products, a producer and
+two consumer warpgroups) for bf16 and f16 at head_dim 64 or 128 in a
+layout TMA can read, and ``csrc/flash_attention_fwd.cu`` for the rest
+(every float dtype, head_dim up to 256, any strides).  ``_fwd_route``
+picks between them from dtype, head dim and layout alone, before any
+launch; every forward launch counts under ``flash_attention_fwd``, the
+TMA kernel's also under ``flash_attention_fwd_sm90``.  The two backward
+kernels (``csrc/flash_attention_bwd.cu``) replace ``_bwd_dq_kernel`` and
+``_bwd_dkv_kernel`` in the same dtypes and head dims.  Each source's
+header says what bounds it and how it is built.  The public layout is
+Paddle's ``[B, S, N, H]``; the kernels read it through its strides
+instead of transposing to ``[B, N, S, H]``.  Only head_dim past 256 and
+dtypes other than bf16, f16 and f32 raise on the card.
 
 Semantics kept from the TPU kernels: causal is bottom-right aligned when
 Sq != Sk (query row i sees keys j <= i + Sk - Sq); masked scores take
@@ -40,17 +48,23 @@ __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_bwd",
            "flash_attention_reference", "flash_attention_bwd_reference"]
 
 DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
+MAX_HEAD_DIM = 256  # the kernels' limit (the general kernels' widest instantiation)
+# dtype -> the code the C entry points take
+_DTYPES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
 _FNS: dict = {}
 _PTR, _INT, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-# (library, C function) -> argument types: pointers, ints, strides, then
-# scale, causal and the stream
+# (library, C function) -> argument types: pointers, ints, strides, the
+# dtype (code, or 1 for f16 in the sm90 kernel), then scale, causal and
+# the stream
 _SIGNATURES = {
-    ("flash_attention_fwd", "paddle_flash_attention_fwd_bf16"):
-        [_PTR] * 5 + [_INT] * 6 + [_LL] * 12,
-    ("flash_attention_bwd", "paddle_flash_attention_bwd_dq_bf16"):
-        [_PTR] * 7 + [_INT] * 6 + [_LL] * 15,
-    ("flash_attention_bwd", "paddle_flash_attention_bwd_dkv_bf16"):
-        [_PTR] * 8 + [_INT] * 6 + [_LL] * 18,
+    ("flash_attention_fwd_sm90", "paddle_flash_attention_fwd_sm90"):
+        [_PTR] * 5 + [_INT] * 6 + [_LL] * 12 + [_INT],
+    ("flash_attention_fwd", "paddle_flash_attention_fwd"):
+        [_PTR] * 5 + [_INT] * 6 + [_LL] * 15 + [_INT],
+    ("flash_attention_bwd", "paddle_flash_attention_bwd_dq"):
+        [_PTR] * 7 + [_INT] * 6 + [_LL] * 19 + [_INT],
+    ("flash_attention_bwd", "paddle_flash_attention_bwd_dkv"):
+        [_PTR] * 8 + [_INT] * 6 + [_LL] * 22 + [_INT],
 }
 
 
@@ -141,21 +155,38 @@ def flash_attention_bwd_reference(q, k, v, out, lse, do, *, causal=False, scale=
                  for g, t in ((dq, q), (dk, k), (dv, v)))
 
 
-def _check_kernel_input(name, t):
-    if t.dtype != torch.bfloat16:
-        raise TypeError(f"flash_attention: the kernel takes bf16, {name} is {t.dtype}")
-    if not _kernel_layout(t):
-        raise ValueError(f"flash_attention: {name} needs unit stride on H, strides that "
-                         "are multiples of 8 elements and a 16-byte aligned base")
-
-
-def _kernel_layout(t):
-    return t.stride(-1) == 1 and not any(s % 8 for s in t.stride()[:3]) and t.data_ptr() % 16 == 0
+def _check_kernel_inputs(*named):
+    """The kernels take one float dtype for every tensor (bf16, f16, f32)
+    and any strides."""
+    dtype = named[0][1].dtype
+    for name, t in named:
+        if t.dtype not in _DTYPES:
+            raise TypeError(f"flash_attention: the kernels take bf16, f16 or f32, {name} is "
+                            f"{t.dtype}")
+        if t.dtype != dtype:
+            raise TypeError(f"flash_attention: {name} is {t.dtype}, {named[0][0]} {dtype}: "
+                            "the kernels take one dtype")
 
 
 def _check_head_dim(h):
-    if h not in (64, 128):
-        raise ValueError(f"flash_attention: head_dim {h} is not 64 or 128")
+    if not 0 < h <= MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention: head_dim {h} is past the kernels' limit of "
+                         f"{MAX_HEAD_DIM}")
+
+
+def _fwd_route(dtype, head_dim, strides, data_ptr) -> str:
+    """Which forward kernel takes a tensor: ``"sm90"`` (TMA and wgmma,
+    ``csrc/flash_attention_fwd_sm90.cu``) for bf16 or f16 at head_dim 64
+    or 128 in a layout TMA can read (unit stride on H, every other stride
+    a positive multiple of 16 bytes, a 16-byte aligned base), else
+    ``"general"`` (``csrc/flash_attention_fwd.cu``: every float dtype,
+    head_dim up to 256, any strides).  The forward runs the sm90 kernel
+    when q, k and v all take it."""
+    if dtype not in (torch.bfloat16, torch.float16) or head_dim not in (64, 128):
+        return "general"
+    if strides[-1] != 1 or any(s <= 0 or s % 8 for s in strides[:-1]) or data_ptr % 16:
+        return "general"
+    return "sm90"
 
 
 def _launch(lib, name, *args):
@@ -169,34 +200,35 @@ def _launch(lib, name, *args):
 
 
 def _flash_cuda(q, k, v, causal, scale):
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        _check_kernel_input(name, t)
+    _check_kernel_inputs(("q", q), ("k", k), ("v", v))
     b, sq, n, h = q.shape
     sk, nkv = k.shape[1], k.shape[2]
     _check_head_dim(h)
     out = torch.empty((b, sq, n, h), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, n, sq), dtype=torch.float32, device=q.device)
-    if b == 0 or sq == 0:
+    if b == 0 or sq == 0 or n == 0:
         return out, lse
     if sk == 0:
         raise ValueError("flash_attention: no keys")
-    _launch("flash_attention_fwd", "paddle_flash_attention_fwd_bf16",
-            q, k, v, out, lse, b, sq, sk, n, nkv, h,
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
-            float(scale), int(bool(causal)))
+    if all(_fwd_route(t.dtype, h, t.stride(), t.data_ptr()) == "sm90" for t in (q, k, v)):
+        _launch("flash_attention_fwd_sm90", "paddle_flash_attention_fwd_sm90",
+                q, k, v, out, lse, b, sq, sk, n, nkv, h,
+                *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
+                int(q.dtype == torch.float16), float(scale), int(bool(causal)))
+        count_launch("flash_attention_fwd_sm90")
+    else:
+        _launch("flash_attention_fwd", "paddle_flash_attention_fwd",
+                q, k, v, out, lse, b, sq, sk, n, nkv, h, *q.stride(), *k.stride(), *v.stride(),
+                *out.stride()[:3], _DTYPES[q.dtype], float(scale), int(bool(causal)))
     count_launch("flash_attention_fwd")
     return out, lse
 
 
 def _bwd_inputs(q, k, v, out, lse, do):
-    """Check the backward kernels' inputs; return ``(do, delta)`` with dO in
-    the kernel's layout (a copy when it arrives otherwise) and
-    ``delta = rowsum(O * dO)`` as contiguous f32 ``[B, N, Sq]``."""
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        _check_kernel_input(name, t)
-    if do.dtype != torch.bfloat16 or out.dtype != torch.bfloat16:
-        raise TypeError(f"flash_attention: the backward takes bf16 out and dO, got "
-                        f"{out.dtype} and {do.dtype}")
+    """Check the backward kernels' inputs; return ``(do, delta)``, dO as it
+    came (the kernels read any strides) and ``delta = rowsum(O * dO)`` as
+    contiguous f32 ``[B, N, Sq]``."""
+    _check_kernel_inputs(("q", q), ("k", k), ("v", v), ("out", out), ("dO", do))
     _check_head_dim(q.shape[-1])
     b, sq, n, _ = q.shape
     if do.shape != q.shape or out.shape != q.shape:
@@ -204,8 +236,6 @@ def _bwd_inputs(q, k, v, out, lse, do):
                          f"do not match q {tuple(q.shape)}")
     if lse.shape != (b, n, sq) or lse.dtype != torch.float32 or not lse.is_contiguous():
         raise ValueError(f"flash_attention: lse must be contiguous f32 {(b, n, sq)}")
-    if not _kernel_layout(do):
-        do = do.contiguous()
     delta = (out.float() * do.float()).sum(dim=-1).transpose(1, 2).contiguous()
     return do, delta
 
@@ -214,10 +244,10 @@ def _bwd_dq_cuda(q, k, v, do, lse, delta, causal, scale):
     b, sq, n, h = q.shape
     sk, nkv = k.shape[1], k.shape[2]
     dq = torch.empty((b, sq, n, h), dtype=q.dtype, device=q.device)
-    _launch("flash_attention_bwd", "paddle_flash_attention_bwd_dq_bf16",
+    _launch("flash_attention_bwd", "paddle_flash_attention_bwd_dq",
             q, k, v, do, lse, delta, dq, b, sq, sk, n, nkv, h,
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
-            *dq.stride()[:3], float(scale), int(bool(causal)))
+            *q.stride(), *k.stride(), *v.stride(), *do.stride(), *dq.stride()[:3],
+            _DTYPES[q.dtype], float(scale), int(bool(causal)))
     count_launch("flash_attention_bwd_dq")
     return dq
 
@@ -227,10 +257,10 @@ def _bwd_dkv_cuda(q, k, v, do, lse, delta, causal, scale):
     sk, nkv = k.shape[1], k.shape[2]
     dk = torch.empty((b, sk, nkv, h), dtype=k.dtype, device=k.device)
     dv = torch.empty((b, sk, nkv, h), dtype=v.dtype, device=v.device)
-    _launch("flash_attention_bwd", "paddle_flash_attention_bwd_dkv_bf16",
+    _launch("flash_attention_bwd", "paddle_flash_attention_bwd_dkv",
             q, k, v, do, lse, delta, dk, dv, b, sq, sk, n, nkv, h,
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
-            *dk.stride()[:3], *dv.stride()[:3], float(scale), int(bool(causal)))
+            *q.stride(), *k.stride(), *v.stride(), *do.stride(), *dk.stride()[:3],
+            *dv.stride()[:3], _DTYPES[q.dtype], float(scale), int(bool(causal)))
     count_launch("flash_attention_bwd_dkv")
     return dk, dv
 

@@ -38,6 +38,7 @@ ACTIVATIONS = {
 }
 _FN = None
 _PTR, _INT, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_DTYPES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}  # the kernel's dtype codes
 
 
 def matmul_bias_act_plain(x2d: torch.Tensor, weight: torch.Tensor, bias, activation: str):
@@ -62,8 +63,8 @@ def _fn():
 
 
 def _matmul_cuda(x2d, weight, bias, activation):
-    if x2d.dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"matmul_bias_act: the kernel takes bf16 or f32, got {x2d.dtype}")
+    if x2d.dtype not in _DTYPES:
+        raise TypeError(f"matmul_bias_act: the kernel takes bf16, f16 or f32, got {x2d.dtype}")
     if weight.dtype != x2d.dtype or (bias is not None and bias.dtype != x2d.dtype):
         raise TypeError("matmul_bias_act: x, weight and bias must share one dtype")
     m, k = x2d.shape
@@ -82,7 +83,7 @@ def _matmul_cuda(x2d, weight, bias, activation):
         err = _fn()(x2d.data_ptr(), weight.data_ptr(),
                     bias.data_ptr() if bias is not None else None, out.data_ptr(),
                     m, n, k, max(x2d.stride(0), k), max(weight.stride(0), n), n,
-                    ACTIVATIONS[activation][0], int(x2d.dtype == torch.float32),
+                    ACTIVATIONS[activation][0], _DTYPES[x2d.dtype],
                     torch.cuda.current_stream(x2d.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"matmul_bias_act: launch failed with CUDA error {err}")

@@ -14,7 +14,9 @@ What is kept from the JAX package:
   ``step_count``.
 
 ``parameters`` may also be ``(name, param)`` pairs, as
-``model.named_parameters()`` gives them: a torch tensor's ``name`` cannot
+``model.named_parameters()`` gives them, or a list of parameter groups
+(``{"params": [...], ...}`` dicts, flattened; their other keys are kept
+in ``_param_groups`` and ignored, as in the JAX package): a torch tensor's ``name`` cannot
 be set, so this is where the port finds the name that the JAX package
 reads from ``param.name`` (``apply_decay_param_fun``); a bare tensor's
 name is "".
@@ -44,12 +46,17 @@ class Optimizer:
         if parameters is None:
             raise ValueError("parameters must be provided")
         self._names: dict = {}
+        items = list(parameters)
+        # parameter groups: a list of {"params": [...], ...} dicts is
+        # flattened, as the JAX package does; per-group options are kept
+        # in _param_groups and, as there, not applied
+        groups = items if items and isinstance(items[0], dict) else [{"params": items}]
         self._parameter_list = []
-        for item in parameters:
-            if isinstance(item, tuple):
-                name, item = item
-                self._names[id(item)] = name
-            self._parameter_list.append(item)
+        self._param_groups = []
+        for group in groups:
+            params = [self._unpack(item) for item in group["params"]]
+            self._parameter_list.extend(params)
+            self._param_groups.append({**group, "params": params})
 
         self._lr_scheduler = learning_rate if isinstance(learning_rate, LRScheduler) else None
         self._lr = None if self._lr_scheduler is not None else float(learning_rate)
@@ -62,6 +69,13 @@ class Optimizer:
         self._grad_clip = grad_clip
         self._accumulators: dict = {}
         self._step_count = 0
+
+    def _unpack(self, item):
+        """A parameter, or a ``(name, param)`` pair whose name is kept."""
+        if isinstance(item, tuple):
+            name, item = item
+            self._names[id(item)] = name
+        return item
 
     def _param_name(self, p) -> str:
         return self._names.get(id(p), "")

@@ -12,8 +12,14 @@ kernels round P and dS to bf16 before their products and each gradient
 once at the end; they are held at 2e-2 absolute and relative too.  The
 serving chains (``ops.decode_chain``) write the pools bit-exactly as their
 plain versions do (count of differing elements 0) and hold the attention
-output at 2e-2 for bf16 outputs and int8 pools, 2e-5 for f32.
+output at 2e-2 for bf16 outputs and int8 pools, 2e-5 for f32.  f16 flash
+and matmul cases take bf16's 2e-2 (f16 rounds more finely); the f32 flash
+kernels (FMA) are held at 1e-4 against the plain f32 einsums, which sum in
+another order.  On a card, run the TMA kernel's single-tile witness first
+(``-k witness``).
 """
+
+import importlib
 
 import pytest
 import torch
@@ -71,6 +77,163 @@ def test_flash_kernel(cuda, sq, sk, n, nkv, h, causal):
     assert lse.shape == (2, n, sq) and torch.isfinite(lse).all()
 
 
+def _flash_against_plain(q, k, v, causal, tol):
+    """Run the forward, hold out and lse against the plain version; return
+    the launch counts it added."""
+    from paddle_tpu_torch.ops.flash_attention import _reference_with_lse
+
+    before = ops.launch_counts()
+    out, lse = ops.flash_attention_fwd(q, k, v, causal=causal)
+    after = ops.launch_counts()
+    torch.cuda.synchronize()
+    want, want_lse = _reference_with_lse(q, k, v, causal, q.shape[-1] ** -0.5)
+    assert out.dtype == q.dtype and out.shape == q.shape
+    torch.testing.assert_close(out.float(), want.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(lse, want_lse, atol=tol, rtol=tol)
+    return {key: after[key] - before[key] for key in after}
+
+
+def test_flash_fwd_sm90_single_tile_witness(cuda):
+    """The smallest witness of a layout fault in the TMA/wgmma kernel: one
+    block, one 128 x 128 tile, H 64, non-causal.  Run it first on a card."""
+    g = torch.Generator(device=cuda).manual_seed(20)
+    q, k, v = (_randn(g, 1, 128, 1, 64, device=cuda) for _ in range(3))
+    added = _flash_against_plain(q, k, v, False, TOL)
+    assert added["flash_attention_fwd_sm90"] == 1 and added["flash_attention_fwd"] == 1
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("b,sq,sk,n,nkv,h,causal", [
+    (1, 128, 128, 1, 1, 128, False), (2, 256, 256, 4, 4, 128, True),
+    (1, 300, 300, 4, 2, 64, True), (2, 100, 357, 4, 4, 128, True),
+    (1, 640, 640, 8, 8, 128, True), (1, 200, 1000, 4, 1, 64, False),
+    (2, 1000, 1000, 2, 2, 64, False), (1, 37, 37, 2, 2, 128, True)])
+def test_flash_fwd_sm90(cuda, dtype, b, sq, sk, n, nkv, h, causal):
+    """The TMA/wgmma kernel: causal and not, ragged Sq and Sk, Sq < Sk
+    (bottom-right), GQA, bf16 and f16 (one 16-bit rounding of P and of the
+    output: 2e-2), H 64 and 128."""
+    g = torch.Generator(device=cuda).manual_seed(21)
+    q = torch.randn(b, sq, n, h, generator=g, device=cuda).to(dtype)
+    k, v = (torch.randn(b, sk, nkv, h, generator=g, device=cuda).to(dtype) for _ in range(2))
+    added = _flash_against_plain(q, k, v, causal, TOL)
+    assert added["flash_attention_fwd_sm90"] == 1 and added["flash_attention_fwd"] == 1
+
+
+F32_TOL = 1e-4  # f32 FMA kernels against the plain f32 einsums: other summation orders
+
+
+def _make(gen, shape, dtype, layout, device):
+    """A [B, S, N, H] tensor in one of three layouts: contiguous; "narrow",
+    a view whose row strides are not 16-byte multiples (H + 4 wide); "hmajor",
+    a view with a non-unit stride on H."""
+    b, s, n, h = shape
+    if layout == "narrow":
+        return torch.randn(b, s, n, h + 4, generator=gen, device=device).to(dtype)[..., :h]
+    if layout == "hmajor":
+        return torch.randn(b, s, h, n, generator=gen, device=device).to(dtype).transpose(2, 3)
+    return torch.randn(b, s, n, h, generator=gen, device=device).to(dtype)
+
+
+GENERAL_FWD_CASES = [  # (dtype, H, layout, B, Sq, Sk, N, Nkv, causal)
+    (torch.float32, 32, "contiguous", 2, 100, 100, 4, 4, True),
+    (torch.float32, 64, "contiguous", 1, 128, 300, 4, 2, True),
+    (torch.float32, 96, "contiguous", 1, 77, 77, 2, 2, False),
+    (torch.float32, 128, "narrow", 1, 130, 130, 2, 1, True),
+    (torch.float32, 256, "contiguous", 1, 70, 70, 2, 2, True),
+    (torch.bfloat16, 32, "contiguous", 2, 100, 100, 4, 4, True),
+    (torch.bfloat16, 96, "contiguous", 1, 200, 200, 4, 2, True),
+    (torch.bfloat16, 256, "contiguous", 1, 130, 130, 2, 2, False),
+    (torch.bfloat16, 64, "narrow", 1, 100, 150, 4, 4, True),
+    (torch.bfloat16, 128, "hmajor", 1, 64, 64, 2, 2, True),
+    (torch.float16, 32, "contiguous", 1, 90, 90, 2, 2, True),
+    (torch.float16, 96, "narrow", 1, 128, 128, 2, 1, False),
+    (torch.float16, 256, "contiguous", 2, 100, 100, 2, 2, True),
+    (torch.bfloat16, 40, "contiguous", 1, 50, 50, 2, 2, True),
+]
+
+
+@pytest.mark.parametrize("dtype,h,layout,b,sq,sk,n,nkv,causal", GENERAL_FWD_CASES)
+def test_flash_fwd_general_route(cuda, dtype, h, layout, b, sq, sk, n, nkv, causal):
+    """What the TMA kernel does not take runs the general kernel: f32 (FMA),
+    head dims other than 64 and 128 (zero-padded inside), row strides that
+    are not 16-byte multiples and a non-unit H stride (element loads, no
+    copy).  bf16/f16 within 2e-2, f32 within F32_TOL."""
+    fa = importlib.import_module("paddle_tpu_torch.ops.flash_attention")
+    g = torch.Generator(device=cuda).manual_seed(22)
+    q = _make(g, (b, sq, n, h), dtype, layout, cuda)
+    k, v = (_make(g, (b, sk, nkv, h), dtype, layout, cuda) for _ in range(2))
+    assert fa._fwd_route(q.dtype, h, q.stride(), q.data_ptr()) == "general"
+    added = _flash_against_plain(q, k, v, causal, F32_TOL if dtype == torch.float32 else TOL)
+    assert added["flash_attention_fwd"] == 1 and added["flash_attention_fwd_sm90"] == 0
+
+
+GENERAL_BWD_CASES = [  # (dtype, H, layout, Sq, Sk, N, Nkv, causal)
+    (torch.float32, 32, "contiguous", 100, 100, 4, 2, True),
+    (torch.float32, 64, "narrow", 64, 128, 2, 2, True),
+    (torch.float32, 96, "contiguous", 77, 77, 2, 2, False),
+    (torch.float32, 128, "contiguous", 130, 130, 2, 1, True),
+    (torch.float32, 256, "contiguous", 70, 70, 2, 2, True),
+    (torch.float16, 32, "contiguous", 100, 100, 4, 2, True),
+    (torch.float16, 64, "contiguous", 256, 256, 4, 4, True),
+    (torch.float16, 96, "narrow", 128, 128, 2, 2, False),
+    (torch.float16, 128, "contiguous", 100, 200, 4, 2, True),
+    (torch.float16, 256, "contiguous", 130, 130, 2, 2, True),
+    (torch.bfloat16, 32, "contiguous", 90, 90, 2, 2, True),
+    (torch.bfloat16, 96, "contiguous", 200, 200, 4, 2, True),
+    (torch.bfloat16, 256, "contiguous", 128, 256, 2, 1, True),
+    (torch.bfloat16, 128, "hmajor", 64, 64, 2, 2, False),
+]
+
+
+@pytest.mark.parametrize("dtype,h,layout,sq,sk,n,nkv,causal", GENERAL_BWD_CASES)
+def test_flash_backward_every_dtype_and_head_dim(cuda, dtype, h, layout, sq, sk, n, nkv, causal):
+    """The two backward kernels in f32 (FMA), f16 and bf16 (mma.sync), at
+    H 32 to 256 (above 128 the dK/dV key tile halves and two warps split H),
+    against the plain backward: 16-bit within 2e-2, f32 within F32_TOL."""
+    g = torch.Generator(device=cuda).manual_seed(23)
+    q = _make(g, (2, sq, n, h), dtype, layout, cuda)
+    k, v = (_make(g, (2, sk, nkv, h), dtype, layout, cuda) for _ in range(2))
+    do = _make(g, (2, sq, n, h), dtype, layout, cuda)
+    out, lse = ops.flash_attention_fwd(q, k, v, causal=causal)
+    before = ops.launch_counts()
+    got = ops.flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
+    after = ops.launch_counts()
+    torch.cuda.synchronize()
+    assert after["flash_attention_bwd_dq"] == before["flash_attention_bwd_dq"] + 1
+    assert after["flash_attention_bwd_dkv"] == before["flash_attention_bwd_dkv"] + 1
+    want = ops.flash_attention_bwd_reference(q, k, v, out, lse, do, causal=causal)
+    tol = F32_TOL if dtype == torch.float32 else TOL
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.shape == b.shape and a.dtype == dtype, name
+        torch.testing.assert_close(a.float(), b.float(), atol=tol, rtol=tol, msg=name)
+
+
+def test_llama_tiny_f32_forward_and_backward_on_the_card(cuda):
+    """llama_tiny in f32 (head_dim 64): the card's forward and backward go
+    through the general flash kernels and match the CPU's plain run of the
+    same weights within F32_TOL relative L2."""
+    from paddle_tpu_torch.models import LlamaForCausalLM, llama_tiny
+
+    model = LlamaForCausalLM(llama_tiny(dtype="float32"), device="cpu",
+                             generator=torch.Generator().manual_seed(24))
+    ids = torch.randint(0, 1024, (2, 48), generator=torch.Generator().manual_seed(25))
+    results = []
+    for device in ("cpu", cuda):
+        m = model.to(device)
+        m.zero_grad(set_to_none=True)
+        ops.reset_launch_counts()
+        loss, logits = m(ids.to(device), labels=ids.to(device))
+        loss.backward()
+        results.append((ops.launch_counts(), logits.detach().cpu(),
+                        m.lm_head.weight.grad.detach().cpu()))
+    (cpu_counts, cpu_logits, cpu_grad), (counts, logits, grad) = results
+    assert cpu_counts["flash_attention_fwd"] == 0
+    assert counts["flash_attention_fwd"] == 2 and counts["flash_attention_fwd_sm90"] == 0
+    assert counts["flash_attention_bwd_dq"] == 2 and counts["flash_attention_bwd_dkv"] == 2
+    for got, want in ((logits, cpu_logits), (grad, cpu_grad)):
+        assert float((got - want).norm() / want.norm()) <= F32_TOL
+
+
 @pytest.mark.parametrize("sq,sk,n,nkv,h,causal", [
     (256, 256, 4, 4, 128, True), (100, 100, 4, 2, 128, True), (37, 200, 2, 2, 64, True),
     (70, 70, 2, 1, 64, False)])
@@ -106,7 +269,7 @@ def test_backward_reaches_every_parameter(cuda):
     loss.backward()
     counts = ops.launch_counts()
     assert counts == {"fused_rms_norm": 5, "swiglu": 2, "flash_attention_fwd": 2,
-                      "flash_attention_bwd_dq": 2, "flash_attention_bwd_dkv": 2,
+                      "flash_attention_fwd_sm90": 2, "flash_attention_bwd_dq": 2, "flash_attention_bwd_dkv": 2,
                       "decode_chain_batch": 0, "decode_chain_rows": 0, "prefill_chain": 0,
                       "fused_layer_norm": 0, "matmul_epilogue": 0, "vpu_chain": 0,
                       "sched_chain": 0, "sched_chain_ktiled": 0}
@@ -118,14 +281,21 @@ def test_backward_reaches_every_parameter(cuda):
 
 
 def test_kernels_refuse_what_they_do_not_take(cuda):
-    q = torch.zeros(1, 8, 2, 96, device=cuda, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="head_dim"):
+    """Every float dtype and head_dim up to 256 run a flash kernel; only
+    head_dim past 256 and dtypes that are not bf16, f16 or f32 raise (and
+    the backward's tensors must share one dtype)."""
+    q = torch.zeros(1, 8, 2, 264, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim 264 is past the kernels' limit of 256"):
         ops.flash_attention(q, q, q)
-    with pytest.raises(TypeError, match="bf16"):
-        ops.flash_attention(q.float(), q.float(), q.float())
+    q = torch.zeros(1, 8, 2, 64, device=cuda, dtype=torch.int32)
+    with pytest.raises(TypeError, match="bf16, f16 or f32"):
+        ops.flash_attention_fwd(q, q, q)
+    q = torch.zeros(1, 8, 2, 64, device=cuda, dtype=torch.float64)
+    with pytest.raises(TypeError, match="bf16, f16 or f32"):
+        ops.flash_attention_fwd(q, q, q)
     q = torch.zeros(1, 8, 2, 64, device=cuda, dtype=torch.bfloat16)
     lse = torch.zeros(1, 2, 8, device=cuda)
-    with pytest.raises(TypeError, match="bf16"):
+    with pytest.raises(TypeError, match="one dtype"):
         ops.flash_attention_bwd(q, q, q, q, lse, q.float())
 
 
@@ -326,9 +496,28 @@ def test_matmul_epilogue_kernel(cuda, m, k, n, dtype, act, bias):
                                atol=tol, rtol=tol)
 
 
+@pytest.mark.parametrize("m,k,n", [(4096, 768, 3072), (100, 72, 130), (33, 77, 40)])
+@pytest.mark.parametrize("act", ["none", "gelu", "silu"])
+def test_matmul_epilogue_kernel_f16(cuda, m, k, n, act):
+    """The f16 instantiation (mma.sync .f16, f32 accumulate): one f16
+    rounding of the output after an f32 sum, held at 2e-2."""
+    from paddle_tpu_torch.ops.matmul_epilogue import matmul_bias_act_plain
+
+    g = torch.Generator(device=cuda).manual_seed(13)
+    x = (torch.randn(m, k, generator=g, device=cuda) / k ** 0.5).half()
+    w = torch.randn(k, n, generator=g, device=cuda).half()
+    bvec = (0.5 * torch.randn(n, generator=g, device=cuda)).half()
+    before = ops.launch_counts()["matmul_epilogue"]
+    got = ops.matmul_bias_act(x, w, bvec, act)
+    assert ops.launch_counts()["matmul_epilogue"] == before + 1 and got.dtype == torch.float16
+    torch.testing.assert_close(got.float(), matmul_bias_act_plain(x, w, bvec, act).float(),
+                               atol=TOL, rtol=TOL)
+
+
 def test_new_kernels_refuse_what_they_do_not_take(cuda):
-    x = torch.zeros(8, 64, device=cuda, dtype=torch.float16)
-    with pytest.raises(TypeError, match="bf16 or f32"):
+    """The matmul epilogue takes bf16, f16 and f32; other dtypes raise."""
+    x = torch.zeros(8, 64, device=cuda, dtype=torch.int32)
+    with pytest.raises(TypeError, match="bf16, f16 or f32"):
         ops.matmul_bias_act(x, x.t().contiguous())
     x = torch.zeros(8, 64, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="against weight"):

@@ -249,6 +249,7 @@ def test_cpu_tensors_take_the_plain_versions():
     tops.fused_layer_norm(x, torch.ones(64), torch.zeros(64), residual=x)
     tops.matmul_bias_act(x, torch.randn(64, 32), torch.randn(32), "gelu")
     assert tops.launch_counts() == {"fused_rms_norm": 0, "swiglu": 0, "flash_attention_fwd": 0,
+                                    "flash_attention_fwd_sm90": 0,
                                     "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,
                                     "decode_chain_batch": 0, "decode_chain_rows": 0,
                                     "prefill_chain": 0, "fused_layer_norm": 0,
