@@ -7,9 +7,10 @@ Phases, each of which raises (exit code != 0) on failure:
 
 1. Print the card's name and power limit (nvidia-smi) and build the
    kernels from the sources in this checkout: the CUDA C++ flash-attention
-   forward (the TMA/wgmma kernel of flash_attention_fwd_sm90.cu and the
-   general one) and backward, the serving chains (decode_chain.cu) and the
-   matmul epilogue with nvcc, and the generated sources of the codegen
+   forward and backward (the TMA/wgmma kernels of
+   flash_attention_fwd_sm90.cu and flash_attention_bwd_sm90.cu and the
+   general ones), the serving chains (decode_chain.cu) and the matmul
+   epilogue with nvcc, and the generated sources of the codegen
    cases of phase 2 (csrc/codegen/ templates; one nvcc process per
    source, all started together), the three Triton kernels at their
    first launch.
@@ -24,9 +25,12 @@ Phases, each of which raises (exit code != 0) on failure:
    time at the main shapes and the host cost of encoding the tensor maps)
    and at small sizes on the general route (f32, head dims 32, 96 and 256,
    strides that are not 16-byte multiples), each row naming its route;
-   the flash backward in bf16, f16 and f32 at head dims 32 to 256; f32
-   cases within 1e-4.  Then llama_tiny in f32 takes a forward and a
-   backward on the card against the CPU's plain run of the same weights.  The decode chains (bf16 and int8 pools; the split int8 layout
+   the flash backward likewise: the TMA/wgmma pair at the training shape
+   causal and not (with the general kernels' times on the same inputs and
+   delta's share of the whole), GQA, a ragged length, Sq < Sk, f16 and
+   H 64, the general pair in bf16, f16 and f32 at head dims 32 to 256 and
+   strided; f32 cases within 1e-4.  Then llama_tiny in f32 takes a
+   forward and a backward on the card against the CPU's plain run of the same weights.  The decode chains (bf16 and int8 pools; the split int8 layout
    with 2, 4 and 8 splits) at the 7B serving geometry, a GQA one and a ragged
    one must leave the pools bit-exact (0 differing elements); the prefill
    chain is held at a 128-token chunk against 128, 256 and 640 positions.
@@ -62,7 +66,8 @@ Phases, each of which raises (exit code != 0) on failure:
    TrainStep and AdamW on one seeded batch of 4 x 1024 tokens: check that
    the first step's loss and gradients match a backward through a forward
    built only from the plain versions, then run 3 warm-up and 10 timed
-   steps, checking every step's launch counts and that the loss falls.
+   steps, checking every step's launch counts (every flash forward and
+   backward on the sm90 route) and that the loss falls.
    Print ms a step, tokens/s, the model-FLOP share and peak memory
    (tools/profile_torch_training.py says where the step's time goes).
 5. Run BERT-base (12 layers, hidden 768, bf16, seeded random weights)
@@ -84,7 +89,8 @@ Phases, each of which raises (exit code != 0) on failure:
    program); then fresh captures of all four, whose verdicts must come
    from the cache with no new search.
 7. Print the ``kernels`` JSON line (all thirteen kernels, launches by main
-   path), then the result line.
+   path; the flash forward and the two backward kernels with their
+   launches by route), then the result line.
 
 The script needs the card: without CUDA, or run from a directory that
 holds nothing else of the repository, it exits with a non-zero code
@@ -359,77 +365,119 @@ def _encode_us(q, k, v, iters=2000):
     return us
 
 
+# (B, Sq, Sk, N, Nkv, H, causal, dtype, layout): the sm90 route at the
+# training shape causal and not (both routes timed there), GQA 16:4, a
+# ragged length, Sq 256 against Sk 1024, f16 and H 64; then the general
+# route at small sizes (f32, head dims 32, 96 and 256, rows that are not
+# 16-byte multiples)
+FLASH_BWD_CASES = [
+    (4, 1024, 1024, 16, 16, 128, True, torch.bfloat16, "contiguous"),
+    (4, 1024, 1024, 16, 16, 128, False, torch.bfloat16, "contiguous"),
+    (2, 1024, 1024, 16, 4, 128, True, torch.bfloat16, "contiguous"),
+    (2, 1000, 1000, 16, 16, 128, True, torch.bfloat16, "contiguous"),
+    (2, 256, 1024, 16, 16, 128, True, torch.bfloat16, "contiguous"),
+    (2, 256, 256, 4, 4, 128, True, torch.float16, "contiguous"),
+    (2, 512, 512, 8, 8, 64, True, torch.bfloat16, "contiguous"),
+    (2, 256, 256, 4, 2, 64, True, torch.float32, "contiguous"),
+    (2, 200, 200, 4, 4, 32, True, torch.float32, "contiguous"),
+    (2, 256, 256, 4, 4, 32, True, torch.bfloat16, "contiguous"),
+    (2, 256, 256, 4, 2, 96, True, torch.float16, "contiguous"),
+    (2, 200, 200, 4, 4, 256, True, torch.float16, "contiguous"),
+    (2, 256, 256, 4, 4, 128, True, torch.bfloat16, "narrow"),
+]
+
+
+def _bwd_route_of(added):
+    """Which backward kernels a call launched, from the launch counts it added."""
+    check(added["flash_attention_bwd_dq"] == 1 and added["flash_attention_bwd_dkv"] == 1,
+          f"flash backward launches {added}")
+    sm90 = (added["flash_attention_bwd_dq_sm90"], added["flash_attention_bwd_dkv_sm90"])
+    check(sm90 in ((0, 0), (1, 1)), f"flash backward launches {added}")
+    return "sm90" if sm90 == (1, 1) else "general"
+
+
 def check_flash_bwd(timer, F):
-    """The two backward kernels against the plain backward, at the training
-    shape first, then GQA, a ragged length and Sq != Sk (all causal, bf16,
-    H 128); then f16 and f32 and head dims 32, 96 and 256 at small sizes."""
+    """The backward against the plain backward on every case of
+    FLASH_BWD_CASES, each row naming its route, with each kernel's time
+    (the route's own entry points), the whole backward's and delta's share
+    of it; at the training shape also the general kernels on the same
+    inputs."""
     from paddle_tpu_torch import ops
 
     # the module: ops.flash_attention is the function of the same name
     fa = importlib.import_module("paddle_tpu_torch.ops.flash_attention")
-    cases = [  # (B, Sq, Sk, N, Nkv, H, dtype)
-        (4, 1024, 1024, 16, 16, 128, torch.bfloat16),
-        (2, 1024, 1024, 16, 4, 128, torch.bfloat16),
-        (2, 1000, 1000, 16, 16, 128, torch.bfloat16),
-        (2, 256, 1024, 16, 16, 128, torch.bfloat16),
-        (2, 256, 256, 4, 4, 128, torch.float16),
-        (2, 256, 256, 4, 2, 64, torch.float32),
-        (2, 200, 200, 4, 4, 32, torch.float32),
-        (2, 256, 256, 4, 4, 32, torch.bfloat16),
-        (2, 256, 256, 4, 2, 96, torch.float16),
-        (2, 200, 200, 4, 4, 256, torch.float16),
-    ]
     out = []
     g = torch.Generator(device=DEVICE).manual_seed(4)
-    for bsz, sq, sk, n, nkv, h, dtype in cases:
+    for bsz, sq, sk, n, nkv, h, causal, dtype, layout in FLASH_BWD_CASES:
         scale = h ** -0.5
-        shape = (bsz, sq, sk, n, nkv, h, str(dtype))
+        shape = {"q": [bsz, sq, n, h], "kv": [bsz, sk, nkv, h], "causal": causal,
+                 "dtype": str(dtype).replace("torch.", ""), "layout": layout}
         tol = F32_ATTN_TOL if dtype == torch.float32 else TOL
         peak = F32_FLOPS if dtype == torch.float32 else BF16_TC_FLOPS
-        q, k, v = _qkv(g, bsz, sq, sk, n, nkv, h, dtype)
+        q, k, v = _qkv(g, bsz, sq, sk, n, nkv, h, dtype, layout)
         do = torch.randn(q.shape, generator=g, device=DEVICE).to(dtype)
-        o, lse = ops.flash_attention_fwd(q, k, v, causal=True)
-        got = ops.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
-        want = ops.flash_attention_bwd_reference(q, k, v, o, lse, do, causal=True)
+        o, lse = ops.flash_attention_fwd(q, k, v, causal=causal)
+        before = ops.launch_counts()
+        got = ops.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+        after = ops.launch_counts()
+        route = _bwd_route_of({key: after[key] - before[key] for key in after})
+        want = ops.flash_attention_bwd_reference(q, k, v, o, lse, do, causal=causal)
         torch.cuda.synchronize()
         errs = {}
         for name, a, b in zip(("dq", "dk", "dv"), got, want):
             errs[name] = max_err(a, b)
             check(torch.allclose(a.float(), b.float(), atol=tol, rtol=tol),
-                  f"flash backward {shape}: {name} disagrees with its plain version: "
-                  f"{errs[name]}")
-        do_c, delta = fa._bwd_inputs(q, k, v, o, lse, do)
+                  f"flash backward {shape} ({route}): {name} disagrees with its plain "
+                  f"version: {errs[name]}")
+        # each route's two kernels through their own entry points
+        delta = fa._delta(o, do)
+        general = (lambda: fa._bwd_dq_cuda(q, k, v, do, lse, delta, causal, scale),
+                   lambda: fa._bwd_dkv_cuda(q, k, v, do, lse, delta, causal, scale))
+        kernels = general
+        if route == "sm90":
+            stats = fa._bwd_dq_sm90(q, k, v, o, do, lse, causal, scale)[1]
+            kernels = (lambda: fa._bwd_dq_sm90(q, k, v, o, do, lse, causal, scale),
+                       lambda: fa._bwd_dkv_sm90(q, k, v, do, stats, causal, scale))
         # the library yardstick: torch's attention backward on the same
         # inputs, the graph built outside the timed call
         qt, kt, vt = (t.detach().requires_grad_() for t in _library_views(q, k, v))
-        lib_out = _library_sdpa(F, qt, kt, vt)()
+        lib_out = _library_sdpa(F, qt, kt, vt, causal)()
         do_t = do.transpose(1, 2)
 
         def lib():
             return torch.autograd.grad(lib_out, (qt, kt, vt), do_t, retain_graph=True)
 
-        pairs = bsz * n * _allowed_pairs(sq, sk, True)
+        pairs = bsz * n * _allowed_pairs(sq, sk, causal)
         qbytes, kbytes = q.numel() * q.element_size(), k.numel() * k.element_size()
         rows = bsz * n * sq * 4  # one f32 per q row: lse, delta
-        # dQ: reads q, k, v, dO, lse, delta, writes dQ; S, dP, dS K
-        dq_bound = bound_ms(3 * qbytes + 2 * kbytes + 2 * rows, 6 * h * pairs, peak)
+        # dQ: reads q, k, v, dO, lse, delta (sm90: O and lse, writes delta
+        # and lse beside dQ), writes dQ; S, dP, dS K
+        dq_bytes = 3 * qbytes + 2 * kbytes + (qbytes + 3 * rows if route == "sm90" else 2 * rows)
+        dq_bound = bound_ms(dq_bytes, 6 * h * pairs, peak)
         # dK/dV: reads q, k, v, dO, lse, delta, writes dK, dV; S, dP, P^T dO, dS^T Q
         dkv_bound = bound_ms(2 * qbytes + 4 * kbytes + 2 * rows, 8 * h * pairs, peak)
         # the whole backward: reads q, k, v, o, dO, lse, writes dQ, dK, dV
         pair_bound = bound_ms(4 * qbytes + 4 * kbytes + rows, 10 * h * pairs, peak)
-        row = {"check": "flash_attention_bwd",
-               "shape": {"q": list(q.shape), "kv": list(k.shape), "causal": True,
-                         "dtype": str(dtype).replace("torch.", "")},
+        row = {"check": "flash_attention_bwd", "shape": shape, "route": route,
                "max_abs_err": errs, "tolerance": tol,
-               "dq_ms": timer(lambda: fa._bwd_dq_cuda(q, k, v, do_c, lse, delta, True, scale)),
-               "dq_bound_ms": dq_bound[0], "dq_bound_by": dq_bound[1],
-               "dkv_ms": timer(lambda: fa._bwd_dkv_cuda(q, k, v, do_c, lse, delta, True, scale)),
+               "dq_ms": timer(kernels[0]), "dq_bound_ms": dq_bound[0],
+               "dq_bound_by": dq_bound[1], "dkv_ms": timer(kernels[1]),
                "dkv_bound_ms": dkv_bound[0], "dkv_bound_by": dkv_bound[1],
-               "ms": timer(lambda: ops.flash_attention_bwd(q, k, v, o, lse, do, causal=True)),
+               "ms": timer(lambda: ops.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)),
                "bound_ms": pair_bound[0], "bound_by": pair_bound[1],
                "plain_ms": timer(lambda: ops.flash_attention_bwd_reference(
-                   q, k, v, o, lse, do, causal=True), iters=3, warmup=1),
+                   q, k, v, o, lse, do, causal=causal), iters=3, warmup=1),
                "library_ms": timer(lib)}
+        # delta's share: the whole backward less its two kernels timed alone
+        # (the torch passes on the general route; below 0 on the sm90 route,
+        # whose second kernel finds its inputs in L2 only within the whole)
+        row["delta_ms"] = row["ms"] - row["dq_ms"] - row["dkv_ms"]
+        if route == "sm90" and (bsz, sq, n) == (4, 1024, 16):
+            # the same inputs on the general kernels, delta included in
+            # general_ms
+            row["general_dq_ms"] = timer(general[0])
+            row["general_dkv_ms"] = timer(general[1])
+            row["general_ms"] = timer(lambda: (fa._delta(o, do), general[0](), general[1]()))
         out.append(row)
         emit(row)
         del lib_out
@@ -464,7 +512,9 @@ def f32_llama(card):
     check(not any(cpu_counts.values()), f"f32 llama_tiny on the CPU launched {cpu_counts}")
     check(counts["flash_attention_fwd"] == layers and counts["flash_attention_fwd_sm90"] == 0
           and counts["flash_attention_bwd_dq"] == layers
-          and counts["flash_attention_bwd_dkv"] == layers,
+          and counts["flash_attention_bwd_dkv"] == layers
+          and counts["flash_attention_bwd_dq_sm90"] == 0
+          and counts["flash_attention_bwd_dkv_sm90"] == 0,
           f"f32 llama_tiny on the card: flash launches {counts}")
     rel = {"logits": _rel_l2(got, want)}
     rel.update({n: _rel_l2(grads[n], want_grads[n]) for n in want_grads})
@@ -1072,6 +1122,7 @@ def expected_counts(engine, lengths, steps):
             "swiglu": layers * (forwards + iters), "flash_attention_fwd": layers * flash,
             "flash_attention_fwd_sm90": layers * flash,  # every LLaMA prefill takes the TMA kernel
             "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,  # serving: no backward
+            "flash_attention_bwd_dq_sm90": 0, "flash_attention_bwd_dkv_sm90": 0,
             "decode_chain_batch": 0, "decode_chain_rows": 0,
             "prefill_chain": layers * prefill_chain,
             "fused_layer_norm": 0, "matmul_epilogue": 0,  # LLaMA has neither
@@ -1329,11 +1380,13 @@ def train(card):
     step = TrainStep(model, AdamW(learning_rate=1e-4, parameters=model.parameters(),
                                   weight_decay=0.01), _loss_fn)
     layers = cfg.num_hidden_layers
+    # every flash forward and backward on the sm90 route
     per_step = {"fused_rms_norm": 2 * layers + 1, "swiglu": layers, "flash_attention_fwd": layers,
                 "flash_attention_fwd_sm90": layers, "flash_attention_bwd_dq": layers,
-                "flash_attention_bwd_dkv": layers, "decode_chain_batch": 0, "decode_chain_rows": 0, "prefill_chain": 0,
-                "fused_layer_norm": 0, "matmul_epilogue": 0, "vpu_chain": 0, "sched_chain": 0,
-                "sched_chain_ktiled": 0}
+                "flash_attention_bwd_dkv": layers, "flash_attention_bwd_dq_sm90": layers,
+                "flash_attention_bwd_dkv_sm90": layers, "decode_chain_batch": 0,
+                "decode_chain_rows": 0, "prefill_chain": 0, "fused_layer_norm": 0,
+                "matmul_epilogue": 0, "vpu_chain": 0, "sched_chain": 0, "sched_chain_ktiled": 0}
     losses, totals = [], dict.fromkeys(per_step, 0)
     for i in range(warmup + timed):
         if i == warmup:
@@ -1706,7 +1759,8 @@ def main() -> int:
     gen_build.start()  # the generated sources build beside csrc/'s, one nvcc each
     try:
         logs = _cuda_build.build(["flash_attention_fwd", "flash_attention_fwd_sm90",
-                                  "flash_attention_bwd", "decode_chain", "matmul_epilogue"])
+                                  "flash_attention_bwd", "flash_attention_bwd_sm90",
+                                  "decode_chain", "matmul_epilogue"])
     finally:
         gen_build.join()
     check(len(gen) == len(set(sources.values())), "a generated source failed to build")
@@ -1761,9 +1815,12 @@ def main() -> int:
         check(counts["flash_attention_fwd_sm90"] == counts["flash_attention_fwd"],
               f"{path}: flash forward launches {counts['flash_attention_fwd']}, of them "
               f"{counts['flash_attention_fwd_sm90']} on the sm90 route")
-    check(paths["training"]["flash_attention_bwd_dq"] > 0
-          and paths["training"]["flash_attention_bwd_dkv"] > 0,
-          f"training: a backward kernel was never launched: {paths['training']}")
+    for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+        # the training step's backward: launched, and every launch on the sm90 route
+        check(paths["training"][name] > 0
+              and paths["training"][f"{name}_sm90"] == paths["training"][name],
+              f"training: {name} launches {paths['training'][name]}, of them "
+              f"{paths['training'][f'{name}_sm90']} on the sm90 route")
     for kv in CHAINED:
         counts = paths[f"serving_{kv}_chained"]
         check(counts["prefill_chain"] > 0 and counts["decode_chain_batch"]
@@ -1775,33 +1832,43 @@ def main() -> int:
 
     for name in ("decode_chain_batch", "decode_chain_rows"):
         check(sum(launches(name).values()) > 0, f"{name} was launched on no main path")
-    bwd_src = "paddle_tpu_torch/csrc/flash_attention_bwd.cu"
+    bwd_src = "paddle_tpu_torch/csrc/flash_attention_bwd_sm90.cu"
+
+    def routes(name, sm90_src, general_src):
+        sm90 = sum(launches(f"{name}_sm90").values())
+        return {"sm90": {"source": sm90_src, "launches": sm90},
+                "general": {"source": general_src,
+                            "launches": sum(launches(name).values()) - sm90}}
+
     chain_src = "paddle_tpu_torch/csrc/decode_chain.cu"
     kernels = [
         summarize("fused_rms_norm", "triton", "paddle_tpu_torch/ops/fused_norm.py",
                   "paddle_tpu/ops/fused_norm.py:42", rms, launches("fused_rms_norm")),
         summarize("swiglu", "triton", "paddle_tpu_torch/ops/swiglu.py",
                   "paddle_tpu/ops/swiglu.py:17", sw, launches("swiglu")),
-        # two routes: the TMA/wgmma kernel (the main paths' launches) and the
-        # general kernel (f32, other head dims and strides); per_shape rows
-        # name the route each case ran
+        # two routes each: the TMA/wgmma kernels (the main paths' launches)
+        # and the general kernels (f32, other head dims and strides);
+        # per_shape rows name the route each case ran
         dict(summarize("flash_attention_fwd", "cuda",
                        "paddle_tpu_torch/csrc/flash_attention_fwd_sm90.cu",
                        "paddle_tpu/ops/flash_attention.py:97", fl, launches("flash_attention_fwd")),
-             routes={"sm90": {"source": "paddle_tpu_torch/csrc/flash_attention_fwd_sm90.cu",
-                              "launches": sum(launches("flash_attention_fwd_sm90").values())},
-                     "general": {"source": "paddle_tpu_torch/csrc/flash_attention_fwd.cu",
-                                 "launches": sum(launches("flash_attention_fwd").values())
-                                 - sum(launches("flash_attention_fwd_sm90").values())}}),
+             routes=routes("flash_attention_fwd",
+                           "paddle_tpu_torch/csrc/flash_attention_fwd_sm90.cu",
+                           "paddle_tpu_torch/csrc/flash_attention_fwd.cu")),
         # each backward kernel's own time and bound; plain_ms and library_ms
         # compute dQ, dK and dV together (no call computes one alone)
-        summarize("flash_attention_bwd_dq", "cuda", bwd_src,
-                  "paddle_tpu/ops/flash_attention.py:181", fb, launches("flash_attention_bwd_dq"),
-                  ms="dq_ms", bound_ms="dq_bound_ms", bound_by="dq_bound_by", err=("dq",)),
-        summarize("flash_attention_bwd_dkv", "cuda", bwd_src,
-                  "paddle_tpu/ops/flash_attention.py:217", fb,
-                  launches("flash_attention_bwd_dkv"), ms="dkv_ms", bound_ms="dkv_bound_ms",
-                  bound_by="dkv_bound_by", err=("dk", "dv")),
+        dict(summarize("flash_attention_bwd_dq", "cuda", bwd_src,
+                       "paddle_tpu/ops/flash_attention.py:181", fb,
+                       launches("flash_attention_bwd_dq"), ms="dq_ms", bound_ms="dq_bound_ms",
+                       bound_by="dq_bound_by", err=("dq",)),
+             routes=routes("flash_attention_bwd_dq", bwd_src,
+                           "paddle_tpu_torch/csrc/flash_attention_bwd.cu")),
+        dict(summarize("flash_attention_bwd_dkv", "cuda", bwd_src,
+                       "paddle_tpu/ops/flash_attention.py:217", fb,
+                       launches("flash_attention_bwd_dkv"), ms="dkv_ms", bound_ms="dkv_bound_ms",
+                       bound_by="dkv_bound_by", err=("dk", "dv")),
+             routes=routes("flash_attention_bwd_dkv", bwd_src,
+                           "paddle_tpu_torch/csrc/flash_attention_bwd.cu")),
         summarize("decode_chain_batch", "cuda", chain_src, "paddle_tpu/ops/decode_chain.py:504",
                   chains["decode_chain_batch"], launches("decode_chain_batch")),
         summarize("decode_chain_rows", "cuda", chain_src, "paddle_tpu/ops/decode_chain.py:574",

@@ -237,7 +237,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
       for (int ks = 0; ks < H / 16; ++ks) {
         const int off = (ks / 4) * L::kSub + (ks % 4) * 32;
-        wgmma_ss_n128<F16>(sc, sw128_desc(sq + off, 16, 1024), sw128_desc(sk + off, 16, 1024),
+        wgmma_ss<F16, kBN>(sc, sw128_desc(sq + off, 16, 1024), sw128_desc(sk + off, 16, 1024),
                            ks > 0);
       }
       wgmma_commit();
@@ -302,12 +302,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 8; ++kk) {
-        const uint64_t dv = sw128_desc(sv + kk * 16 * kRowBytes, L::kSub, 1024);
-        if constexpr (H == 128) {
-          wgmma_rs_n128<F16>(acc, pf[kk], dv);
-        } else {
-          wgmma_rs_n64<F16>(acc, pf[kk], dv);
-        }
+        wgmma_rs<F16, H>(acc, pf[kk], sw128_desc(sv + kk * 16 * kRowBytes, L::kSub, 1024));
       }
       wgmma_commit();
       wgmma_wait_all();
@@ -344,52 +339,6 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
       }
     }
   }
-}
-
-// cuTensorMapEncodeTiled, reached through the runtime so that the library
-// links against libcudart alone.
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_fn() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                             cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) return nullptr;
-    fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// The map of a strided [B, S, Nh, H] tensor as dims (H, Nh, S, B), boxes of
-// 64 columns x 1 head x 128 rows, 128-byte swizzle, zero fill out of bounds.
-bool encode(CUtensorMap* map, const void* base, bool f16, int B, int S, int Nh, int H,
-            long long sb, long long ss, long long sn) {
-  const EncodeTiled fn = encode_fn();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[4] = {(cuuint64_t)H, (cuuint64_t)Nh, (cuuint64_t)S, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)sn * 2, (cuuint64_t)ss * 2, (cuuint64_t)sb * 2};
-  const cuuint32_t box[4] = {64, 1, 128, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return fn(map, f16 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-            const_cast<void*>(base), dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-bool layout_ok(const void* p, long long sb, long long ss, long long sn) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && sb > 0 && ss > 0 && sn > 0 && sb % 8 == 0 &&
-         ss % 8 == 0 && sn % 8 == 0;
 }
 
 template <bool F16, int H>
@@ -432,9 +381,9 @@ extern "C" int paddle_flash_attention_fwd_sm90(
     return (int)cudaErrorInvalidValue;
   }
   CUtensorMap mq, mk, mv;
-  if (!encode(&mq, q, f16, B, Sq, N, H, q_sb, q_ss, q_sn) ||
-      !encode(&mk, k, f16, B, Sk, Nkv, H, k_sb, k_ss, k_sn) ||
-      !encode(&mv, v, f16, B, Sk, Nkv, H, v_sb, v_ss, v_sn)) {
+  if (!encode(&mq, q, f16, B, Sq, N, H, q_sb, q_ss, q_sn, kBM) ||
+      !encode(&mk, k, f16, B, Sk, Nkv, H, k_sb, k_ss, k_sn, kBN) ||
+      !encode(&mv, v, f16, B, Sk, Nkv, H, v_sb, v_ss, v_sn, kBN)) {
     return (int)cudaErrorNotSupported;
   }
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
@@ -460,9 +409,9 @@ extern "C" double paddle_flash_attention_fwd_sm90_encode_us(
   CUtensorMap mq, mk, mv;
   const auto t0 = std::chrono::steady_clock::now();
   for (int i = 0; i < iters; ++i) {
-    if (!encode(&mq, q, f16, B, Sq, N, H, q_sb, q_ss, q_sn) ||
-        !encode(&mk, k, f16, B, Sk, Nkv, H, k_sb, k_ss, k_sn) ||
-        !encode(&mv, v, f16, B, Sk, Nkv, H, v_sb, v_ss, v_sn)) {
+    if (!encode(&mq, q, f16, B, Sq, N, H, q_sb, q_ss, q_sn, kBM) ||
+        !encode(&mk, k, f16, B, Sk, Nkv, H, k_sb, k_ss, k_sn, kBN) ||
+        !encode(&mv, v, f16, B, Sk, Nkv, H, v_sb, v_ss, v_sn, kBN)) {
       return -1.0;
     }
   }

@@ -26,7 +26,8 @@ import torch
 
 _LAUNCHES = {"fused_rms_norm": 0, "swiglu": 0, "flash_attention_fwd": 0,
              "flash_attention_fwd_sm90": 0, "flash_attention_bwd_dq": 0,
-             "flash_attention_bwd_dkv": 0, "decode_chain_batch": 0, "decode_chain_rows": 0,
+             "flash_attention_bwd_dkv": 0, "flash_attention_bwd_dq_sm90": 0,
+             "flash_attention_bwd_dkv_sm90": 0, "decode_chain_batch": 0, "decode_chain_rows": 0,
              "prefill_chain": 0, "fused_layer_norm": 0, "matmul_epilogue": 0, "vpu_chain": 0,
              "sched_chain": 0, "sched_chain_ktiled": 0}
 

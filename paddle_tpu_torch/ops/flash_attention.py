@@ -9,13 +9,18 @@ layout TMA can read, and ``csrc/flash_attention_fwd.cu`` for the rest
 (every float dtype, head_dim up to 256, any strides).  ``_fwd_route``
 picks between them from dtype, head dim and layout alone, before any
 launch; every forward launch counts under ``flash_attention_fwd``, the
-TMA kernel's also under ``flash_attention_fwd_sm90``.  The two backward
-kernels (``csrc/flash_attention_bwd.cu``) replace ``_bwd_dq_kernel`` and
-``_bwd_dkv_kernel`` in the same dtypes and head dims.  Each source's
-header says what bounds it and how it is built.  The public layout is
-Paddle's ``[B, S, N, H]``; the kernels read it through its strides
-instead of transposing to ``[B, N, S, H]``.  Only head_dim past 256 and
-dtypes other than bf16, f16 and f32 raise on the card.
+TMA kernel's also under ``flash_attention_fwd_sm90``.  The backward has
+the same two routes for ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``:
+``csrc/flash_attention_bwd_sm90.cu`` (TMA and wgmma, warp-specialised,
+delta folded into the dQ kernel) when q, k, v, dO and O all take the
+TMA route (``_bwd_route``), else ``csrc/flash_attention_bwd.cu``; every
+launch counts under ``flash_attention_bwd_dq`` and
+``flash_attention_bwd_dkv``, the TMA kernels' also under the names with
+``_sm90``.  Each source's header says what bounds it and how it is
+built.  The public layout is Paddle's ``[B, S, N, H]``; the kernels read
+it through its strides instead of transposing to ``[B, N, S, H]``.  Only
+head_dim past 256 and dtypes other than bf16, f16 and f32 raise on the
+card.
 
 Semantics kept from the TPU kernels: causal is bottom-right aligned when
 Sq != Sk (query row i sees keys j <= i + Sk - Sq); masked scores take
@@ -24,10 +29,11 @@ Sq != Sk (query row i sees keys j <= i + Sk - Sq); masked scores take
 lengths that are not a block multiple are masked inside the kernels
 instead of falling back to the O(S^2) reference.  The forward writes the
 logsumexp as f32 ``[B, N, Sq]``; the backward recomputes the
-probabilities from it and takes ``delta = rowsum(O * dO)`` in f32, which
-the wrapper computes with torch (as the JAX package does outside its
-kernels).  The dK/dV kernel sums over the GQA group itself, where JAX
-repeats K/V and sums afterwards.
+probabilities from it and takes ``delta = rowsum(O * dO)`` in f32: the
+sm90 dQ kernel computes it, on the general route the wrapper does with
+torch (as the JAX package does outside its kernels).  The dK/dV kernels
+sum over the GQA group themselves, where JAX repeats K/V and sums
+afterwards.
 
 ``flash_attention`` goes through ``_FlashAttentionFn`` on both devices, so
 a loss computed from the card's outputs reaches q, k and v.
@@ -65,7 +71,12 @@ _SIGNATURES = {
         [_PTR] * 7 + [_INT] * 6 + [_LL] * 19 + [_INT],
     ("flash_attention_bwd", "paddle_flash_attention_bwd_dkv"):
         [_PTR] * 8 + [_INT] * 6 + [_LL] * 22 + [_INT],
+    ("flash_attention_bwd_sm90", "paddle_flash_attention_bwd_dq_sm90"):
+        [_PTR] * 8 + [_INT] * 6 + [_LL] * 18 + [_INT],
+    ("flash_attention_bwd_sm90", "paddle_flash_attention_bwd_dkv_sm90"):
+        [_PTR] * 7 + [_INT] * 6 + [_LL] * 18 + [_INT],
 }
+STAT_PAD = 64  # the sm90 dQ kernel's stats rows: Sq rounded up to this
 
 
 def _fn(lib, name):
@@ -189,6 +200,22 @@ def _fwd_route(dtype, head_dim, strides, data_ptr) -> str:
     return "sm90"
 
 
+def _bwd_route(dtype, head_dim, strides, data_ptr) -> str:
+    """Which backward kernels take a tensor: ``"sm90"``
+    (``csrc/flash_attention_bwd_sm90.cu``) exactly when ``_fwd_route``
+    says so, else ``"general"`` (``csrc/flash_attention_bwd.cu``).  The
+    backward runs the sm90 kernels when q, k, v, dO and O all take them."""
+    return _fwd_route(dtype, head_dim, strides, data_ptr)
+
+
+def _bwd_route_of(*tensors) -> str:
+    """The backward's route for its q, k, v, dO and O: ``"sm90"`` when every
+    one of them takes it."""
+    h = tensors[0].shape[-1]
+    return ("sm90" if all(_bwd_route(t.dtype, h, t.stride(), t.data_ptr()) == "sm90"
+                          for t in tensors) else "general")
+
+
 def _launch(lib, name, *args):
     """Call a C entry point on the current stream; raise on a refused launch."""
     device = args[0].device
@@ -224,10 +251,8 @@ def _flash_cuda(q, k, v, causal, scale):
     return out, lse
 
 
-def _bwd_inputs(q, k, v, out, lse, do):
-    """Check the backward kernels' inputs; return ``(do, delta)``, dO as it
-    came (the kernels read any strides) and ``delta = rowsum(O * dO)`` as
-    contiguous f32 ``[B, N, Sq]``."""
+def _check_bwd(q, k, v, out, lse, do):
+    """Check the backward kernels' inputs (both routes)."""
     _check_kernel_inputs(("q", q), ("k", k), ("v", v), ("out", out), ("dO", do))
     _check_head_dim(q.shape[-1])
     b, sq, n, _ = q.shape
@@ -236,8 +261,12 @@ def _bwd_inputs(q, k, v, out, lse, do):
                          f"do not match q {tuple(q.shape)}")
     if lse.shape != (b, n, sq) or lse.dtype != torch.float32 or not lse.is_contiguous():
         raise ValueError(f"flash_attention: lse must be contiguous f32 {(b, n, sq)}")
-    delta = (out.float() * do.float()).sum(dim=-1).transpose(1, 2).contiguous()
-    return do, delta
+
+
+def _delta(out, do):
+    """The general route's ``delta = rowsum(O * dO)``: contiguous f32
+    ``[B, N, Sq]``."""
+    return (out.float() * do.float()).sum(dim=-1).transpose(1, 2).contiguous()
 
 
 def _bwd_dq_cuda(q, k, v, do, lse, delta, causal, scale):
@@ -265,10 +294,49 @@ def _bwd_dkv_cuda(q, k, v, do, lse, delta, causal, scale):
     return dk, dv
 
 
+def _bwd_dq_sm90(q, k, v, out, do, lse, causal, scale):
+    """The sm90 dQ kernel: ``(dq, stats)``, stats the f32
+    ``[B, N, 2, Sq rounded up to STAT_PAD]`` rows of ``lse * log2(e)`` and
+    ``delta`` that it writes for the dK/dV kernel."""
+    b, sq, n, h = q.shape
+    sk, nkv = k.shape[1], k.shape[2]
+    dq = torch.empty((b, sq, n, h), dtype=q.dtype, device=q.device)
+    stats = torch.empty((b, n, 2, -(-sq // STAT_PAD) * STAT_PAD), dtype=torch.float32,
+                        device=q.device)
+    _launch("flash_attention_bwd_sm90", "paddle_flash_attention_bwd_dq_sm90",
+            q, k, v, out, do, lse, dq, stats, b, sq, sk, n, nkv, h,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
+            *do.stride()[:3], *dq.stride()[:3], int(q.dtype == torch.float16), float(scale),
+            int(bool(causal)))
+    count_launch("flash_attention_bwd_dq_sm90")
+    count_launch("flash_attention_bwd_dq")
+    return dq, stats
+
+
+def _bwd_dkv_sm90(q, k, v, do, stats, causal, scale):
+    b, sq, n, h = q.shape
+    sk, nkv = k.shape[1], k.shape[2]
+    dk = torch.empty((b, sk, nkv, h), dtype=k.dtype, device=k.device)
+    dv = torch.empty((b, sk, nkv, h), dtype=v.dtype, device=v.device)
+    _launch("flash_attention_bwd_sm90", "paddle_flash_attention_bwd_dkv_sm90",
+            q, k, v, do, stats, dk, dv, b, sq, sk, n, nkv, h,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
+            *dk.stride()[:3], *dv.stride()[:3], int(q.dtype == torch.float16), float(scale),
+            int(bool(causal)))
+    count_launch("flash_attention_bwd_dkv_sm90")
+    count_launch("flash_attention_bwd_dkv")
+    return dk, dv
+
+
 def _flash_bwd_cuda(q, k, v, out, lse, do, causal, scale):
-    do, delta = _bwd_inputs(q, k, v, out, lse, do)
+    _check_bwd(q, k, v, out, lse, do)
     if q.numel() == 0 or k.numel() == 0:
         return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
+    if _bwd_route_of(q, k, v, do, out) == "sm90":
+        dq, stats = _bwd_dq_sm90(q, k, v, out, do, lse, causal, scale)
+        dk, dv = _bwd_dkv_sm90(q, k, v, do, stats, causal, scale)
+        return dq, dk, dv
+    delta = _delta(out, do)
     dq = _bwd_dq_cuda(q, k, v, do, lse, delta, causal, scale)
     dk, dv = _bwd_dkv_cuda(q, k, v, do, lse, delta, causal, scale)
     return dq, dk, dv

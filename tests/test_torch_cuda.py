@@ -15,8 +15,8 @@ plain versions do (count of differing elements 0) and hold the attention
 output at 2e-2 for bf16 outputs and int8 pools, 2e-5 for f32.  f16 flash
 and matmul cases take bf16's 2e-2 (f16 rounds more finely); the f32 flash
 kernels (FMA) are held at 1e-4 against the plain f32 einsums, which sum in
-another order.  On a card, run the TMA kernel's single-tile witness first
-(``-k witness``).
+another order.  On a card, run the TMA kernels' single-tile witnesses
+first (``-k witness``).
 """
 
 import importlib
@@ -189,7 +189,8 @@ GENERAL_BWD_CASES = [  # (dtype, H, layout, Sq, Sk, N, Nkv, causal)
 def test_flash_backward_every_dtype_and_head_dim(cuda, dtype, h, layout, sq, sk, n, nkv, causal):
     """The two backward kernels in f32 (FMA), f16 and bf16 (mma.sync), at
     H 32 to 256 (above 128 the dK/dV key tile halves and two warps split H),
-    against the plain backward: 16-bit within 2e-2, f32 within F32_TOL."""
+    against the plain backward: 16-bit within 2e-2, f32 within F32_TOL.
+    The contiguous f16 cases at H 64 and 128 take the TMA/wgmma pair."""
     g = torch.Generator(device=cuda).manual_seed(23)
     q = _make(g, (2, sq, n, h), dtype, layout, cuda)
     k, v = (_make(g, (2, sk, nkv, h), dtype, layout, cuda) for _ in range(2))
@@ -255,6 +256,128 @@ def test_flash_backward_kernels(cuda, sq, sk, n, nkv, h, causal):
         torch.testing.assert_close(a.float(), b.float(), atol=TOL, rtol=TOL, msg=name)
 
 
+def _bwd_against_plain(q, k, v, do, causal, tol):
+    """Run the backward, hold dq, dk, dv against the plain version; return
+    the launch counts it added."""
+    out, lse = ops.flash_attention_fwd(q, k, v, causal=causal)
+    before = ops.launch_counts()
+    got = ops.flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
+    after = ops.launch_counts()
+    torch.cuda.synchronize()
+    want = ops.flash_attention_bwd_reference(q, k, v, out, lse, do, causal=causal)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype, name
+        torch.testing.assert_close(a.float(), b.float(), atol=tol, rtol=tol, msg=name)
+    return {key: after[key] - before[key] for key in after}
+
+
+def _sm90_stats(out, do, lse):
+    """What the sm90 dQ kernel writes for the dK/dV kernel, in torch: f32
+    [B, N, 2, Sq rounded up to 64] rows of lse * log2(e) (+inf past Sq)
+    and delta (0 past Sq)."""
+    fa = importlib.import_module("paddle_tpu_torch.ops.flash_attention")
+    b, sq, n, _ = out.shape
+    pad = -(-sq // fa.STAT_PAD) * fa.STAT_PAD
+    stats = torch.zeros(b, n, 2, pad, device=out.device)
+    stats[:, :, 0, :] = float("inf")
+    stats[:, :, 0, :sq] = lse * 1.4426950408889634
+    stats[:, :, 1, :sq] = fa._delta(out, do)
+    return stats
+
+
+def test_flash_bwd_dq_sm90_single_tile_witness(cuda):
+    """The smallest witness of a layout fault in the TMA/wgmma dQ kernel:
+    one block, one 128 x 128 tile, H 64, non-causal; its dQ and the rows of
+    lse and delta it writes for the dK/dV kernel.  Run it first on a card."""
+    fa = importlib.import_module("paddle_tpu_torch.ops.flash_attention")
+    g = torch.Generator(device=cuda).manual_seed(26)
+    q, k, v, do = (_randn(g, 1, 128, 1, 64, device=cuda) for _ in range(4))
+    out, lse = ops.flash_attention_fwd(q, k, v)
+    dq, stats = fa._bwd_dq_sm90(q, k, v, out, do, lse, False, 64 ** -0.5)
+    torch.cuda.synchronize()
+    want = ops.flash_attention_bwd_reference(q, k, v, out, lse, do)
+    torch.testing.assert_close(dq.float(), want[0].float(), atol=TOL, rtol=TOL)
+    torch.testing.assert_close(stats, _sm90_stats(out, do, lse), atol=1e-4, rtol=1e-5)
+
+
+def test_flash_bwd_dkv_sm90_single_tile_witness(cuda):
+    """The same for the TMA/wgmma dK/dV kernel, fed the stats rows computed
+    with torch: one block of 128 keys, two 64-row q tiles, H 64."""
+    fa = importlib.import_module("paddle_tpu_torch.ops.flash_attention")
+    g = torch.Generator(device=cuda).manual_seed(27)
+    q, k, v, do = (_randn(g, 1, 128, 1, 64, device=cuda) for _ in range(4))
+    out, lse = ops.flash_attention_fwd(q, k, v)
+    dk, dv = fa._bwd_dkv_sm90(q, k, v, do, _sm90_stats(out, do, lse), False, 64 ** -0.5)
+    torch.cuda.synchronize()
+    want = ops.flash_attention_bwd_reference(q, k, v, out, lse, do)
+    torch.testing.assert_close(dk.float(), want[1].float(), atol=TOL, rtol=TOL)
+    torch.testing.assert_close(dv.float(), want[2].float(), atol=TOL, rtol=TOL)
+
+
+SM90_BWD_CASES = [  # (dtype, B, Sq, Sk, N, Nkv, H, causal): chip_smoke.py's grid, small
+    (torch.bfloat16, 2, 256, 256, 4, 4, 128, True),
+    (torch.bfloat16, 2, 256, 256, 4, 4, 128, False),
+    (torch.bfloat16, 1, 256, 256, 8, 2, 128, True),
+    (torch.bfloat16, 1, 200, 200, 4, 4, 128, True),
+    (torch.bfloat16, 1, 100, 357, 4, 4, 128, True),
+    (torch.bfloat16, 2, 37, 37, 2, 2, 64, False),
+    (torch.float16, 2, 256, 256, 4, 4, 128, True),
+    (torch.float16, 1, 190, 190, 4, 2, 64, True),
+    (torch.float16, 1, 128, 640, 4, 4, 64, False),
+]
+
+
+@pytest.mark.parametrize("dtype,b,sq,sk,n,nkv,h,causal", SM90_BWD_CASES)
+def test_flash_bwd_sm90(cuda, dtype, b, sq, sk, n, nkv, h, causal):
+    """The TMA/wgmma backward pair: causal and not, GQA (the dK/dV kernel
+    sums the group), ragged Sq and Sk, Sq < Sk, bf16 and f16, H 64 and
+    128, within 2e-2; both launches count under the route-less and the
+    _sm90 names."""
+    g = torch.Generator(device=cuda).manual_seed(28)
+    q = torch.randn(b, sq, n, h, generator=g, device=cuda).to(dtype)
+    k, v = (torch.randn(b, sk, nkv, h, generator=g, device=cuda).to(dtype) for _ in range(2))
+    do = torch.randn(b, sq, n, h, generator=g, device=cuda).to(dtype)
+    added = _bwd_against_plain(q, k, v, do, causal, TOL)
+    assert added["flash_attention_bwd_dq"] == added["flash_attention_bwd_dq_sm90"] == 1
+    assert added["flash_attention_bwd_dkv"] == added["flash_attention_bwd_dkv_sm90"] == 1
+
+
+def test_flash_bwd_sm90_rows_that_see_no_key(cuda):
+    """Causal with Sq > Sk: the first Sq - Sk rows see no key, and both
+    routes give them zero gradients (the plain version does not: its mask
+    value absorbs log(Sk), so such a row's P is 1 on every key; ROADMAP
+    §C).  The sm90 pair against the general pair on the same inputs, and
+    the rows that see keys against the plain version's dQ."""
+    fa = importlib.import_module("paddle_tpu_torch.ops.flash_attention")
+    g = torch.Generator(device=cuda).manual_seed(30)
+    q, do = (_randn(g, 1, 300, 2, 64, device=cuda) for _ in range(2))
+    k, v = (_randn(g, 1, 130, 1, 64, device=cuda) for _ in range(2))
+    out, lse = ops.flash_attention_fwd(q, k, v, causal=True)
+    scale = 64 ** -0.5
+    dq, stats = fa._bwd_dq_sm90(q, k, v, out, do, lse, True, scale)
+    dk, dv = fa._bwd_dkv_sm90(q, k, v, do, stats, True, scale)
+    delta = fa._delta(out, do)
+    want = (fa._bwd_dq_cuda(q, k, v, do, lse, delta, True, scale),
+            *fa._bwd_dkv_cuda(q, k, v, do, lse, delta, True, scale))
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+        torch.testing.assert_close(a.float(), b.float(), atol=TOL, rtol=TOL, msg=name)
+    assert not dq[:, :170].any()
+    plain = ops.flash_attention_bwd_reference(q, k, v, out, lse, do, causal=True)[0]
+    torch.testing.assert_close(dq[:, 170:].float(), plain[:, 170:].float(), atol=TOL, rtol=TOL)
+
+
+def test_flash_bwd_general_route_when_one_tensor_is_not_tma_readable(cuda):
+    """dO with a non-unit H stride sends the whole backward to the general
+    kernels: the route-less counters grow, the _sm90 ones do not."""
+    g = torch.Generator(device=cuda).manual_seed(29)
+    q, k, v = (_randn(g, 1, 128, 2, 128, device=cuda) for _ in range(3))
+    do = _make(g, (1, 128, 2, 128), torch.bfloat16, "hmajor", cuda)
+    added = _bwd_against_plain(q, k, v, do, True, TOL)
+    assert added["flash_attention_bwd_dq"] == added["flash_attention_bwd_dkv"] == 1
+    assert added["flash_attention_bwd_dq_sm90"] == added["flash_attention_bwd_dkv_sm90"] == 0
+
+
 def test_backward_reaches_every_parameter(cuda):
     """A loss from the card's logits gives every parameter of a 2-layer
     bf16 model a finite gradient through all three kernels' Functions."""
@@ -269,8 +392,9 @@ def test_backward_reaches_every_parameter(cuda):
     loss.backward()
     counts = ops.launch_counts()
     assert counts == {"fused_rms_norm": 5, "swiglu": 2, "flash_attention_fwd": 2,
-                      "flash_attention_fwd_sm90": 2, "flash_attention_bwd_dq": 2, "flash_attention_bwd_dkv": 2,
-                      "decode_chain_batch": 0, "decode_chain_rows": 0, "prefill_chain": 0,
+                      "flash_attention_fwd_sm90": 2, "flash_attention_bwd_dq": 2,
+                      "flash_attention_bwd_dkv": 2, "flash_attention_bwd_dq_sm90": 2,
+                      "flash_attention_bwd_dkv_sm90": 2, "decode_chain_batch": 0, "decode_chain_rows": 0, "prefill_chain": 0,
                       "fused_layer_norm": 0, "matmul_epilogue": 0, "vpu_chain": 0,
                       "sched_chain": 0, "sched_chain_ktiled": 0}
     assert torch.isfinite(loss)

@@ -4,8 +4,10 @@ reference takes, on the CPU.
 ``ops.flash_attention``'s forward picks its kernel on the card from
 dtype, head dim and layout alone (``_fwd_route``): the TMA/wgmma kernel
 for bf16 and f16 at head_dim 64 or 128 in a layout TMA can read, the
-general kernel for the rest.  The route is a pure function, so it is
-tested here for every class; the kernels themselves run only on the card
+general kernel for the rest.  The backward picks its pair by the same
+rule (``_bwd_route``), and takes the TMA/wgmma pair only when q, k, v,
+dO and O all take it.  The routes are pure functions, so they are tested
+here for every class; the kernels themselves run only on the card
 (``tests/test_torch_cuda.py``, ``chip_smoke.py``).
 
 The port's forward and backward (their plain versions on the CPU)
@@ -57,6 +59,34 @@ def test_fwd_route_every_dtype_head_dim_and_layout(dtype, h, layout):
     want = ("sm90" if dtype in (torch.bfloat16, torch.float16) and h in (64, 128)
             and layout == "contiguous" else "general")
     assert fa._fwd_route(dtype, h, strides, ptr) == want
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32,
+                                   torch.float64])
+@pytest.mark.parametrize("h", [32, 64, 96, 128, 256])
+@pytest.mark.parametrize("layout", ["contiguous", "narrow", "hmajor", "misaligned"])
+def test_bwd_route_every_dtype_head_dim_and_layout(dtype, h, layout):
+    """The backward's kernels follow the forward's rule: the TMA/wgmma pair
+    for bf16 and f16 at head_dim 64 or 128 in a layout TMA can read."""
+    strides = _strides("contiguous" if layout == "misaligned" else layout, h)
+    ptr = 0x7F0000000002 if layout == "misaligned" else 0x7F0000000000
+    want = ("sm90" if dtype in (torch.bfloat16, torch.float16) and h in (64, 128)
+            and layout == "contiguous" else "general")
+    assert fa._bwd_route(dtype, h, strides, ptr) == want
+    assert fa._bwd_route(dtype, h, strides, ptr) == fa._fwd_route(dtype, h, strides, ptr)
+
+
+@pytest.mark.parametrize("odd", ["none", "q", "k", "v", "dO", "out"])
+def test_bwd_route_needs_all_five_tensors(odd):
+    """One tensor of q, k, v, dO and O that TMA cannot read (here transposed
+    to a non-unit H stride) sends the whole backward to the general route."""
+    def tensor(name):
+        if name == odd:
+            return torch.zeros(2, S, 128, N, dtype=torch.bfloat16).transpose(2, 3)
+        return torch.zeros(2, S, N, 128, dtype=torch.bfloat16)
+
+    tensors = [tensor(name) for name in ("q", "k", "v", "dO", "out")]
+    assert fa._bwd_route_of(*tensors) == ("sm90" if odd == "none" else "general")
 
 
 def test_fwd_route_needs_positive_strides():

@@ -251,6 +251,8 @@ def test_cpu_tensors_take_the_plain_versions():
     assert tops.launch_counts() == {"fused_rms_norm": 0, "swiglu": 0, "flash_attention_fwd": 0,
                                     "flash_attention_fwd_sm90": 0,
                                     "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,
+                                    "flash_attention_bwd_dq_sm90": 0,
+                                    "flash_attention_bwd_dkv_sm90": 0,
                                     "decode_chain_batch": 0, "decode_chain_rows": 0,
                                     "prefill_chain": 0, "fused_layer_norm": 0,
                                     "matmul_epilogue": 0, "vpu_chain": 0, "sched_chain": 0,

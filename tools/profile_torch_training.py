@@ -14,9 +14,11 @@ runs 3 warm-up steps, then prints three JSON lines:
    kernels with the most device time;
 3. one step split into its phases (forward and loss, backward,
    ``optimizer.step`` with ``clear_grad``), each under
-   ``record_function`` and ended by a synchronise, so each device event
-   falls inside the host range of the phase that launched it: device ms
-   and events a phase.
+   ``record_function`` and ended by a synchronise: device ms and events a
+   phase, each device event counted in the phase whose host range holds
+   its launch (the CUDA runtime call that carries its correlation id), so
+   that no clock skew between the host and the card moves an event
+   across phases.
 
 Needs one CUDA card.
 """
@@ -60,6 +62,19 @@ def profile_steps(step, ids, labels, n=2, top=25):
             "top_kernels": serving_profile.top_kernels(events, top, per=n)}
 
 
+def launch_times(prof):
+    """The host start of each device event's launch: the CUDA runtime or
+    driver call (``cudaLaunchKernel``, ``cuLaunchKernelEx``, ...) that
+    carries the device event's correlation id.  Runtime calls are told
+    from torch ops by name, since the two count their ids apart and the
+    ids collide."""
+    from torch.autograd import DeviceType
+
+    runtime = {e.id: e.time_range.start for e in prof.events()
+               if e.device_type == DeviceType.CPU and e.name.startswith("cu")}
+    return {e.id: runtime.get(e.id) for e in prof.events() if e.device_type != DeviceType.CPU}
+
+
 def profile_phases(model, opt, loss_fn, ids, labels):
     """One step as TrainStep runs it, each phase in its own synchronised
     ``record_function`` range."""
@@ -80,17 +95,22 @@ def profile_phases(model, opt, loss_fn, ids, labels):
     ranges = {e.name: e.time_range for e in prof.events()
               if e.name in PHASES and e.device_type == DeviceType.CPU}
     events = serving_profile.device_events(prof, exclude=PHASES)
-    out, placed = {}, 0
+    launched = launch_times(prof)
+    by_phase = {name: [] for name in PHASES}
+    for e in events:
+        t = launched.get(e.id)
+        phase = next((name for name in PHASES
+                      if t is not None and ranges[name].start <= t < ranges[name].end), None)
+        if phase is None:
+            raise RuntimeError(f"device event {e.name[:80]} has no launch inside a phase")
+        by_phase[phase].append(e)
+    out = {}
     for name in PHASES:
-        r = ranges[name]
-        inside = [e for e in events if r.start <= e.time_range.start < r.end]
-        placed += len(inside)
-        out[name] = {"host_ms": r.elapsed_us() / 1e3,
+        inside = by_phase[name]
+        out[name] = {"host_ms": ranges[name].elapsed_us() / 1e3,
                      "device_busy_ms": serving_profile.busy_us(inside) / 1e3,
                      "device_events": len(inside),
                      "top_kernels": serving_profile.top_kernels(inside, 8)}
-    if placed != len(events):
-        raise RuntimeError(f"{len(events) - placed} device events fall outside every phase")
     return {"profile": "one step by phase", "phases": out}
 
 
