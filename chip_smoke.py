@@ -9,8 +9,10 @@ Phases, each of which raises (exit code != 0) on failure:
    kernels from the sources in this checkout: the CUDA C++ flash-attention
    forward and backward (the TMA/wgmma kernels of
    flash_attention_fwd_sm90.cu and flash_attention_bwd_sm90.cu and the
-   general ones), the serving chains (decode_chain.cu) and the matmul
-   epilogue with nvcc, and the generated sources of the codegen
+   general ones), the serving chains (decode_chain.cu, and the prefill
+   chain's TMA/wgmma kernel prefill_chain_sm90.cu) and the matmul epilogue
+   (matmul_epilogue_sm90.cu, TMA/wgmma, and the general
+   matmul_epilogue.cu) with nvcc, and the generated sources of the codegen
    cases of phase 2 (csrc/codegen/ templates; one nvcc process per
    source, all started together), the three Triton kernels at their
    first launch.
@@ -29,15 +31,23 @@ Phases, each of which raises (exit code != 0) on failure:
    causal and not (with the general kernels' times on the same inputs and
    delta's share of the whole), GQA, a ragged length, Sq < Sk, f16 and
    H 64, the general pair in bf16, f16 and f32 at head dims 32 to 256 and
-   strided; f32 cases within 1e-4.  Then llama_tiny in f32 takes a
+   strided; f32 cases within 1e-4; both pairs on causal rows that see no
+   key (Sq > Sk) against the plain version on every row.  Then llama_tiny in f32 takes a
    forward and a backward on the card against the CPU's plain run of the same weights.  The decode chains (bf16 and int8 pools; the split int8 layout
    with 2, 4 and 8 splits) at the 7B serving geometry, a GQA one and a ragged
    one must leave the pools bit-exact (0 differing elements); the prefill
-   chain is held at a 128-token chunk against 128, 256 and 640 positions.
-   The fused LayerNorm at BERT-base's [4096, 768] rows (bf16 with and
-   without the residual, f32) and a ragged hidden size; the matmul
-   epilogue at BERT-base's FFN product for every activation, with and
-   without bias, in bf16 and f32, and at an odd shape (M 100, K 72, N 130).
+   chain is held at a 128-token chunk against 128, 256 and 640 positions,
+   200 (not a multiple of 64), 2048 (key splits and the combine launch)
+   and, at H 64, 331, with both block_q (bf16 on
+   the TMA/wgmma route, beside decode_chain.cu's bf16 kernel on the same
+   inputs), and in f32 (the general route).  The fused LayerNorm at
+   BERT-base's [4096, 768] rows (bf16 with and without the residual, f32)
+   and a ragged hidden size; the matmul epilogue at BERT-base's FFN product
+   for every activation, with and without bias, in bf16 and f16 (the
+   TMA/wgmma route, beside the general kernel on the same inputs), at
+   ragged M (100) and K 72, and on the general route in f32 and at an odd
+   shape (M 100, K 72, N 130); every prefill-chain and epilogue row names
+   its route and its kernels' registers and spills.
    The generated kernels: the elementwise chain (#11; BERT's mask chain
    and the JAX package's test chain at BERT-base's FFN size) at its
    default and tuned launch shapes, and every enumerated config of the
@@ -55,7 +65,8 @@ Phases, each of which raises (exit code != 0) on failure:
    FLAGS_autotune_cache_dir, so the searcher measures both chains against
    their plain twins in every run and must accept both.  For each engine:
    the streams, that every kernel's launch counter grew by exactly what
-   the run implies (every flash forward on the TMA/wgmma route), that its first-token logits of the longest prompt
+   the run implies (every flash forward and every prefill chain on the
+   TMA/wgmma route), that its first-token logits of the longest prompt
    (through its own prefill path) match a forward built only from the
    plain versions; for the chained engines also the searcher's decisions
    and one decode step with the accepted config against the same step
@@ -76,7 +87,8 @@ Phases, each of which raises (exit code != 0) on failure:
    static.Executor (its PallasFusionPass puts the 25 residual adds +
    LayerNorms and the 12 linear + GELUs on the fused LayerNorm and
    matmul-epilogue kernels) on batches of 32 x 128 ids with ragged padding.
-   Checks the op counts after the pass, every run's launches, and the
+   Checks the op counts after the pass, every run's launches (every
+   epilogue on the TMA/wgmma route), and the
    logits against the eager forward, the unfused program (the flag
    FLAGS_use_pallas_fusion off) and the f32 forward of the same weights;
    prints ms a batch, sequences/s, tokens/s and peak memory.
@@ -89,8 +101,8 @@ Phases, each of which raises (exit code != 0) on failure:
    program); then fresh captures of all four, whose verdicts must come
    from the cache with no new search.
 7. Print the ``kernels`` JSON line (all thirteen kernels, launches by main
-   path; the flash forward and the two backward kernels with their
-   launches by route), then the result line.
+   path; the flash forward, the two backward kernels, the prefill chain and
+   the matmul epilogue with their launches by route), then the result line.
 
 The script needs the card: without CUDA, or run from a directory that
 holds nothing else of the repository, it exits with a non-zero code
@@ -484,6 +496,46 @@ def check_flash_bwd(timer, F):
     return out
 
 
+def check_flash_bwd_no_key_rows():
+    """Causal with Sq > Sk (q [1, 300, 2, 64], k/v [1, 130, 1, 64]): rows
+    0-169 see no key.  Both backward routes against the plain version on
+    every row (bf16; the general route also in f32): dQ 0 there, nothing
+    from them in dK, dO / Sk from each in every key's dV."""
+    from paddle_tpu_torch import ops
+
+    fa = importlib.import_module("paddle_tpu_torch.ops.flash_attention")
+    g = torch.Generator(device=DEVICE).manual_seed(30)
+    row = {"check": "flash_attention_bwd_no_key_rows", "q": [1, 300, 2, 64],
+           "kv": [1, 130, 1, 64], "max_abs_err": {}}
+    for dtype, tol in ((torch.bfloat16, TOL), (torch.float32, F32_ATTN_TOL)):
+        q, do = (torch.randn(1, 300, 2, 64, generator=g, device=DEVICE).to(dtype)
+                 for _ in range(2))
+        k, v = (torch.randn(1, 130, 1, 64, generator=g, device=DEVICE).to(dtype)
+                for _ in range(2))
+        out, lse = ops.flash_attention_fwd(q, k, v, causal=True)
+        scale = 64 ** -0.5
+        routes = {}
+        if dtype == torch.bfloat16:
+            dq, stats = fa._bwd_dq_sm90(q, k, v, out, do, lse, True, scale)
+            routes["sm90"] = (dq, *fa._bwd_dkv_sm90(q, k, v, do, stats, True, scale))
+        delta = fa._delta(out, do)
+        routes["general"] = (fa._bwd_dq_cuda(q, k, v, do, lse, delta, True, scale),
+                             *fa._bwd_dkv_cuda(q, k, v, do, lse, delta, True, scale))
+        want = ops.flash_attention_bwd_reference(q, k, v, out, lse, do, causal=True)
+        torch.cuda.synchronize()
+        for route, got in routes.items():
+            key = f"{route}_{str(dtype).split('.')[-1]}"
+            row["max_abs_err"][key] = {n: max_err(a, b)
+                                       for n, a, b in zip(("dq", "dk", "dv"), got, want)}
+            for name, a, b in zip(("dq", "dk", "dv"), got, want):
+                check(torch.allclose(a.float(), b.float(), atol=tol, rtol=tol),
+                      f"flash backward, rows that see no key, {key}: {name} disagrees with "
+                      f"its plain version: {max_err(a, b)}")
+            check(not got[0][:, :170].any(), f"{key}: dQ of the rows that see no key is not 0")
+    emit(row)
+    return row
+
+
 F32_MODEL_REL_TOL = 1e-4  # relative L2, f32 model on the card vs the CPU: sums in other orders
 
 
@@ -611,33 +663,80 @@ def check_decode_chains(timer):
     return out
 
 
-def check_prefill_chain(timer, F):
-    """prefill_chain against the plain masked attention: a 128-token chunk
-    against 128, 256 and 640 positions (7B heads), both block_q."""
+def _registers(logs, source, part):
+    """Registers (min, max) and spill bytes of ``source``'s kernels whose
+    mangled name holds ``part``, from phase 1's -Xptxas -v output."""
+    res = [r for name, r in ptxas_resources(logs.get(source, "")).items() if part in name]
+    if not res:
+        return None  # the library was built before this run: no compiler output
+    regs = [r["registers"] for r in res]
+    return {"kernels": len(res), "registers": [min(regs), max(regs)],
+            "spill_bytes": sum(r["spill_bytes"] for r in res)}
+
+
+# (T, H, N, dtype): a 128-token chunk against the chained engines' lengths
+# at the 7B heads (640 first: the longest), T not a multiple of 64, H 64,
+# a long cache (2048: key splits and the combine launch); then f32 on the
+# general route (FMA)
+PREFILL_CASES = [(640, 128, 32, torch.bfloat16), (256, 128, 32, torch.bfloat16),
+                 (128, 128, 32, torch.bfloat16), (200, 128, 32, torch.bfloat16),
+                 (331, 64, 32, torch.bfloat16), (2048, 128, 32, torch.bfloat16),
+                 (256, 128, 8, torch.float32)]
+
+
+def check_prefill_chain(timer, F, logs):
+    """prefill_chain against the plain masked attention on every case of
+    PREFILL_CASES with both block_q, each row naming its route and its key
+    splits; bf16 rows also time decode_chain.cu's bf16 kernel (the route
+    bf16 took before the sm90 kernel) on the same inputs."""
+    from paddle_tpu_torch import ops
     from paddle_tpu_torch.ops import decode_chain as dc
 
-    out, h, n, s = [], 128, 32, 128
+    out, s = [], 128
     g = torch.Generator(device=DEVICE).manual_seed(9)
-    for t in (640, 256, 128):
-        q, k, v = _qkv(g, 1, s, t, n, n, h)
+    regs = {"sm90": _registers(logs, "prefill_chain_sm90", "prefill"),
+            "general": _registers(logs, "decode_chain", "prefill")}
+    for t, h, n, dtype in PREFILL_CASES:
+        q, k, v = _qkv(g, 1, s, t, n, n, h, dtype)
         qt, kt, vt = _library_views(q, k, v)
         lib = _library_sdpa(F, qt, kt, vt)
-        nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2
-        b_ms, b_by = bound_ms(nbytes, 4 * n * h * _allowed_pairs(s, t, True), BF16_TC_FLOPS)
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+        peak = F32_FLOPS if dtype == torch.float32 else BF16_TC_FLOPS
+        b_ms, b_by = bound_ms(nbytes, 4 * n * h * _allowed_pairs(s, t, True), peak)
         want = dc.prefill_chain_plain(q, k, v)
+        plain_ms = timer(lambda: dc.prefill_chain_plain(q, k, v), iters=3, warmup=1)
+        lib_ms = timer(lib)
+        tol = dc._tolerance(dtype)
         for bq in (128, 64):
+            before = ops.launch_counts()
             got = dc.prefill_chain(q, k, v, block_q=bq)
+            after = ops.launch_counts()
+            check(after["prefill_chain"] - before["prefill_chain"] == 1,
+                  f"prefill_chain launches {after}")
+            route = ("sm90" if after["prefill_chain_sm90"] - before["prefill_chain_sm90"] == 1
+                     else "general")
+            check(route == dc._prefill_route(dtype), f"prefill_chain {dtype}: route {route}")
             torch.cuda.synchronize()
             err = max_err(got, want)
-            shape = {"q": list(q.shape), "kv": list(k.shape), "block_q": bq}
-            check(torch.allclose(got.float(), want.float(), atol=TOL, rtol=TOL),
-                  f"prefill_chain {shape} disagrees with its plain version: {err}")
-            out.append({"check": "prefill_chain", "shape": shape, "max_abs_err": err,
-                        "ms": timer(lambda: dc.prefill_chain(q, k, v, block_q=bq)),
-                        "plain_ms": timer(lambda: dc.prefill_chain_plain(q, k, v), iters=3,
-                                          warmup=1),
-                        "bound_ms": b_ms, "bound_by": b_by, "library_ms": timer(lib)})
-            emit(out[-1])
+            shape = {"q": list(q.shape), "kv": list(k.shape), "block_q": bq,
+                     "dtype": str(dtype).split(".")[-1]}
+            check(torch.allclose(got.float(), want.float(), atol=tol, rtol=tol),
+                  f"prefill_chain {shape} ({route}) disagrees with its plain version: {err}")
+            row = {"check": "prefill_chain", "shape": shape, "route": route,
+                   "splits": dc.prefill_splits(s, t, n, bq, dc.sm_count(q.device))
+                   if route == "sm90" else 1,
+                   "max_abs_err": err, "tolerance": tol,
+                   "ms": timer(lambda: dc.prefill_chain(q, k, v, block_q=bq)),
+                   "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                   "library_ms": lib_ms, "registers": regs[route]}
+            if route == "sm90":
+                general = dc._prefill_general(q, k, v, bq)
+                torch.cuda.synchronize()
+                check(torch.allclose(general.float(), want.float(), atol=tol, rtol=tol),
+                      f"prefill_chain {shape}: the general kernel disagrees")
+                row["general_ms"] = timer(lambda: dc._prefill_general(q, k, v, bq))
+            out.append(row)
+            emit(row)
     return out
 
 
@@ -702,48 +801,71 @@ def _library_epilogue(F, x, w, bias, act):
     return lambda: post(pre())
 
 
-def check_matmul_epilogue(timer, F):
+def check_matmul_epilogue(timer, F, logs):
     """matmul_bias_act against its plain version: BERT-base's FFN product
     [4096, 768] x [768, 3072] for every activation, with and without bias,
-    in bf16 and f32, and an odd shape (M 100, K 72, N 130); then f16 (gelu
-    with bias) at both shapes.  The first row (gelu with bias in bf16, the
-    main path's call) comes first."""
+    in bf16 and f16 (the sm90 route), ragged M (100) and K 72 (sm90 too);
+    then the general route: f32 at the FFN shape and an odd shape (M 100,
+    K 72, N 130: 260-byte rows) in bf16, f16 and f32.  Each row names its
+    route; sm90 rows also time the general kernel on the same inputs.  The
+    first row (gelu with bias in bf16, the main path's call) comes first."""
     from paddle_tpu_torch import ops
-    from paddle_tpu_torch.ops.matmul_epilogue import ACTIVATIONS, matmul_bias_act_plain
+    from paddle_tpu_torch.ops import matmul_epilogue as me
 
     out = []
     g = torch.Generator(device=DEVICE).manual_seed(12)
-    acts = ["gelu"] + [a for a in ACTIVATIONS if a != "gelu"]
-    cases = [(4096, 768, 3072, dt, act, bias) for dt in (torch.bfloat16, torch.float32)
+    acts = ["gelu"] + [a for a in me.ACTIVATIONS if a != "gelu"]
+    ffn = (4096, 768, 3072)
+    cases = [(*ffn, dt, act, bias) for dt in (torch.bfloat16, torch.float16)
              for act in acts for bias in (True, False)]
+    cases += [(100, 768, 3072, torch.bfloat16, "gelu", True),
+              (4096, 72, 3072, torch.bfloat16, "gelu", True)]
+    cases += [(*ffn, torch.float32, act, bias) for act in acts for bias in (True, False)]
     cases += [(100, 72, 130, dt, act, True) for dt in (torch.bfloat16, torch.float32)
               for act in acts]
-    cases += [(m, k, n, torch.float16, "gelu", True) for m, k, n in ((4096, 768, 3072),
-                                                                      (100, 72, 130))]
+    cases += [(100, 72, 130, torch.float16, "gelu", True)]
+    regs = {"sm90": _registers(logs, "matmul_epilogue_sm90", "matmul"),
+            "general": _registers(logs, "matmul_epilogue", "matmul")}
     for m, k, n, dtype, act, bias in cases:
         x = (torch.randn(m, k, generator=g, device=DEVICE) / k ** 0.5).to(dtype)
         w = torch.randn(k, n, generator=g, device=DEVICE).to(dtype)
         bvec = (0.5 * torch.randn(n, generator=g, device=DEVICE)).to(dtype) if bias else None
+        before = ops.launch_counts()
         got = ops.matmul_bias_act(x, w, bvec, act)
-        want = matmul_bias_act_plain(x, w, bvec, act)
+        after = ops.launch_counts()
+        check(after["matmul_epilogue"] - before["matmul_epilogue"] == 1,
+              f"matmul_bias_act launches {after}")
+        route = ("sm90" if after["matmul_epilogue_sm90"] - before["matmul_epilogue_sm90"] == 1
+                 else "general")
+        want = me.matmul_bias_act_plain(x, w, bvec, act)
         torch.cuda.synchronize()
         err = max_err(got, want)
         tol = F32_TOL_MM if dtype == torch.float32 else TOL
         shape = {"mkn": [m, k, n], "dtype": str(dtype).split(".")[-1], "activation": act,
                  "bias": bias}
+        check(route == ("general" if dtype == torch.float32 or n % 8 else "sm90"),
+              f"matmul_bias_act {shape}: route {route}")
         check(torch.allclose(got.float(), want.float(), atol=tol, rtol=tol),
-              f"matmul_bias_act {shape} disagrees with its plain version: {err}")
+              f"matmul_bias_act {shape} ({route}) disagrees with its plain version: {err}")
         elt = x.element_size()
         nbytes = (m * k + k * n + m * n + (n if bias else 0)) * elt
         peak = F32_FLOPS if dtype == torch.float32 else BF16_TC_FLOPS
         b_ms, b_by = bound_ms(nbytes, 2 * m * n * k, peak)
-        out.append({"check": "matmul_epilogue", "shape": shape, "max_abs_err": err,
-                    "tolerance": tol,
-                    "ms": timer(lambda: ops.matmul_bias_act(x, w, bvec, act)),
-                    "plain_ms": timer(lambda: matmul_bias_act_plain(x, w, bvec, act)),
-                    "bound_ms": b_ms, "bound_by": b_by,
-                    "library_ms": timer(_library_epilogue(F, x, w, bvec, act))})
-        emit(out[-1])
+        row = {"check": "matmul_epilogue", "shape": shape, "route": route, "max_abs_err": err,
+               "tolerance": tol,
+               "ms": timer(lambda: ops.matmul_bias_act(x, w, bvec, act)),
+               "plain_ms": timer(lambda: me.matmul_bias_act_plain(x, w, bvec, act)),
+               "bound_ms": b_ms, "bound_by": b_by,
+               "library_ms": timer(_library_epilogue(F, x, w, bvec, act)),
+               "registers": regs[route]}
+        if route == "sm90":
+            general = me._launch("general", x, w, bvec, act)
+            torch.cuda.synchronize()
+            check(torch.allclose(general.float(), want.float(), atol=tol, rtol=tol),
+                  f"matmul_bias_act {shape}: the general kernel disagrees")
+            row["general_ms"] = timer(lambda: me._launch("general", x, w, bvec, act))
+        out.append(row)
+        emit(row)
     return out
 
 
@@ -1125,7 +1247,9 @@ def expected_counts(engine, lengths, steps):
             "flash_attention_bwd_dq_sm90": 0, "flash_attention_bwd_dkv_sm90": 0,
             "decode_chain_batch": 0, "decode_chain_rows": 0,
             "prefill_chain": layers * prefill_chain,
+            "prefill_chain_sm90": layers * prefill_chain,  # bf16 chunks take the TMA kernel
             "fused_layer_norm": 0, "matmul_epilogue": 0,  # LLaMA has neither
+            "matmul_epilogue_sm90": 0,
             "vpu_chain": 0, "sched_chain": 0, "sched_chain_ktiled": 0}  # nor a static Program
     dec_cfg = engine._decode_chain_cfg
     if dec_cfg:
@@ -1385,8 +1509,9 @@ def train(card):
                 "flash_attention_fwd_sm90": layers, "flash_attention_bwd_dq": layers,
                 "flash_attention_bwd_dkv": layers, "flash_attention_bwd_dq_sm90": layers,
                 "flash_attention_bwd_dkv_sm90": layers, "decode_chain_batch": 0,
-                "decode_chain_rows": 0, "prefill_chain": 0, "fused_layer_norm": 0,
-                "matmul_epilogue": 0, "vpu_chain": 0, "sched_chain": 0, "sched_chain_ktiled": 0}
+                "decode_chain_rows": 0, "prefill_chain": 0, "prefill_chain_sm90": 0,
+                "fused_layer_norm": 0, "matmul_epilogue": 0, "matmul_epilogue_sm90": 0,
+                "vpu_chain": 0, "sched_chain": 0, "sched_chain_ktiled": 0}
     losses, totals = [], dict.fromkeys(per_step, 0)
     for i in range(warmup + timed):
         if i == warmup:
@@ -1496,7 +1621,9 @@ def static_bert(card):
           f"static BERT: op counts after the pass {dict(types)}")
 
     per_run = dict.fromkeys(ops.launch_counts(), 0)
-    per_run.update(fused_layer_norm=2 * layers + 1, matmul_epilogue=layers)
+    # every linear + GELU on the TMA/wgmma epilogue
+    per_run.update(fused_layer_norm=2 * layers + 1, matmul_epilogue=layers,
+                   matmul_epilogue_sm90=layers)
     errs = []
     with torch.no_grad():
         for b, want_unfused in zip(batches, unfused):
@@ -1611,7 +1738,8 @@ def static_codegen(card, model, model_f32, batches):
               and types["matmul_epilogue"] == layers,
               f"static codegen BERT: op counts after the passes {dict(types)}")
         per_run = dict.fromkeys(ops.launch_counts(), 0)
-        per_run.update(fused_layer_norm=2 * layers + 1, matmul_epilogue=layers, vpu_chain=1)
+        per_run.update(fused_layer_norm=2 * layers + 1, matmul_epilogue=layers,
+                       matmul_epilogue_sm90=layers, vpu_chain=1)
         if adopted:
             per_run[_sched_kernel(pooler_spec[-1], pooler_verdict["config"])] = 1
         errs = []
@@ -1760,7 +1888,8 @@ def main() -> int:
     try:
         logs = _cuda_build.build(["flash_attention_fwd", "flash_attention_fwd_sm90",
                                   "flash_attention_bwd", "flash_attention_bwd_sm90",
-                                  "decode_chain", "matmul_epilogue"])
+                                  "decode_chain", "prefill_chain_sm90", "matmul_epilogue",
+                                  "matmul_epilogue_sm90"])
     finally:
         gen_build.join()
     check(len(gen) == len(set(sources.values())), "a generated source failed to build")
@@ -1777,13 +1906,14 @@ def main() -> int:
         sw = check_swiglu(timer)
         fl = check_flash(timer, F)
         chains = check_decode_chains(timer)
-        pf = check_prefill_chain(timer, F)
+        pf = check_prefill_chain(timer, F, logs)
         ln = check_layer_norm(timer, F)
-        mm = check_matmul_epilogue(timer, F)
+        mm = check_matmul_epilogue(timer, F, logs)
         vc = check_vpu_chains(timer, vpu, gen)
         sc, sk = check_sched_chains(timer, specs, gen)
     triton_resources()
     fb = check_flash_bwd(timer, F)
+    check_flash_bwd_no_key_rows()
     f32_llama(card)
     with torch.no_grad():
         time_plain_backwards(timer)
@@ -1804,6 +1934,10 @@ def main() -> int:
             check(counts["fused_layer_norm"] > 0 and counts["matmul_epilogue"] > 0
                   and not any(counts[k] for k in llama_kernels),
                   f"{path}: launches {counts}")
+            # every static BERT epilogue launch on the sm90 route
+            check(counts["matmul_epilogue_sm90"] == counts["matmul_epilogue"],
+                  f"{path}: matmul_epilogue launches {counts['matmul_epilogue']}, of them "
+                  f"{counts['matmul_epilogue_sm90']} on the sm90 route")
             ran = [k for k in codegen_kernels if counts[k] > 0]
             check(ran == ([] if path == "static_bert" else list(codegen_kernels)),
                   f"{path}: codegen kernels launched {ran}: {counts}")
@@ -1826,6 +1960,10 @@ def main() -> int:
         check(counts["prefill_chain"] > 0 and counts["decode_chain_batch"]
               + counts["decode_chain_rows"] > 0,
               f"serving_{kv}_chained: a serving chain was never launched: {counts}")
+        # every chained prefill-chain launch on the sm90 route
+        check(counts["prefill_chain_sm90"] == counts["prefill_chain"],
+              f"serving_{kv}_chained: prefill_chain launches {counts['prefill_chain']}, of "
+              f"them {counts['prefill_chain_sm90']} on the sm90 route")
 
     def launches(name):
         return {path: counts[name] for path, counts in paths.items()}
@@ -1873,12 +2011,17 @@ def main() -> int:
                   chains["decode_chain_batch"], launches("decode_chain_batch")),
         summarize("decode_chain_rows", "cuda", chain_src, "paddle_tpu/ops/decode_chain.py:574",
                   chains["decode_chain_rows"], launches("decode_chain_rows")),
-        summarize("prefill_chain", "cuda", chain_src, "paddle_tpu/ops/decode_chain.py:917", pf,
-                  launches("prefill_chain")),
+        dict(summarize("prefill_chain", "cuda", "paddle_tpu_torch/csrc/prefill_chain_sm90.cu",
+                       "paddle_tpu/ops/decode_chain.py:917", pf, launches("prefill_chain")),
+             routes=routes("prefill_chain", "paddle_tpu_torch/csrc/prefill_chain_sm90.cu",
+                           chain_src)),
         summarize("fused_layer_norm", "triton", "paddle_tpu_torch/ops/fused_norm.py",
                   "paddle_tpu/ops/fused_norm.py:49", ln, launches("fused_layer_norm")),
-        summarize("matmul_epilogue", "cuda", "paddle_tpu_torch/csrc/matmul_epilogue.cu",
-                  "paddle_tpu/ops/matmul_epilogue.py:40", mm, launches("matmul_epilogue")),
+        dict(summarize("matmul_epilogue", "cuda",
+                       "paddle_tpu_torch/csrc/matmul_epilogue_sm90.cu",
+                       "paddle_tpu/ops/matmul_epilogue.py:40", mm, launches("matmul_epilogue")),
+             routes=routes("matmul_epilogue", "paddle_tpu_torch/csrc/matmul_epilogue_sm90.cu",
+                           "paddle_tpu_torch/csrc/matmul_epilogue.cu")),
         summarize("vpu_chain", "cuda", "paddle_tpu_torch/csrc/codegen/vpu_chain.cuh",
                   "paddle_tpu/static/rewrite.py:804", vc, launches("vpu_chain")),
         summarize("sched_chain", "cuda", "paddle_tpu_torch/csrc/codegen/sched_chain.cuh",

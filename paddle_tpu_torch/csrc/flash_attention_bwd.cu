@@ -57,8 +57,15 @@
 // (query row i sees keys j <= i + Sk - Sq), keys at or past Sk and rows at
 // or past Sq contribute nothing, rows past Sq and keys past Sk are not
 // stored, GQA reads kv head n / group.  A causal row that sees no key at
-// all (only possible when Sq > Sk) gets a zero gradient.  Gradients are
-// written with unit stride on H through their other strides.
+// all (only possible when Sq > Sk, rows i < Sq - Sk) takes the forward's
+// true derivative, as jax.grad of the JAX package's plain reference gives
+// it: the forward gave it the mean of V (every score is the mask value),
+// so it adds dO / Sk to every key's dV and nothing to dQ or dK.  The dK/dV
+// kernels leave such rows out of their q-tile loops (P = 0 there, as
+// before) and, only when Sq > Sk, add their column sums of dO over Sk to
+// every key's dV after the loops (f32, through shared memory): the loops
+// of every other shape run as they did.
+// Gradients are written with unit stride on H through their other strides.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -117,6 +124,29 @@ __device__ __forceinline__ void store_rows(uint16_t* base, int64_t stride,
       if (col < h) dst[col] = round16<F16>(acc[dt][2 * r]);
       if (col + 1 < h) dst[col + 1] = round16<F16>(acc[dt][2 * r + 1]);
     }
+  }
+}
+
+// colsum[d] = scale * (the sum of dO[i, n, d] over the rows i < rows and the
+// q heads n of [n0, n0 + group)), f32, for d < h; one thread a column.  The
+// dK/dV kernels' share of the rows that see no key (the padded columns past
+// h read whatever colsum holds there and are never stored).
+template <bool F16, typename T>
+__device__ void no_key_colsum(float* colsum, const T* dout, const int64_t (&sd)[4], int n0,
+                              int group, int rows, int h, float scale) {
+  for (int d = threadIdx.x; d < h; d += blockDim.x) {
+    float acc = 0.f;
+    for (int gi = 0; gi < group; ++gi) {
+      const T* p = dout + (n0 + gi) * sd[2] + d * sd[3];
+      for (int i = 0; i < rows; ++i) {
+        if constexpr (sizeof(T) == 2) {
+          acc += paddle_tiles::to_float<F16>(p[i * sd[1]]);
+        } else {
+          acc += p[i * sd[1]];
+        }
+      }
+    }
+    colsum[d] = acc * scale;
   }
 }
 
@@ -407,6 +437,23 @@ flash_bwd_dkv_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict_
     }
   }
 
+  if (causal && q_off < 0) {
+    // rows i < Sq - Sk see no key: dV += (sum of their dO over the group) / Sk
+    float* colsum = reinterpret_cast<float*>(sQ);
+    __syncthreads();  // the loops are done with sQ
+    no_key_colsum<F16>(colsum, dout + b * st.d[0], st.d, kvh * group, group, min(-q_off, Sq), h,
+                       1.f / Sk);
+    __syncthreads();
+#pragma unroll
+    for (int dt = 0; dt < kDT; ++dt) {
+      const int col = (dt0 + dt) * 8 + t * 2;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        dv_acc[dt][2 * r] += colsum[col];
+        dv_acc[dt][2 * r + 1] += colsum[col + 1];
+      }
+    }
+  }
   store_rows<F16, kDT>(dk + b * st.g1[0] + kvh * st.g1[2], st.g1[1], dk_acc, dt0, kj, Sk, h, t);
   store_rows<F16, kDT>(dv + b * st.g2[0] + kvh * st.g2[2], st.g2[1], dv_acc, dt0, kj, Sk, h, t);
 }
@@ -596,6 +643,18 @@ flash_bwd_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ 
           dk_acc[i] = fmaf(dsv, sQ[qq * kLd + c + 4 * i], dk_acc[i]);
         }
       }
+    }
+  }
+  if (causal && q_off < 0) {
+    // rows i < Sq - Sk see no key: dV += (sum of their dO over the group) / Sk
+    float* colsum = sQ;
+    __syncthreads();  // the loops are done with sQ
+    no_key_colsum<false>(colsum, dout + b * st.d[0], st.d, kvh * group, group, min(-q_off, Sq), h,
+                         1.f / Sk);
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < kCols; ++i) {
+      if (c + 4 * i < h) dv_acc[i] += colsum[c + 4 * i];
     }
   }
   if (kj >= Sk) return;

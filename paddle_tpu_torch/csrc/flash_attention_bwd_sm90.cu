@@ -15,8 +15,11 @@
 //   dS = P * (dP - delta),                 delta = rowsum(O * dO), f32
 //   dQ = scale * dS K,   dK = scale * dS^T Q,   dV = P^T dO.
 // Semantics are the general kernels': causal bottom-right aligned when
-// Sq != Sk, a causal row that sees no key gets a zero gradient, rows past
-// Sq and keys past Sk are neither counted nor stored, GQA reads kv head
+// Sq != Sk; a causal row that sees no key (Sq > Sk, rows i < Sq - Sk) adds
+// dO / Sk to every key's dV and nothing to dQ or dK (the forward gave it
+// the mean of V; jax.grad of the JAX package's plain reference gives the
+// same), and only the q tiles that hold such rows pay for it; rows past Sq
+// and keys past Sk are neither counted nor stored, GQA reads kv head
 // n / group, gradients are written with unit stride on H through their
 // other strides.
 //
@@ -402,6 +405,12 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
     const int first = k0 - q_off;
     start = first <= 0 ? 0 : min(first / kTileQ, n_qt);
   }
+  // q tiles that hold rows seeing no key (i < -q_off, only when Sq > Sk):
+  // every key block visits them for dV's dO / Sk, before the causal start;
+  // the producer and the consumers walk the same tiles
+  const int n_nokey = causal && q_off < 0 ? min((-q_off + kTileQ - 1) / kTileQ, n_qt) : 0;
+  auto next_qt = [&](int qt) { return qt + 1 < n_nokey ? qt + 1 : max(qt + 1, start); };
+  const int first_qt = n_nokey > 0 ? 0 : start;
 
   if (threadIdx.x == 0) {
     mbar_init(kv_full, 1);
@@ -427,7 +436,7 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
       for (int gi = 0; gi < group; ++gi) {
         const int n = kvh * group + gi;
         const float* st = stats + ((int64_t)b * N + n) * 2 * sq_pad;
-        for (int qt = start; qt < n_qt; ++qt, ++t) {
+        for (int qt = first_qt; qt < n_qt; qt = next_qt(qt), ++t) {
           const int s = t % kKvStages;
           const int q0 = qt * kTileQ;
           mbar_wait(&empty[s], ((t / kKvStages) & 1) ^ 1);
@@ -469,8 +478,13 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
     }
     mbar_wait(kv_full, 0);
 
-    auto tile = [&](int s, int q0, auto masked) {
+    const float inv_sk = 1.f / Sk;
+
+    // kNoKey: the tile holds rows that see no key (P = 1 / Sk, dS = 0);
+    // only masked tiles can, and only when Sq > Sk.
+    auto tile = [&](int s, int q0, auto masked, auto nokey) {
       constexpr bool kMasked = decltype(masked)::value;
+      constexpr bool kNoKey = decltype(nokey)::value;
       const uint8_t* sq = smem + L::kQ + s * L::kQSub * (H / 64);
       const uint8_t* sdo = smem + L::kDO + s * L::kQSub * (H / 64);
       const float* s_lse = reinterpret_cast<const float*>(smem + L::kStat + s * 2 * kTileQ * 4);
@@ -522,8 +536,13 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
               p0 = ex2_approx(fmaf(sc[i], sl2, -l2.x));
               p1 = ex2_approx(fmaf(sc[i + 1], sl2, -l2.y));
             }
-            pf[kk][2 * h + r] = pack2<F16>(p0, p1);
             df[kk][2 * h + r] = pack2<F16>(p0 * (dp[i] - de.x), p1 * (dp[i + 1] - de.y));
+            if constexpr (kNoKey) {  // dS stays 0 there: p0, p1 were 0
+              const int qr = q0 + col;
+              if (kj[r] < Sk && qr < -q_off && qr < Sq) p0 = inv_sk;
+              if (kj[r] < Sk && qr + 1 < -q_off && qr + 1 < Sq) p1 = inv_sk;
+            }
+            pf[kk][2 * h + r] = pack2<F16>(p0, p1);
           }
         }
       }
@@ -544,17 +563,19 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
 
     int t = 0;
     for (int gi = 0; gi < group; ++gi) {
-      for (int qt = start; qt < n_qt; ++qt, ++t) {
+      for (int qt = first_qt; qt < n_qt; qt = next_qt(qt), ++t) {
         const int s = t % kKvStages;
         const int q0 = qt * kTileQ;
         mbar_wait(&full[s], (t / kKvStages) & 1);
         const bool whole = kw0 + 63 < Sk && q0 + kTileQ <= Sq &&
                            (!causal || kw0 + 63 <= q0 + q_off);
         const bool seen = kw0 < Sk && (!causal || kw0 <= q0 + kTileQ - 1 + q_off);
-        if (whole) {
-          tile(s, q0, std::false_type{});
+        if (qt < n_nokey) {
+          if (kw0 < Sk) tile(s, q0, std::true_type{}, std::true_type{});
+        } else if (whole) {
+          tile(s, q0, std::false_type{}, std::false_type{});
         } else if (seen) {
-          tile(s, q0, std::true_type{});
+          tile(s, q0, std::true_type{}, std::false_type{});
         }
         __syncwarp();
         if (lane == 0) mbar_arrive(&empty[s]);

@@ -1,9 +1,11 @@
 // Hopper building blocks shared by the kernels that use TMA and wgmma
-// (flash_attention_fwd_sm90.cu, flash_attention_bwd_sm90.cu): mbarriers,
-// tensor-map (TMA) and bulk loads into shared memory, the 128-byte-swizzle
-// shared-memory matrix descriptors of wgmma, the wgmma instructions
-// themselves, and on the host the encoding of a strided [B, S, N, H]
-// tensor's map.  Header only; sm_90a.
+// (flash_attention_fwd_sm90.cu, flash_attention_bwd_sm90.cu,
+// prefill_chain_sm90.cu, matmul_epilogue_sm90.cu): mbarriers, tensor-map
+// (TMA) loads into shared memory and stores from it, bulk loads, the
+// 128-byte-swizzle shared-memory matrix descriptors of wgmma, the wgmma
+// instructions themselves, and on the host the encoding of a strided
+// [B, S, N, H] tensor's map and of a row-major matrix's.  Header only;
+// sm_90a.
 //
 // Shared tiles are written by TMA with CU_TENSOR_MAP_SWIZZLE_128B: a box
 // of 64 16-bit columns (128 bytes) x R rows lands as R rows of 128 bytes,
@@ -92,6 +94,44 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const void* tmap, uint64_
       : "memory");
 }
 
+// The 2-d form: the box at (c0, c1) (column, row) of a matrix's map.
+__device__ __forceinline__ void tma_load_2d(void* dst, const void* tmap, uint64_t* bar, int c0,
+                                            int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(tmap)), "r"(c0), "r"(c1), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// Store a 2-d box from shared memory to the matrix of `tmap` at (c0, c1)
+// (column, row), clipped at the matrix's edges; tracked by the issuing
+// thread's bulk groups (bulk_commit, bulk_wait_read, bulk_wait_all).  The
+// shared-memory writes it reads must first be fenced to the async proxy
+// (fence.proxy.async.shared::cta) by the threads that made them.
+__device__ __forceinline__ void tma_store_2d(const void* tmap, const void* src, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%1, %2}], [%3];\n" ::"l"(
+          reinterpret_cast<uint64_t>(tmap)),
+      "r"(c0), "r"(c1), "r"(smem_u32(src))
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Wait until this thread's committed bulk stores have read their shared
+// memory (it may be rewritten).
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// Wait until this thread's committed bulk stores have completed.
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
 // Copy `bytes` (a multiple of 16, both addresses 16-byte aligned) from
 // device memory into shared memory; completion is counted on `bar`.
 __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
@@ -124,6 +164,12 @@ __device__ __forceinline__ void wgmma_commit() {
 
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Wait until at most N committed groups of this warpgroup are pending.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
 
@@ -307,6 +353,58 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a
   }
 }
 
+// D (+)= A B, m64n256k16, both operands from shared memory: A K-major,
+// B MN-major (the transpose bit: B is stored [K, N] with N contiguous, as a
+// row-major weight); 128-byte swizzle; scale_d 0 overwrites D.
+#define PADDLE_HOPPER_WGMMA_SS_N256_TB(TY)                                            \
+  asm volatile(                                                                     \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"                                  \
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32." TY "." TY " {"                 \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15," \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31," \
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47," \
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63," \
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79," \
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95," \
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111," \
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, " \
+      "%128, %129, p, 1, 1, 0, 1;\n}\n"                                              \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), \
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
+      "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), \
+      "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), \
+      "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), \
+      "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), \
+      "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), \
+      "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), \
+      "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), \
+      "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), \
+      "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), \
+      "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), \
+      "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), \
+      "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), \
+      "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), \
+      "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), \
+      "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), \
+      "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), \
+      "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), \
+      "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), \
+      "+f"(d[126]), "+f"(d[127])                                 \
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d))
+
+template <bool F16>
+__device__ __forceinline__ void wgmma_ss_n256_tb(float (&d)[128], uint64_t desc_a,
+                                                 uint64_t desc_b, int scale_d) {
+  if constexpr (F16) {
+    PADDLE_HOPPER_WGMMA_SS_N256_TB("f16");
+  } else {
+    PADDLE_HOPPER_WGMMA_SS_N256_TB("bf16");
+  }
+}
+
+#undef PADDLE_HOPPER_WGMMA_SS_N256_TB
+
 // The two shapes by N: wgmma_ss<F16, N> and wgmma_rs<F16, N> for N 64 or 128.
 template <bool F16, int N>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t desc_a, uint64_t desc_b,
@@ -369,6 +467,23 @@ inline bool encode(CUtensorMap* map, const void* base, bool f16, int B, int S, i
   const cuuint32_t box[4] = {64, 1, (cuuint32_t)box_rows, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   return fn(map, f16 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+            const_cast<void*>(base), dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The map of a row-major 16-bit [rows, cols] matrix with a row stride of
+// `ld` elements, boxes of 64 columns x `box_rows` rows, 128-byte swizzle,
+// zero fill out of bounds.
+inline bool encode_2d(CUtensorMap* map, const void* base, bool f16, long long rows,
+                      long long cols, long long ld, int box_rows) {
+  const EncodeTiled fn = encode_fn();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)ld * 2};
+  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  return fn(map, f16 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
             const_cast<void*>(base), dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;

@@ -21,40 +21,25 @@
 // predicated and zero-filled, and shapes whose rows are not 16-byte
 // aligned take element loads instead of 16-byte ones.  f32 operands run on
 // plain FMA (a 64 x 64 tile, 4 x 4 outputs a thread), as prefill_chain does.
-// Not yet done (a later PR's work): wgmma, TMA and a deeper pipeline.
+// This is the general route: bf16 and f16 whose rows TMA can read take
+// matmul_epilogue_sm90.cu (TMA + wgmma); ops/matmul_epilogue.py:_route
+// picks before any launch, and this kernel takes the rest (f32, rows that
+// are not 16-byte multiples, unaligned bases).
 //
-// Activations: gelu is 0.5 v (1 + erf(v / sqrt 2)), gelu_tanh
-// 0.5 v (1 + tanh(sqrt(2 / pi) (v + 0.044715 v^3))), silu v / (1 + e^-v),
-// relu max(v, 0), in f32 (no fast-math: erff, tanhf and expf are the
-// accurate library functions).
+// The activations are matmul_act.cuh's, shared with the sm90 kernel.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "matmul_act.cuh"
 #include "mma_tiles.cuh"
 
 namespace {
 
+using namespace paddle_epilogue;
 using paddle_tiles::ld32;
 using paddle_tiles::mma_16816;
-
-enum Act { kNone = 0, kRelu = 1, kGelu = 2, kGeluTanh = 3, kSilu = 4 };
-
-__device__ __forceinline__ float activate(float v, int act) {
-  switch (act) {
-    case kRelu:
-      return fmaxf(v, 0.f);
-    case kGelu:
-      return 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
-    case kGeluTanh:
-      return 0.5f * v * (1.f + tanhf(0.7978845608028654f * (v + 0.044715f * v * v * v)));
-    case kSilu:
-      return v / (1.f + expf(-v));
-    default:
-      return v;
-  }
-}
 
 __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const uint16_t* p) {
   const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));

@@ -10,7 +10,8 @@ persist per device kind under the ``schedule/decode_*`` and
 ``schedule/prefill`` autotune namespaces and the engine adopts an accepted
 config with no re-measurement (``serving._resolve_decode_chain``).
 
-The kernels, CUDA C++ in ``csrc/decode_chain.cu``:
+The kernels, CUDA C++ in ``csrc/decode_chain.cu`` and
+``csrc/prefill_chain_sm90.cu``:
 
 - ``decode_chain_batch`` (replaces ``_build_batch``): one launch per layer
   writes every row's token into its page (bf16, f32 or int8 pools) and
@@ -19,8 +20,15 @@ The kernels, CUDA C++ in ``csrc/decode_chain.cu``:
   same function with each (row, kv head) span split over ``splits``
   blocks and the partial softmax sums merged by a second launch;
 - ``prefill_chain`` (replaces ``_build_prefill``): a ``[1, S, N, H]``
-  query chunk against ``[1, T, N, H]`` keys, bottom-right causal, one
-  block per (``block_q`` query rows, head).
+  query chunk against ``[1, T, N, H]`` keys, bottom-right causal.  Two
+  routes, picked by ``_prefill_route`` before any launch: bf16 takes
+  ``prefill_chain_sm90.cu`` (TMA and wgmma, a block per (``block_q``
+  query rows, head, key split); ``prefill_splits`` splits the key range
+  where the unsplit grid leaves most of the card idle and the keys are
+  long enough to pay for the combine launch that merges the partials); f32
+  takes ``decode_chain.cu``'s FMA kernel, a block per (``block_q`` query
+  rows, head).  Every launch counts under ``prefill_chain``, the TMA
+  kernel's also under ``prefill_chain_sm90``.
 
 Beside each, the plain version (a CPU tensor takes it): the unfused ops
 ``models/llama._decode_layer_paged`` runs (``paged_write`` twice, then
@@ -64,12 +72,18 @@ _TILE = 32                     # positions per shared-memory tile of the kernels
 _LAUNCH_S = 1e-7               # tie-breaker per launch in the roofline ranking
 _ROWS_SPLITS = (2, 4, 8)
 _PREFILL_BLOCK_Q = (64, 128)
+_PREFILL_KEYS = 128            # keys a K/V tile of the sm90 prefill kernel
+_MIN_SPLIT_TILES = 4           # K/V tiles a key split holds at the least (prefill_splits)
+H100_SMS = 132                 # the card the port targets: its SM count where no card is present
 _PTR, _INT, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     "paddle_decode_chain": [_PTR] * 13 + [_INT] * 9 + [ctypes.c_float, _PTR],
     "paddle_prefill_chain": [_PTR] * 4 + [_INT] * 4 + [_LL] * 8 + [_INT] * 2
     + [ctypes.c_float, _PTR],
+    "paddle_prefill_chain_sm90": [_PTR] * 6 + [_INT] * 4 + [_LL] * 8 + [_INT] * 2
+    + [ctypes.c_float, _PTR],
 }
+_LIBS = {"paddle_prefill_chain_sm90": "prefill_chain_sm90"}  # the rest: decode_chain
 _FNS: dict = {}
 
 
@@ -88,14 +102,15 @@ def _as_dtype(dtype) -> torch.dtype:
 
 
 def _launch(name, *args):
-    """Call a C entry point of ``csrc/decode_chain.cu`` on the current
-    stream (the library is built at first use); raise on a refused launch."""
+    """Call a C entry point of ``csrc/decode_chain.cu`` (or of the source
+    ``_LIBS`` names) on the current stream (the library is built at first
+    use); raise on a refused launch."""
     device = next(a.device for a in args if isinstance(a, torch.Tensor))
     fn = _FNS.get(name)
     if fn is None:
         from ._cuda_build import load
 
-        fn = getattr(load("decode_chain"), name)
+        fn = getattr(load(_LIBS.get(name, "decode_chain")), name)
         fn.argtypes = _SIGNATURES[name]
         fn.restype = ctypes.c_int
         _FNS[name] = fn
@@ -197,6 +212,84 @@ def _prefill_layout(t):
     return t.stride(-1) == 1 and not any(s % 8 for s in t.stride()[:3]) and t.data_ptr() % 16 == 0
 
 
+def _prefill_route(dtype) -> str:
+    """Which kernel takes a prefill chain (inputs in the layout every route
+    needs, ``_prefill_layout``: TMA's): ``"sm90"``
+    (``csrc/prefill_chain_sm90.cu``) for bf16, ``"general"``
+    (``decode_chain.cu``'s FMA kernel) for f32."""
+    return "sm90" if dtype == torch.bfloat16 else "general"
+
+
+def sm_count(device) -> int:
+    """The SM count of a CUDA device; the H100's where there is no card
+    (the search's cost model on the CPU)."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        return torch.cuda.get_device_properties(device).multi_processor_count
+    return H100_SMS
+
+
+def prefill_splits(s, t, n, block_q, sms) -> int:
+    """How many blocks split the key range of one (query tile, head) in the
+    sm90 prefill kernel.  One split writes O itself; more add f32 partials
+    and the combine launch, which on the H100 cost about what three to
+    four 128-key tiles of a block do (PERF.md §6).  So the key range is
+    split only where the unsplit grid leaves at least three quarters of
+    the SMs idle, into as many splits as fill the card (one block an SM),
+    each holding at least ``_MIN_SPLIT_TILES`` tiles, none empty (the tiles
+    are dealt in equal runs).  The chained engines' 128-token chunks
+    against T <= 896 keep one split."""
+    blocks = -(-s // block_q) * n
+    tiles = -(-t // _PREFILL_KEYS)
+    if 4 * blocks > sms:
+        return 1
+    splits = max(1, min(sms // blocks, tiles // _MIN_SPLIT_TILES))
+    per = -(-tiles // splits)
+    return -(-tiles // per)
+
+
+def _check_prefill(q, k, v):
+    _, s, n, h = q.shape
+    if q.dtype not in (torch.bfloat16, torch.float32) or k.dtype != q.dtype \
+            or v.dtype != q.dtype:
+        raise TypeError(f"prefill_chain: the kernel takes bf16 or f32, got {q.dtype}, "
+                        f"{k.dtype}, {v.dtype}")
+    if h not in (64, 128):
+        raise ValueError(f"prefill_chain: head_dim {h} is not 64 or 128")
+    if not all(_prefill_layout(t) for t in (q, k, v)):
+        raise ValueError("prefill_chain: inputs need unit stride on H, strides that are "
+                         "multiples of 8 elements and a 16-byte aligned base")
+
+
+def _prefill_sm90(q, k, v, block_q):
+    _, s, n, h = q.shape
+    t = k.shape[1]
+    splits = prefill_splits(s, t, n, block_q, sm_count(q.device))
+    o = torch.empty_like(q, memory_format=torch.contiguous_format)
+    ws_o = ws_lse = None
+    if splits > 1:
+        ws_o = torch.empty((splits, s, n, h), dtype=torch.float32, device=q.device)
+        ws_lse = torch.empty((splits, n, s), dtype=torch.float32, device=q.device)
+    _launch("paddle_prefill_chain_sm90", q, k, v, o, ws_o, ws_lse, s, t, n, h,
+            *q.stride()[1:3], *k.stride()[1:3], *v.stride()[1:3], *o.stride()[1:3],
+            int(block_q), splits, 1.0 / math.sqrt(h))
+    count_launch("prefill_chain_sm90")
+    count_launch("prefill_chain")
+    return o
+
+
+def _prefill_general(q, k, v, block_q):
+    """``decode_chain.cu``'s kernels: f32 on FMA; bf16 on mma.sync (the
+    route bf16 took before the sm90 kernel, kept to time against it)."""
+    _, s, n, h = q.shape
+    o = torch.empty_like(q, memory_format=torch.contiguous_format)
+    _launch("paddle_prefill_chain", q, k, v, o, s, k.shape[1], n, h,
+            *q.stride()[1:3], *k.stride()[1:3], *v.stride()[1:3], *o.stride()[1:3],
+            int(block_q), int(q.dtype == torch.float32), 1.0 / math.sqrt(h))
+    count_launch("prefill_chain")
+    return o
+
+
 def prefill_chain(q, k, v, *, block_q):
     """A query chunk q ``[1, S, N, H]`` against k/v ``[1, T, N, H]`` (K/V
     already repeated over the GQA group), key j visible to query i iff
@@ -208,22 +301,10 @@ def prefill_chain(q, k, v, *, block_q):
         raise ValueError(f"prefill_chain: block_q {block_q} is not one of {_PREFILL_BLOCK_Q}")
     if not use_kernel(q, k, v):
         return prefill_chain_plain(q, k, v)
-    _, s, n, h = q.shape
-    if q.dtype not in (torch.bfloat16, torch.float32) or k.dtype != q.dtype \
-            or v.dtype != q.dtype:
-        raise TypeError(f"prefill_chain: the kernel takes bf16 or f32, got {q.dtype}, "
-                        f"{k.dtype}, {v.dtype}")
-    if h not in (64, 128):
-        raise ValueError(f"prefill_chain: head_dim {h} is not 64 or 128")
-    if not all(_prefill_layout(t) for t in (q, k, v)):
-        raise ValueError("prefill_chain: inputs need unit stride on H, strides that are "
-                         "multiples of 8 elements and a 16-byte aligned base")
-    o = torch.empty_like(q, memory_format=torch.contiguous_format)
-    _launch("paddle_prefill_chain", q, k, v, o, s, k.shape[1], n, h,
-            *q.stride()[1:3], *k.stride()[1:3], *v.stride()[1:3], *o.stride()[1:3],
-            int(block_q), int(q.dtype == torch.float32), 1.0 / math.sqrt(h))
-    count_launch("prefill_chain")
-    return o
+    _check_prefill(q, k, v)
+    if _prefill_route(q.dtype) == "sm90":
+        return _prefill_sm90(q, k, v, int(block_q))
+    return _prefill_general(q, k, v, int(block_q))
 
 
 # ------------------------------------------------------------------- specs
@@ -445,30 +526,50 @@ class PrefillChainSpec:
     def flops(self) -> float:
         return (4.0 * self.head_dim + 5.0) * self.num_heads * self.pairs()
 
+    def splits(self, config) -> int:
+        """The key splits of the bf16 (sm90) kernel on ``device`` (1 for f32)."""
+        if self.dtype != torch.bfloat16:
+            return 1
+        return prefill_splits(self.seq, self.kv_len, self.num_heads, int(config["block_q"]),
+                              sm_count(self.device))
+
     def traffic_bytes(self, config) -> int:
-        """q and the output once; K/V once per query tile up to the tile's
-        last visible key (the kernel reads them from device memory per
-        tile)."""
+        """Device-memory bytes of the kernel that runs: q and the output
+        once; K/V once per query tile up to the tile's last visible key
+        (bf16: whole 128-key tiles, each read once across the splits, TMA
+        reading nothing past T; f32: rows), and with more than one split the
+        f32 partials and their lse written and read back once."""
         it = self.dtype.itemsize
         s, t, n, h = self.seq, self.kv_len, self.num_heads, self.head_dim
         bq = int(config["block_q"])
-        kv_rows = sum(min(t, i0 + bq + t - s) for i0 in range(0, s, bq))
-        return int((2 * s + 2 * kv_rows) * n * h * it)
+        if self.dtype == torch.bfloat16:
+            kv_rows = sum(min(t, ((i0 + bq - 1 + t - s) // _PREFILL_KEYS + 1) * _PREFILL_KEYS)
+                          for i0 in range(0, s, bq))
+        else:
+            kv_rows = sum(min(t, i0 + bq + t - s) for i0 in range(0, s, bq))
+        traffic = (2 * s + 2 * kv_rows) * n * h * it
+        splits = self.splits(config)
+        if splits > 1:
+            traffic += 2 * splits * s * n * (h + 1) * 4
+        return int(traffic)
 
     def roofline_ms(self, config, cost_model=None) -> float:
         if cost_model is None:
             from paddle_tpu_torch.cost_model import OpCostModel
 
             cost_model = OpCostModel(self.device)
+        launches = 2 if self.splits(config) > 1 else 1
         return (cost_model.flops_time(self.flops(), self.traffic_bytes(config))
-                + _LAUNCH_S) * 1e3
+                + launches * _LAUNCH_S) * 1e3
 
     def smem_bytes(self, config) -> int:
-        """Shared memory of one block: the bf16 kernel's two 64-row tiles
-        of pitch H + 8; the f32 kernel's q tile, K/V tiles and scores."""
+        """Shared memory of one block: the bf16 (sm90) kernel's Q tile and
+        two stages of 128-key K and V tiles, its 7 mbarriers and the 1 KB
+        of alignment slack; the f32 kernel's q tile, K/V tiles and
+        scores."""
         h, bq = self.head_dim, int(config["block_q"])
         if self.dtype == torch.bfloat16:
-            return 2 * 64 * (h + 8) * 2
+            return bq * h * 2 + 2 * 2 * _PREFILL_KEYS * h * 2 + 8 * 7 + 1024
         return 4 * (bq * h + _TILE * (h + 1) + _TILE * h + bq * _TILE + 3 * bq)
 
     def reference(self):

@@ -114,11 +114,15 @@ def _bnsh(q, k, v):
     return qt, kt, vt
 
 
+def _allowed(qlen, klen, device):
+    """The bottom-right causal mask: query row i sees keys j <= i + klen - qlen."""
+    return torch.ones((qlen, klen), dtype=torch.bool, device=device).tril(klen - qlen)
+
+
 def _masked_logits(qt, kt, causal, scale):
     logits = torch.einsum("bnqh,bnkh->bnqk", qt, kt) * scale
     if causal:
-        qlen, klen = logits.shape[-2], logits.shape[-1]
-        allowed = torch.ones((qlen, klen), dtype=torch.bool, device=qt.device).tril(klen - qlen)
+        allowed = _allowed(logits.shape[-2], logits.shape[-1], qt.device)
         logits = logits.masked_fill(~allowed, DEFAULT_MASK_VALUE)
     return logits
 
@@ -146,7 +150,14 @@ def flash_attention_reference(q, k, v, *, causal=False, scale=None):
 def flash_attention_bwd_reference(q, k, v, out, lse, do, *, causal=False, scale=None):
     """Plain PyTorch version of the backward kernels: the math of the JAX
     package's ``_bwd``, dense in f32, one cast of each gradient at the end.
-    Returns ``(dq, dk, dv)`` in the layouts and dtypes of q, k and v."""
+    Returns ``(dq, dk, dv)`` in the layouts and dtypes of q, k and v.
+
+    A causal row that sees no key (Sq > Sk, rows i < Sq - Sk) takes the
+    forward's true derivative, as ``jax.grad`` of the JAX package's plain
+    reference gives it: the forward gave it the mean of V, so P = 1 / Sk on
+    every key and dS = 0 (no dQ, no dK; dO / Sk to every key's dV).  From
+    the lse alone such a row would read P = 1: its lse, mask + log(Sk),
+    rounds to the mask value in f32."""
     _check(q, k, v)
     scale = _scale(q, scale)
     b, sk, nkv, h = k.shape
@@ -156,6 +167,10 @@ def flash_attention_bwd_reference(q, k, v, out, lse, do, *, causal=False, scale=
     dp = torch.einsum("bnqh,bnkh->bnqk", dot, vt)
     delta = (ot * dot).sum(dim=-1, keepdim=True)
     ds = p * (dp - delta) * scale
+    if causal:
+        no_key = ~_allowed(q.shape[1], sk, q.device).any(-1)[:, None]  # [Sq, 1]
+        p = torch.where(no_key, 1.0 / sk, p)
+        ds = torch.where(no_key, 0.0, ds)
     dq = torch.einsum("bnqk,bnkh->bnqh", ds, kt)
     dk = torch.einsum("bnqk,bnqh->bnkh", ds, qt)
     dv = torch.einsum("bnqk,bnqh->bnkh", p, dot)

@@ -343,28 +343,37 @@ def test_flash_bwd_sm90(cuda, dtype, b, sq, sk, n, nkv, h, causal):
 
 
 def test_flash_bwd_sm90_rows_that_see_no_key(cuda):
-    """Causal with Sq > Sk: the first Sq - Sk rows see no key, and both
-    routes give them zero gradients (the plain version does not: its mask
-    value absorbs log(Sk), so such a row's P is 1 on every key; ROADMAP
-    §C).  The sm90 pair against the general pair on the same inputs, and
-    the rows that see keys against the plain version's dQ."""
+    """Causal with Sq > Sk: the first Sq - Sk rows see no key (the forward
+    gives each the mean of V).  Both routes, the sm90 pair and the general
+    pair, equal the plain version on every row: dQ 0 on those rows, nothing
+    from them in dK, dO / Sk from each of them in every key's dV (the
+    gradient jax.grad of the JAX package's plain reference gives;
+    tests/test_torch_flash_routes.py holds the plain version to it).  Also
+    in f32 on the general route (1e-4)."""
     fa = importlib.import_module("paddle_tpu_torch.ops.flash_attention")
     g = torch.Generator(device=cuda).manual_seed(30)
-    q, do = (_randn(g, 1, 300, 2, 64, device=cuda) for _ in range(2))
-    k, v = (_randn(g, 1, 130, 1, 64, device=cuda) for _ in range(2))
-    out, lse = ops.flash_attention_fwd(q, k, v, causal=True)
-    scale = 64 ** -0.5
-    dq, stats = fa._bwd_dq_sm90(q, k, v, out, do, lse, True, scale)
-    dk, dv = fa._bwd_dkv_sm90(q, k, v, do, stats, True, scale)
-    delta = fa._delta(out, do)
-    want = (fa._bwd_dq_cuda(q, k, v, do, lse, delta, True, scale),
-            *fa._bwd_dkv_cuda(q, k, v, do, lse, delta, True, scale))
-    torch.cuda.synchronize()
-    for name, a, b in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
-        torch.testing.assert_close(a.float(), b.float(), atol=TOL, rtol=TOL, msg=name)
-    assert not dq[:, :170].any()
-    plain = ops.flash_attention_bwd_reference(q, k, v, out, lse, do, causal=True)[0]
-    torch.testing.assert_close(dq[:, 170:].float(), plain[:, 170:].float(), atol=TOL, rtol=TOL)
+    for dtype, tol in ((torch.bfloat16, TOL), (torch.float32, 1e-4)):
+        q, do = (torch.randn(1, 300, 2, 64, generator=g, device=cuda).to(dtype)
+                 for _ in range(2))
+        k, v = (torch.randn(1, 130, 1, 64, generator=g, device=cuda).to(dtype)
+                for _ in range(2))
+        out, lse = ops.flash_attention_fwd(q, k, v, causal=True)
+        scale = 64 ** -0.5
+        routes = {}
+        if dtype == torch.bfloat16:
+            dq, stats = fa._bwd_dq_sm90(q, k, v, out, do, lse, True, scale)
+            routes["sm90"] = (dq, *fa._bwd_dkv_sm90(q, k, v, do, stats, True, scale))
+        delta = fa._delta(out, do)
+        routes["general"] = (fa._bwd_dq_cuda(q, k, v, do, lse, delta, True, scale),
+                             *fa._bwd_dkv_cuda(q, k, v, do, lse, delta, True, scale))
+        torch.cuda.synchronize()
+        want = ops.flash_attention_bwd_reference(q, k, v, out, lse, do, causal=True)
+        assert not want[0][:, :170].any()
+        for route, got in routes.items():
+            for name, a, b in zip(("dq", "dk", "dv"), got, want):
+                torch.testing.assert_close(a.float(), b.float(), atol=tol, rtol=tol,
+                                           msg=f"{route} {name} {dtype}")
+            assert not got[0][:, :170].any(), route
 
 
 def test_flash_bwd_general_route_when_one_tensor_is_not_tma_readable(cuda):
@@ -394,9 +403,10 @@ def test_backward_reaches_every_parameter(cuda):
     assert counts == {"fused_rms_norm": 5, "swiglu": 2, "flash_attention_fwd": 2,
                       "flash_attention_fwd_sm90": 2, "flash_attention_bwd_dq": 2,
                       "flash_attention_bwd_dkv": 2, "flash_attention_bwd_dq_sm90": 2,
-                      "flash_attention_bwd_dkv_sm90": 2, "decode_chain_batch": 0, "decode_chain_rows": 0, "prefill_chain": 0,
-                      "fused_layer_norm": 0, "matmul_epilogue": 0, "vpu_chain": 0,
-                      "sched_chain": 0, "sched_chain_ktiled": 0}
+                      "flash_attention_bwd_dkv_sm90": 2, "decode_chain_batch": 0,
+                      "decode_chain_rows": 0, "prefill_chain": 0, "prefill_chain_sm90": 0,
+                      "fused_layer_norm": 0, "matmul_epilogue": 0, "matmul_epilogue_sm90": 0,
+                      "vpu_chain": 0, "sched_chain": 0, "sched_chain_ktiled": 0}
     assert torch.isfinite(loss)
     for name, p in model.named_parameters():
         assert p.grad is not None, name
@@ -513,6 +523,51 @@ def test_prefill_chain_kernel(cuda, dtype, h, block_q, t):
     tol = dc._tolerance(dtype)
     torch.testing.assert_close(got.float(), dc.prefill_chain_plain(q, k, v).float(),
                                atol=tol, rtol=tol)
+
+
+def test_prefill_chain_sm90_single_tile_witness(cuda):
+    """The smallest witness of a layout fault in the TMA/wgmma prefill
+    kernel: one block, one 128-key tile, one split, H 64.  Run it first on
+    a card."""
+    from paddle_tpu_torch.ops import decode_chain as dc
+
+    g = torch.Generator(device=cuda).manual_seed(31)
+    q, k, v = (_randn(g, 1, 128, 1, 64, device=cuda) for _ in range(3))
+    before = ops.launch_counts()
+    got = dc.prefill_chain(q, k, v, block_q=128)
+    after = ops.launch_counts()
+    assert after["prefill_chain_sm90"] - before["prefill_chain_sm90"] == 1
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), dc.prefill_chain_plain(q, k, v).float(),
+                               atol=TOL, rtol=TOL)
+
+
+@pytest.mark.parametrize("block_q", [64, 128])
+@pytest.mark.parametrize("t,h,n", [(128, 128, 32), (256, 128, 32), (640, 128, 32),
+                                   (200, 128, 4), (331, 64, 8), (640, 64, 32),
+                                   (1024, 128, 4), (1100, 64, 8), (2048, 128, 32)])
+def test_prefill_chain_sm90(cuda, block_q, t, h, n):
+    """bf16 takes the TMA/wgmma kernel: a 128-token chunk against T 128,
+    256 and 640 (one key split), T not a multiple of 64, H 64, and T 1024,
+    1100 and 2048 (two to four splits and the combine launch; at T 1100 a
+    split that holds no visible key of some rows); within 2e-2 of the
+    plain version, and against decode_chain.cu's bf16 kernel on the same
+    inputs; one launch under both counters."""
+    from paddle_tpu_torch.ops import decode_chain as dc
+
+    g = torch.Generator(device=cuda).manual_seed(32)
+    q = _randn(g, 1, 128, n, h, device=cuda)
+    k, v = (_randn(g, 1, t, n, h, device=cuda) for _ in range(2))
+    before = ops.launch_counts()
+    got = dc.prefill_chain(q, k, v, block_q=block_q)
+    after = ops.launch_counts()
+    assert after["prefill_chain"] - before["prefill_chain"] == 1
+    assert after["prefill_chain_sm90"] - before["prefill_chain_sm90"] == 1
+    general = dc._prefill_general(q, k, v, block_q)
+    torch.cuda.synchronize()
+    want = dc.prefill_chain_plain(q, k, v)
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL, rtol=TOL)
+    torch.testing.assert_close(got.float(), general.float(), atol=TOL, rtol=TOL)
 
 
 def test_chains_refuse_what_they_do_not_take(cuda):
@@ -638,6 +693,74 @@ def test_matmul_epilogue_kernel_f16(cuda, m, k, n, act):
                                atol=TOL, rtol=TOL)
 
 
+def test_matmul_epilogue_sm90_single_tile_witness(cuda):
+    """The smallest witness of a layout fault in the TMA/wgmma epilogue: one
+    128 x 256 tile, one 64-deep K tile, no activation.  Run it first on a
+    card."""
+    from paddle_tpu_torch.ops.matmul_epilogue import matmul_bias_act_plain
+
+    g = torch.Generator(device=cuda).manual_seed(33)
+    x = (torch.randn(128, 64, generator=g, device=cuda) / 8).to(torch.bfloat16)
+    w = torch.randn(64, 256, generator=g, device=cuda).to(torch.bfloat16)
+    before = ops.launch_counts()["matmul_epilogue_sm90"]
+    got = ops.matmul_bias_act(x, w)
+    assert ops.launch_counts()["matmul_epilogue_sm90"] == before + 1
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), matmul_bias_act_plain(x, w, None, "none").float(),
+                               atol=TOL, rtol=TOL)
+
+
+@pytest.mark.parametrize("m,k,n", [(4096, 768, 3072), (100, 768, 3072), (300, 72, 520)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("act", ["none", "relu", "gelu", "gelu_tanh", "silu"])
+@pytest.mark.parametrize("bias", [True, False])
+def test_matmul_epilogue_sm90(cuda, m, k, n, dtype, act, bias):
+    """bf16 and f16 whose rows TMA reads take the TMA/wgmma kernel:
+    BERT-base's FFN product, ragged M (100), K not a multiple of 64 (72)
+    with N not a multiple of 256 (520); every activation, with and without
+    bias; within 2e-2 of the plain version (one 16-bit rounding of the
+    output after an f32 sum) and of the general kernel on the same inputs;
+    one launch under both counters."""
+    me = importlib.import_module("paddle_tpu_torch.ops.matmul_epilogue")
+    g = torch.Generator(device=cuda).manual_seed(34)
+    x = (torch.randn(m, k, generator=g, device=cuda) / k ** 0.5).to(dtype)
+    w = torch.randn(k, n, generator=g, device=cuda).to(dtype)
+    bvec = (0.5 * torch.randn(n, generator=g, device=cuda)).to(dtype) if bias else None
+    before = ops.launch_counts()
+    got = ops.matmul_bias_act(x, w, bvec, act)
+    after = ops.launch_counts()
+    assert after["matmul_epilogue"] - before["matmul_epilogue"] == 1
+    assert after["matmul_epilogue_sm90"] - before["matmul_epilogue_sm90"] == 1
+    general = me._launch("general", x, w, bvec, act)
+    torch.cuda.synchronize()
+    want = me.matmul_bias_act_plain(x, w, bvec, act)
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL, rtol=TOL)
+    torch.testing.assert_close(got.float(), general.float(), atol=TOL, rtol=TOL)
+
+
+@pytest.mark.parametrize("m,k,n,dtype", [(100, 72, 130, torch.bfloat16),
+                                         (100, 72, 130, torch.float32),
+                                         (4096, 768, 3072, torch.float32)])
+def test_matmul_epilogue_general_route(cuda, m, k, n, dtype):
+    """Rows TMA cannot read (N 130 in bf16: 260-byte rows) and f32 take the
+    general kernel: the _sm90 counter stays."""
+    from paddle_tpu_torch.ops.matmul_epilogue import matmul_bias_act_plain
+
+    g = torch.Generator(device=cuda).manual_seed(35)
+    x = (torch.randn(m, k, generator=g, device=cuda) / k ** 0.5).to(dtype)
+    w = torch.randn(k, n, generator=g, device=cuda).to(dtype)
+    bvec = (0.5 * torch.randn(n, generator=g, device=cuda)).to(dtype)
+    before = ops.launch_counts()
+    got = ops.matmul_bias_act(x, w, bvec, "gelu")
+    after = ops.launch_counts()
+    assert after["matmul_epilogue"] - before["matmul_epilogue"] == 1
+    assert after["matmul_epilogue_sm90"] == before["matmul_epilogue_sm90"]
+    torch.cuda.synchronize()
+    tol = TOL if dtype == torch.bfloat16 else 1e-4
+    torch.testing.assert_close(got.float(), matmul_bias_act_plain(x, w, bvec, "gelu").float(),
+                               atol=tol, rtol=tol)
+
+
 def test_new_kernels_refuse_what_they_do_not_take(cuda):
     """The matmul epilogue takes bf16, f16 and f32; other dtypes raise."""
     x = torch.zeros(8, 64, device=cuda, dtype=torch.int32)
@@ -673,6 +796,7 @@ def test_static_bert_runs_the_new_kernels(cuda):
     (got,) = exe.run(main, feed={"ids": ids}, fetch_list=[logits], return_numpy=False)
     counts = ops.launch_counts()
     assert counts["fused_layer_norm"] == 5 and counts["matmul_epilogue"] == 2, counts
+    assert counts["matmul_epilogue_sm90"] == 2, counts  # the linear + GELUs take TMA/wgmma
     with torch.no_grad():
         want = model(ids)
     assert float((got.float() - want.float()).norm() / want.float().norm()) <= TOL

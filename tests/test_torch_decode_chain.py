@@ -275,6 +275,33 @@ def test_traffic_bytes_hand_computed():
         368 + 288 + fixed + 1280
 
 
+def test_prefill_traffic_and_smem_hand_computed():
+    """The prefill chain's accounting describes the kernel that runs.
+    bf16 (the sm90 kernel, 132 SMs where there is no card), S 128, N 32,
+    H 128: a row is 32 x 128 x 2 = 8192 bytes.
+
+      T 640, block_q 128: one q tile reads K/V up to key 639: 5 tiles, 640
+                   rows; (2*128 + 2*640) * 8192 = 12,582,912; one split
+      T 640, block_q 64: two q tiles, each up to key 575 / 639: 5 tiles
+                   each; (2*128 + 2*1280) * 8192 = 23,068,672
+      T 2048, block_q 128: 16 tiles, 2048 rows; (2*128 + 2*2048) * 8192 =
+                   35,651,584; 4 splits: partials 2*4*128*32*(128+1)*4 =
+                   16,908,288 more
+      shared memory, block_q 128: Q 32,768 + 2 stages of K and V 131,072
+                   + 7 barriers 56 + 1,024 slack = 164,920
+    f32 (the FMA kernel, unchanged), S 128, T 200, N 4, H 16, block_q 64:
+    rows 136 + 200 = 336; (256 + 672) * 4 * 16 * 4 = 237,568."""
+    spec = dc.PrefillChainSpec(seq=128, kv_len=640, num_heads=32, head_dim=128)
+    assert spec.traffic_bytes({"block_q": 128}) == 12_582_912
+    assert spec.traffic_bytes({"block_q": 64}) == 23_068_672
+    assert spec.smem_bytes({"block_q": 128}) == 164_920
+    long = dc.PrefillChainSpec(seq=128, kv_len=2048, num_heads=32, head_dim=128)
+    assert long.traffic_bytes({"block_q": 128}) == 35_651_584 + 16_908_288
+    f32 = dc.PrefillChainSpec(seq=128, kv_len=200, num_heads=4, head_dim=16,
+                              dtype=torch.float32)
+    assert f32.traffic_bytes({"block_q": 64}) == 237_568
+
+
 @pytest.mark.parametrize("kv", ["bf16", "int8"])
 def test_all_candidates_pass_parity_against_twin(kv):
     spec = _spec(kv)

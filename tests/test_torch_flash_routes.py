@@ -164,3 +164,34 @@ def test_flash_backward_matches_pallas_vjp_every_dtype(dtype, h, sq, sk, n, nkv,
         # is relative to its size
         atol = tol * max(1.0, float(np.abs(w).max()))
         np.testing.assert_allclose(t.grad.float().numpy(), w, atol=atol, rtol=tol, err_msg=name)
+
+
+NO_KEY_TOL = 2e-5  # f32: the sums run in other orders
+
+
+@pytest.mark.parametrize("sq,sk,oracle", [
+    (300, 130, "flash_attention"),            # ragged: the public entry takes the reference
+    (256, 128, "flash_attention_reference"),  # block multiples: the plain reference itself
+])
+def test_rows_that_see_no_key_take_the_reference_gradient(sq, sk, oracle):
+    """Causal with Sq > Sk: rows i < Sq - Sk see no key, and the forward
+    gives each the mean of V.  The port's autograd gradients (plain on the
+    CPU) equal jax.grad through the JAX package's plain reference on every
+    row: dQ 0 on those rows, nothing from them in dK, dO / Sk from each of
+    them in every key's dV (GQA 2:1)."""
+    rng = np.random.default_rng(40)
+    arrays = [rng.standard_normal(s).astype(np.float32)
+              for s in ((1, sq, 2, 64), (1, sk, 1, 64), (1, sk, 1, 64), (1, sq, 2, 64))]
+    *qkv, do = arrays
+    fn = getattr(jfa, oracle)
+    out, vjp = jax.vjp(lambda a, b, c: fn(a, b, c, causal=True), *(jnp.asarray(a) for a in qkv))
+    want = [np.asarray(g) for g in vjp(jnp.asarray(do))]
+    ts = [torch.from_numpy(a).requires_grad_() for a in qkv]
+    got_out = tops.flash_attention(*ts, causal=True)
+    np.testing.assert_allclose(got_out.detach().numpy(), np.asarray(out), atol=NO_KEY_TOL,
+                               rtol=NO_KEY_TOL)
+    got_out.backward(torch.from_numpy(do))
+    for name, t, w in zip(("dq", "dk", "dv"), ts, want):
+        np.testing.assert_allclose(t.grad.numpy(), w, atol=NO_KEY_TOL, rtol=NO_KEY_TOL,
+                                   err_msg=name)
+    assert not ts[0].grad[:, :sq - sk].any()

@@ -254,8 +254,9 @@ def test_cpu_tensors_take_the_plain_versions():
                                     "flash_attention_bwd_dq_sm90": 0,
                                     "flash_attention_bwd_dkv_sm90": 0,
                                     "decode_chain_batch": 0, "decode_chain_rows": 0,
-                                    "prefill_chain": 0, "fused_layer_norm": 0,
-                                    "matmul_epilogue": 0, "vpu_chain": 0, "sched_chain": 0,
+                                    "prefill_chain": 0, "prefill_chain_sm90": 0,
+                                    "fused_layer_norm": 0, "matmul_epilogue": 0,
+                                    "matmul_epilogue_sm90": 0, "vpu_chain": 0, "sched_chain": 0,
                                     "sched_chain_ktiled": 0}
     with pytest.raises(ValueError, match="devices"):
         tops.use_kernel(x, torch.empty(1, device="meta"))
