@@ -9,7 +9,8 @@ Phases, each of which raises (exit code != 0) on failure:
    kernels from the sources in this checkout: the CUDA C++ flash-attention
    forward and backward (the TMA/wgmma kernels of
    flash_attention_fwd_sm90.cu and flash_attention_bwd_sm90.cu and the
-   general ones), the serving chains (decode_chain.cu, and the prefill
+   general ones), the serving chains (the decode chains' Hopper kernel
+   decode_chain_sm90.cu, the general decode_chain.cu, and the prefill
    chain's TMA/wgmma kernel prefill_chain_sm90.cu) and the matmul epilogue
    (matmul_epilogue_sm90.cu, TMA/wgmma, and the general
    matmul_epilogue.cu) with nvcc, and the generated sources of the codegen
@@ -33,9 +34,13 @@ Phases, each of which raises (exit code != 0) on failure:
    H 64, the general pair in bf16, f16 and f32 at head dims 32 to 256 and
    strided; f32 cases within 1e-4; both pairs on causal rows that see no
    key (Sq > Sk) against the plain version on every row.  Then llama_tiny in f32 takes a
-   forward and a backward on the card against the CPU's plain run of the same weights.  The decode chains (bf16 and int8 pools; the split int8 layout
-   with 2, 4 and 8 splits) at the 7B serving geometry, a GQA one and a ragged
-   one must leave the pools bit-exact (0 differing elements); the prefill
+   forward and a backward on the card against the CPU's plain run of the
+   same weights.  The decode chains (bf16 and int8 pools; the split int8
+   layout with 2, 4 and 8 splits) on their sm90 route (bulk page copies,
+   clusters) at the 7B serving geometry, GQA 32:8, a ragged one, H 64 and a
+   full table must leave the pools bit-exact (0 differing elements), as
+   must decode_chain.cu's kernel timed beside them on the same inputs;
+   each row names its cluster or splits and the kernel's registers; the prefill
    chain is held at a 128-token chunk against 128, 256 and 640 positions,
    200 (not a multiple of 64), 2048 (key splits and the combine launch)
    and, at H 64, 331, with both block_q (bf16 on
@@ -66,7 +71,9 @@ Phases, each of which raises (exit code != 0) on failure:
    their plain twins in every run and must accept both.  For each engine:
    the streams, that every kernel's launch counter grew by exactly what
    the run implies (every flash forward and every prefill chain on the
-   TMA/wgmma route), that its first-token logits of the longest prompt
+   TMA/wgmma route, every decode chain on decode_chain_sm90.cu's: 1,024
+   launches, 32 layers x 32 token iterations, under the layout the search
+   accepts), that its first-token logits of the longest prompt
    (through its own prefill path) match a forward built only from the
    plain versions; for the chained engines also the searcher's decisions
    and one decode step with the accepted config against the same step
@@ -599,16 +606,28 @@ def _chain_pools(g, kv, b, w, nkv, h, bs, lens):
     return pools
 
 
-def check_decode_chains(timer):
+# (case, N, Nkv, H, lens, table width): the chained engines' geometry at
+# the 7B heads, GQA 32:8, a ragged case whose lengths land on a fresh page
+# (bs * k + 1) and on a page's last slot (bs * k), H 64, and a full table
+DECODE_CASES = [("7B", 32, 32, 128, [18, 160, 290, 680], 64),
+                ("GQA", 32, 8, 128, [18, 160, 290, 680], 64),
+                ("ragged", 32, 32, 128, [17, 32, 161, 256], 64),
+                ("H64", 32, 32, 64, [18, 160, 290, 680], 64),
+                ("full table", 32, 32, 128, [1024, 1024, 1024, 1024], 64)]
+
+
+def check_decode_chains(timer, logs):
     """decode_chain_batch (bf16 and int8 pools) and decode_chain_rows (2, 4
-    and 8 splits) against the plain unfused ops on copies of the same pools:
-    the 7B serving geometry, GQA, and a ragged case whose lengths land on
-    a fresh page (bs * k + 1) and on a page's last slot (bs * k)."""
+    and 8 splits) on their sm90 route (decode_chain_sm90.cu), against the
+    plain unfused ops on copies of the same pools, at every DECODE_CASES
+    geometry; decode_chain.cu's kernel (the general route) on the same
+    inputs must agree too and is timed beside it.  Each row names its route,
+    its cluster or splits, and the sm90 kernels' registers, spills and
+    dynamic shared memory."""
+    from paddle_tpu_torch import ops
     from paddle_tpu_torch.ops import decode_chain as dc
 
-    b, w, h, bs = 4, 64, 128, 16  # the phase-3 engine's batch and table width
-    cases = [("7B", 32, 32, [18, 160, 290, 680]), ("GQA", 32, 8, [18, 160, 290, 680]),
-             ("ragged", 32, 32, [17, 32, 161, 256])]
+    b, bs = 4, 16  # the phase-3 engine's batch and block size
     kinds = [("decode_chain_batch", "bf16", {"layout": "batch"}),
              ("decode_chain_batch", "int8", {"layout": "batch"}),
              ("decode_chain_rows", "int8", {"layout": "rows", "splits": 2}),
@@ -616,7 +635,7 @@ def check_decode_chains(timer):
              ("decode_chain_rows", "int8", {"layout": "rows", "splits": 8})]
     out = {"decode_chain_batch": [], "decode_chain_rows": []}
     g = torch.Generator(device=DEVICE).manual_seed(8)
-    for case, n, nkv, lens in cases:
+    for case, n, nkv, h, lens, w in DECODE_CASES:
         for name, kv, config in kinds:
             kc, vc = _chain_pools(g, kv, b, w, nkv, h, bs, lens)
             q = torch.randn(b, n, h, generator=g, device=DEVICE).to(torch.bfloat16)
@@ -626,19 +645,31 @@ def check_decode_chains(timer):
             lens_t = torch.tensor(lens, device=DEVICE)
             before = (kc.clone(), vc.clone())
             ref = (kc.clone(), vc.clone())
+            gen = (kc.clone(), vc.clone())
             spec = dc.DecodeChainSpec(b, n, nkv, h, bs, w, b * w + b, kv=kv, device=DEVICE)
             fn = spec.build(config)
+            splits = config.get("splits", 1)
+            counts0 = ops.launch_counts()
             o, kc, vc = fn(kc, vc, q, kn, vn, tables, lens_t)
+            counts1 = ops.launch_counts()
+            route = "sm90" if counts1[f"{name}_sm90"] - counts0[f"{name}_sm90"] == 1 else "general"
+            check(counts1[name] - counts0[name] == 1 and route == "sm90",
+                  f"{name} {case} {kv}: route {route}")
             want, rk, rv = dc.decode_chain_plain(*ref, q, kn, vn, tables, lens_t)
+            general = dc._decode_general(*gen, q, kn, vn, tables, lens_t, splits)
             torch.cuda.synchronize()
             differing = _differing(kc, rk) + _differing(vc, rv)
             shape = {"case": case, "pools": kv, "config": config, "b": b, "n": n, "nkv": nkv,
-                     "h": h, "bs": bs, "lens": lens}
+                     "h": h, "bs": bs, "w": w, "lens": lens}
             check(differing == 0, f"{name} {shape}: {differing} pool elements differ")
+            check(_differing(gen[0], rk) + _differing(gen[1], rv) == 0,
+                  f"{name} {shape}: the general kernel's pools differ")
             err = max_err(o, want)
             tol = dc._tolerance(torch.bfloat16, kv)
             check(torch.allclose(o.float(), want.float(), atol=tol, rtol=tol),
                   f"{name} {shape} disagrees with its plain version: {err}")
+            check(torch.allclose(general.float(), want.float(), atol=tol, rtol=tol),
+                  f"{name} {shape}: the general kernel disagrees with the plain version")
             # the least bytes of this call: each live K/V position read once
             # (a scale a page for int8), the token written (for int8 the
             # whole page where its scale grew), q, k_new, v_new, tables,
@@ -652,12 +683,22 @@ def check_decode_chains(timer):
                 nbytes = 2 * live * nkv * h * 2 + 2 * b * nkv * h * 2
             nbytes += (2 * b * n * h + 2 * b * nkv * h) * 2 + b * w * 8 + b * 8
             b_ms, b_by = bound_ms(nbytes, 4 * h * n * live, F32_FLOPS)
-            row = {"check": name, "shape": shape, "max_abs_err": err,
-                   "pool_elements_differing": differing,
+            parts = spec.parts(config)
+            # the instantiation that ran: pool type, H, group rounded up to 1, 2, 4, 8
+            group = next(x for x in (1, 2, 4, 8) if x >= n // nkv)
+            pool_t = "a" if kv == "int8" else "13__nv_bfloat16"
+            regs = _registers(logs, "decode_chain_sm90",
+                              f"decode_chain_sm90_kernelI{pool_t}Li{h}ELi{group}E")
+            row = {"check": name, "shape": shape, "route": route,
+                   "cluster" if splits == 1 else "splits": parts, "max_abs_err": err,
+                   "tolerance": tol, "pool_elements_differing": differing,
                    "ms": timer(lambda: fn(kc, vc, q, kn, vn, tables, lens_t)),
+                   "general_ms": timer(lambda: dc._decode_general(*gen, q, kn, vn, tables,
+                                                                  lens_t, splits)),
                    "plain_ms": timer(lambda: dc.decode_chain_plain(rk, rv, q, kn, vn, tables,
                                                                    lens_t), iters=3, warmup=1),
-                   "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+                   "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                   "registers": regs, "smem_bytes": spec.smem_bytes(config)}
             out[name].append(row)
             emit(row)
     return out
@@ -1246,14 +1287,16 @@ def expected_counts(engine, lengths, steps):
             "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,  # serving: no backward
             "flash_attention_bwd_dq_sm90": 0, "flash_attention_bwd_dkv_sm90": 0,
             "decode_chain_batch": 0, "decode_chain_rows": 0,
+            "decode_chain_batch_sm90": 0, "decode_chain_rows_sm90": 0,
             "prefill_chain": layers * prefill_chain,
             "prefill_chain_sm90": layers * prefill_chain,  # bf16 chunks take the TMA kernel
             "fused_layer_norm": 0, "matmul_epilogue": 0,  # LLaMA has neither
             "matmul_epilogue_sm90": 0,
             "vpu_chain": 0, "sched_chain": 0, "sched_chain_ktiled": 0}  # nor a static Program
     dec_cfg = engine._decode_chain_cfg
-    if dec_cfg:
+    if dec_cfg:  # bf16 models: every decode chain on the sm90 route
         want[f"decode_chain_{dec_cfg['layout']}"] = layers * iters
+        want[f"decode_chain_{dec_cfg['layout']}_sm90"] = layers * iters
     return want
 
 
@@ -1509,7 +1552,8 @@ def train(card):
                 "flash_attention_fwd_sm90": layers, "flash_attention_bwd_dq": layers,
                 "flash_attention_bwd_dkv": layers, "flash_attention_bwd_dq_sm90": layers,
                 "flash_attention_bwd_dkv_sm90": layers, "decode_chain_batch": 0,
-                "decode_chain_rows": 0, "prefill_chain": 0, "prefill_chain_sm90": 0,
+                "decode_chain_rows": 0, "decode_chain_batch_sm90": 0, "decode_chain_rows_sm90": 0,
+                "prefill_chain": 0, "prefill_chain_sm90": 0,
                 "fused_layer_norm": 0, "matmul_epilogue": 0, "matmul_epilogue_sm90": 0,
                 "vpu_chain": 0, "sched_chain": 0, "sched_chain_ktiled": 0}
     losses, totals = [], dict.fromkeys(per_step, 0)
@@ -1888,8 +1932,8 @@ def main() -> int:
     try:
         logs = _cuda_build.build(["flash_attention_fwd", "flash_attention_fwd_sm90",
                                   "flash_attention_bwd", "flash_attention_bwd_sm90",
-                                  "decode_chain", "prefill_chain_sm90", "matmul_epilogue",
-                                  "matmul_epilogue_sm90"])
+                                  "decode_chain", "decode_chain_sm90", "prefill_chain_sm90",
+                                  "matmul_epilogue", "matmul_epilogue_sm90"])
     finally:
         gen_build.join()
     check(len(gen) == len(set(sources.values())), "a generated source failed to build")
@@ -1905,7 +1949,7 @@ def main() -> int:
         rms = check_rms_norm(timer, F)
         sw = check_swiglu(timer)
         fl = check_flash(timer, F)
-        chains = check_decode_chains(timer)
+        chains = check_decode_chains(timer, logs)
         pf = check_prefill_chain(timer, F, logs)
         ln = check_layer_norm(timer, F)
         mm = check_matmul_epilogue(timer, F, logs)
@@ -1960,16 +2004,21 @@ def main() -> int:
         check(counts["prefill_chain"] > 0 and counts["decode_chain_batch"]
               + counts["decode_chain_rows"] > 0,
               f"serving_{kv}_chained: a serving chain was never launched: {counts}")
-        # every chained prefill-chain launch on the sm90 route
-        check(counts["prefill_chain_sm90"] == counts["prefill_chain"],
-              f"serving_{kv}_chained: prefill_chain launches {counts['prefill_chain']}, of "
-              f"them {counts['prefill_chain_sm90']} on the sm90 route")
+        # every chained prefill-chain and decode-chain launch on the sm90 route
+        for chain in ("prefill_chain", "decode_chain_batch", "decode_chain_rows"):
+            check(counts[f"{chain}_sm90"] == counts[chain],
+                  f"serving_{kv}_chained: {chain} launches {counts[chain]}, of them "
+                  f"{counts[f'{chain}_sm90']} on the sm90 route")
 
     def launches(name):
         return {path: counts[name] for path, counts in paths.items()}
 
-    for name in ("decode_chain_batch", "decode_chain_rows"):
-        check(sum(launches(name).values()) > 0, f"{name} was launched on no main path")
+    # the decode chain of each chained engine: the layout its search
+    # accepted (batch or rows; int8 may take either), 1,024 launches each,
+    # all on the sm90 route (checked above and in serve())
+    check(sum(launches("decode_chain_batch").values())
+          + sum(launches("decode_chain_rows").values()) > 0,
+          "no decode chain was launched on a main path")
     bwd_src = "paddle_tpu_torch/csrc/flash_attention_bwd_sm90.cu"
 
     def routes(name, sm90_src, general_src):
@@ -1979,6 +2028,7 @@ def main() -> int:
                             "launches": sum(launches(name).values()) - sm90}}
 
     chain_src = "paddle_tpu_torch/csrc/decode_chain.cu"
+    decode_src = "paddle_tpu_torch/csrc/decode_chain_sm90.cu"
     kernels = [
         summarize("fused_rms_norm", "triton", "paddle_tpu_torch/ops/fused_norm.py",
                   "paddle_tpu/ops/fused_norm.py:42", rms, launches("fused_rms_norm")),
@@ -2007,10 +2057,14 @@ def main() -> int:
                        bound_by="dkv_bound_by", err=("dk", "dv")),
              routes=routes("flash_attention_bwd_dkv", bwd_src,
                            "paddle_tpu_torch/csrc/flash_attention_bwd.cu")),
-        summarize("decode_chain_batch", "cuda", chain_src, "paddle_tpu/ops/decode_chain.py:504",
-                  chains["decode_chain_batch"], launches("decode_chain_batch")),
-        summarize("decode_chain_rows", "cuda", chain_src, "paddle_tpu/ops/decode_chain.py:574",
-                  chains["decode_chain_rows"], launches("decode_chain_rows")),
+        dict(summarize("decode_chain_batch", "cuda", decode_src,
+                       "paddle_tpu/ops/decode_chain.py:504", chains["decode_chain_batch"],
+                       launches("decode_chain_batch")),
+             routes=routes("decode_chain_batch", decode_src, chain_src)),
+        dict(summarize("decode_chain_rows", "cuda", decode_src,
+                       "paddle_tpu/ops/decode_chain.py:574", chains["decode_chain_rows"],
+                       launches("decode_chain_rows")),
+             routes=routes("decode_chain_rows", decode_src, chain_src)),
         dict(summarize("prefill_chain", "cuda", "paddle_tpu_torch/csrc/prefill_chain_sm90.cu",
                        "paddle_tpu/ops/decode_chain.py:917", pf, launches("prefill_chain")),
              routes=routes("prefill_chain", "paddle_tpu_torch/csrc/prefill_chain_sm90.cu",

@@ -1,7 +1,9 @@
 // Hopper building blocks shared by the kernels that use TMA and wgmma
 // (flash_attention_fwd_sm90.cu, flash_attention_bwd_sm90.cu,
-// prefill_chain_sm90.cu, matmul_epilogue_sm90.cu): mbarriers, tensor-map
-// (TMA) loads into shared memory and stores from it, bulk loads, the
+// prefill_chain_sm90.cu, matmul_epilogue_sm90.cu, decode_chain_sm90.cu):
+// mbarriers, tensor-map (TMA) loads into shared memory and stores from it,
+// bulk loads and the proxy fence that must precede one over freshly stored
+// bytes, named barriers, cluster barriers and distributed shared memory, the
 // 128-byte-swizzle shared-memory matrix descriptors of wgmma, the wgmma
 // instructions themselves, and on the host the encoding of a strided
 // [B, S, N, H] tensor's map and of a row-major matrix's.  Header only;
@@ -140,6 +142,60 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t b
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
       ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
+}
+
+// Order this thread's earlier generic-proxy accesses of device memory
+// (plain st.global) before later async-proxy accesses (cp.async.bulk,
+// TMA).  A kernel that writes device memory with plain stores and then
+// copies the same bytes into shared memory with a bulk copy issued by
+// another thread needs, in this order: the stores, this fence in every
+// thread that stored, a barrier that the issuing thread waits on, then the
+// copy.  Without it the copy may read the bytes as they were before the
+// stores, and only sometimes: the two proxies go through different paths
+// to memory.
+__device__ __forceinline__ void fence_proxy_async_global() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
+
+// ----------------------------------------------------- named barriers, clusters
+
+// Named barrier `id` (1..15; 0 is __syncthreads) over `count` threads, a
+// multiple of 32.  arrive does not wait; sync waits for all `count`.  Both
+// order the memory accesses before them for the threads that sync.
+__device__ __forceinline__ void named_bar_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+__device__ __forceinline__ void named_bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// Every thread of every block of the cluster arrives (release) and waits
+// (acquire): shared-memory writes before it are visible to the cluster's
+// reads after it.  All threads of the cluster must execute it (.aligned).
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n"
+               "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// The same barrier in two halves: arrive early (relaxed: orders nothing),
+// wait just before the first access to another block's shared memory, so
+// that every block of the cluster has started by then at no cost on the
+// way.  Each thread alternates arrive and wait.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// Store v at `p`'s offset in the shared memory of the cluster's block of
+// rank `rank` (distributed shared memory: mapa, then st.shared::cluster).
+// A cluster_sync after it makes it visible to that block; the block must
+// have started (cluster_wait after a cluster_arrive_relaxed).
+__device__ __forceinline__ void st_dsmem_f32(float* p, uint32_t rank, float v) {
+  uint32_t addr;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(addr) : "r"(smem_u32(p)), "r"(rank));
+  asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(addr), "f"(v) : "memory");
 }
 
 // -------------------------------------------------------------------- wgmma

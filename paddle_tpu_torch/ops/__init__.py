@@ -17,8 +17,8 @@ Every wrapper adds one to its launch counter where it launches its
 kernel, and nowhere else, so a run can show that a path went through it.
 An op with two routes (a TMA/wgmma kernel for the layouts TMA reads and a
 general one for the rest: the flash kernels, the prefill chain, the
-matmul epilogue) counts every launch under its name and the TMA kernel's
-also under the name with ``_sm90``.
+matmul epilogue, the decode chains) counts every launch under its name and
+the Hopper kernel's also under the name with ``_sm90``.
 The training kernels are ``torch.autograd.Function``s on both devices, so
 gradients reach the parameters below a kernel; the serving chains of
 ``decode_chain`` run under ``no_grad`` only.
@@ -32,7 +32,8 @@ _LAUNCHES = {"fused_rms_norm": 0, "swiglu": 0, "flash_attention_fwd": 0,
              "flash_attention_fwd_sm90": 0, "flash_attention_bwd_dq": 0,
              "flash_attention_bwd_dkv": 0, "flash_attention_bwd_dq_sm90": 0,
              "flash_attention_bwd_dkv_sm90": 0, "decode_chain_batch": 0, "decode_chain_rows": 0,
-             "prefill_chain": 0, "prefill_chain_sm90": 0, "fused_layer_norm": 0,
+             "decode_chain_batch_sm90": 0, "decode_chain_rows_sm90": 0, "prefill_chain": 0,
+             "prefill_chain_sm90": 0, "fused_layer_norm": 0,
              "matmul_epilogue": 0, "matmul_epilogue_sm90": 0, "vpu_chain": 0,
              "sched_chain": 0, "sched_chain_ktiled": 0}
 

@@ -10,15 +10,24 @@ persist per device kind under the ``schedule/decode_*`` and
 ``schedule/prefill`` autotune namespaces and the engine adopts an accepted
 config with no re-measurement (``serving._resolve_decode_chain``).
 
-The kernels, CUDA C++ in ``csrc/decode_chain.cu`` and
-``csrc/prefill_chain_sm90.cu``:
+The kernels, CUDA C++ in ``csrc/decode_chain_sm90.cu``,
+``csrc/decode_chain.cu`` and ``csrc/prefill_chain_sm90.cu``:
 
 - ``decode_chain_batch`` (replaces ``_build_batch``): one launch per layer
   writes every row's token into its page (bf16, f32 or int8 pools) and
-  attends over the row's live positions, one block per (row, kv head);
+  attends over the row's live positions;
 - ``decode_chain_rows`` (replaces ``_build_rows``, int8 pools only): the
   same function with each (row, kv head) span split over ``splits``
-  blocks and the partial softmax sums merged by a second launch;
+  blocks and the partial softmax sums merged by a second launch.
+
+  Both have two routes, picked by ``_decode_route`` before any launch:
+  bf16 q (bf16 or int8 pools) takes ``decode_chain_sm90.cu`` (bulk page
+  copies into an mbarrier ring; ``batch`` deals each (row, kv head)'s
+  live pages over a cluster of ``decode_cluster(B, Nkv, W, SMs)`` blocks
+  merged through distributed shared memory, ``rows`` over ``splits``
+  blocks merged by the combine launch); f32 takes ``decode_chain.cu``'s
+  kernel, a block per (row, kv head, split).  Every launch counts under
+  its name, the sm90 kernel's also under the name with ``_sm90``;
 - ``prefill_chain`` (replaces ``_build_prefill``): a ``[1, S, N, H]``
   query chunk against ``[1, T, N, H]`` keys, bottom-right causal.  Two
   routes, picked by ``_prefill_route`` before any launch: bf16 takes
@@ -64,11 +73,18 @@ from . import paged_attention as pa
 
 __all__ = ["DecodeChainSpec", "PrefillChainSpec", "spec_from_arrays", "ensure_decision",
            "fused_decode_step", "fused_prefill_attention", "decode_chain_batch",
-           "decode_chain_rows", "decode_chain_plain", "prefill_chain", "prefill_chain_plain"]
+           "decode_chain_rows", "decode_chain_plain", "decode_cluster", "merge_partials",
+           "page_runs", "prefill_chain", "prefill_chain_plain"]
 
 _MESH_ITEM = "ROADMAP.md queue A item 6 (distributed)"
 _MAX_GROUP = 8                 # query heads per kv head the decode kernel takes
-_TILE = 32                     # positions per shared-memory tile of the kernels
+_TILE = 32                     # positions per shared-memory tile of decode_chain.cu
+_CLUSTERS = (1, 2, 4, 8)       # portable cluster sizes of the sm90 decode chain
+_CLUSTER_FILL = 3              # blocks an SM the cluster rule aims for (decode_cluster)
+_RING_BYTES = 32 * 1024        # K and V pages in flight a block (decode_chain_sm90.cu)
+_MAX_STAGES = 8
+_CONSUMER_WARPS = 4
+_MAX_SMEM = 227 * 1024
 _LAUNCH_S = 1e-7               # tie-breaker per launch in the roofline ranking
 _ROWS_SPLITS = (2, 4, 8)
 _PREFILL_BLOCK_Q = (64, 128)
@@ -78,12 +94,14 @@ H100_SMS = 132                 # the card the port targets: its SM count where n
 _PTR, _INT, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     "paddle_decode_chain": [_PTR] * 13 + [_INT] * 9 + [ctypes.c_float, _PTR],
+    "paddle_decode_chain_sm90": [_PTR] * 13 + [_INT] * 8 + [ctypes.c_float, _PTR],
     "paddle_prefill_chain": [_PTR] * 4 + [_INT] * 4 + [_LL] * 8 + [_INT] * 2
     + [ctypes.c_float, _PTR],
     "paddle_prefill_chain_sm90": [_PTR] * 6 + [_INT] * 4 + [_LL] * 8 + [_INT] * 2
     + [ctypes.c_float, _PTR],
 }
-_LIBS = {"paddle_prefill_chain_sm90": "prefill_chain_sm90"}  # the rest: decode_chain
+_LIBS = {"paddle_prefill_chain_sm90": "prefill_chain_sm90",  # the rest: decode_chain
+         "paddle_decode_chain_sm90": "decode_chain_sm90"}
 _FNS: dict = {}
 
 
@@ -130,45 +148,174 @@ def decode_chain_plain(kc, vc, q, kn, vn, tables, lens):
     return pa.paged_decode_attention(q, kc, vc, tables, lens), kc, vc
 
 
-def _decode_cuda(kc, vc, q, kn, vn, tables, lens, splits):
+def _decode_route(q_dtype, pool_dtype, h, group) -> str:
+    """Which kernel takes a decode chain, before any launch: ``"sm90"``
+    (``csrc/decode_chain_sm90.cu``) for bf16 q with bf16 or int8 pools,
+    ``"general"`` (``decode_chain.cu``) for f32 q with f32 or int8 pools,
+    both at H 64 or 128 and at most ``_MAX_GROUP`` query heads a kv head.
+    Raises for what no kernel takes."""
+    if pool_dtype not in (q_dtype, torch.int8):
+        raise TypeError(f"decode_chain: pools of {pool_dtype} with q of {q_dtype}")
+    if h not in (64, 128):
+        raise ValueError(f"decode_chain: head_dim {h} is not 64 or 128")
+    if group > _MAX_GROUP:
+        raise ValueError(f"decode_chain: {group} q heads a kv head (at most {_MAX_GROUP})")
+    if q_dtype == torch.bfloat16:
+        return "sm90"
+    if q_dtype == torch.float32:
+        return "general"
+    raise TypeError(f"decode_chain: the kernels take bf16 or f32 q, got {q_dtype}")
+
+
+def decode_cluster(b, nkv, w, sms) -> int:
+    """The blocks (one cluster) that share each (row, kv head) in the sm90
+    ``batch`` layout: the live pages are dealt among them in equal runs, so
+    the longest row is no longer walked by one block alone.  Doubled from 1
+    while the grid holds fewer than ``_CLUSTER_FILL`` blocks an SM (room to
+    spread a long row) and while a full table of ``w`` pages still gives
+    every block a page (no block idles for want of pages), up to 8 (the
+    portable cluster size).  The lengths are on the card, so the rule reads
+    only shapes."""
+    c = 1
+    while c < _CLUSTERS[-1] and b * nkv * c < _CLUSTER_FILL * sms and 2 * c <= w:
+        c *= 2
+    return c
+
+
+def page_runs(lens, bs, parts):
+    """The pages each of ``parts`` blocks takes of a row of ``lens``
+    positions: equal page-aligned runs ``[r * per, (r + 1) * per)`` of the
+    ``ceil(lens / bs)`` live pages, ``per = ceil(pages / parts)``, empty
+    where the pages run out (the kernels' index arithmetic)."""
+    pages = -(-lens // bs) if lens > 0 else 0
+    per = -(-pages // parts)
+    return [range(min(pages, r * per), min(pages, r * per + per)) for r in range(parts)]
+
+
+def merge_partials(m, l, acc):
+    """The sm90 decode kernel's merge of partial softmax sums, in f32: m
+    ``[..., P]`` the running maxima in log2 units (-inf for a run that saw
+    no key), l ``[..., P]`` the sums of 2^(s - m), acc ``[..., P, H]`` the
+    unnormalised outputs.  Weighs each part by 2^(m - max) (0 for an empty
+    one) and returns ``sum(acc) / sum(l)`` (0 where no part saw a key).
+    The kernel merges its warps' parts, then its cluster's blocks (or the
+    combine launch its splits), each level by this rule."""
+    mx = m.amax(-1, keepdim=True)
+    mx = torch.where(mx == float("-inf"), torch.zeros_like(mx), mx)
+    f = torch.exp2(m - mx)
+    ls = (f * l).sum(-1)
+    ls = torch.where(ls == 0, torch.ones_like(ls), ls)
+    return (f.unsqueeze(-1) * acc).sum(-2) / ls.unsqueeze(-1)
+
+
+def _ring_stages(page_bytes, run_pages) -> int:
+    """``decode_chain_sm90.cu``'s ring: 32 KB of K and V pages, 1 to 8
+    stages, no more than a run can fill."""
+    return max(1, min(_RING_BYTES // (2 * page_bytes), _MAX_STAGES, run_pages))
+
+
+def _sm90_smem(page_bytes, w, parts, cluster, group, h) -> int:
+    """Shared memory of one sm90 decode block (``parts`` blocks a (row, kv
+    head), one cluster when ``cluster``): the ring and its mbarriers, the
+    f32 partials (m, l and H accumulators for each of the group's rows,
+    rounded up to 1, 2, 4 or 8) of each consumer warp and, in a cluster,
+    of each of its blocks (gathered in rank 0), and the write's two new
+    scales."""
+    stages = _ring_stages(page_bytes, -(-w // parts))
+    slots = parts if cluster and parts > 1 else 0
+    gt = next(g for g in (1, 2, 4, 8) if g >= group)
+    return (stages * 2 * page_bytes + 2 * stages * 8
+            + ((_CONSUMER_WARPS + slots) * gt * (h + 2) + 2) * 4)
+
+
+def _decode_checks(kc, vc, q, kn, vn, tables, lens):
+    """Shapes, dtypes and layouts every route needs; returns the route,
+    the pools' payloads and int64 tables and lens."""
     int8 = isinstance(kc, pa.QuantPool)
     if int8 != isinstance(vc, pa.QuantPool):
         raise TypeError("decode_chain: the K and V pools must be of one kind")
     kd, vd = (kc.data, vc.data) if int8 else (kc, vc)
-    if q.dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"decode_chain: the kernel takes bf16 or f32 q, got {q.dtype}")
     if kn.dtype != q.dtype or vn.dtype != q.dtype:
         raise TypeError("decode_chain: q, k_new and v_new must share one dtype")
-    if not int8 and (kd.dtype != q.dtype or vd.dtype != q.dtype):
-        raise TypeError(f"decode_chain: pools of {kd.dtype} with q of {q.dtype}")
+    if kd.dtype != vd.dtype:
+        raise TypeError(f"decode_chain: K pool of {kd.dtype}, V pool of {vd.dtype}")
     b, n, h = q.shape
     nb, nkv, bs, h2 = kd.shape
     if (h2 != h or vd.shape != kd.shape or kn.shape != (b, nkv, h) or vn.shape != kn.shape
-            or tables.dim() != 2 or tables.shape[0] != b or lens.shape != (b,)):
+            or tables.dim() != 2 or tables.shape[0] != b or lens.shape != (b,) or n % nkv):
         raise ValueError(f"decode_chain: shapes q {tuple(q.shape)}, k_new {tuple(kn.shape)}, "
                          f"pool {tuple(kd.shape)}, tables {tuple(tables.shape)}, "
                          f"lens {tuple(lens.shape)} do not match")
-    if h not in (64, 128):
-        raise ValueError(f"decode_chain: head_dim {h} is not 64 or 128")
-    if n % nkv or n // nkv > _MAX_GROUP:
-        raise ValueError(f"decode_chain: {n} q heads over {nkv} kv heads (at most "
-                         f"{_MAX_GROUP} a group)")
+    route = _decode_route(q.dtype, kd.dtype, h, n // nkv)
     if not all(t.is_contiguous() for t in (kd, vd, q, kn, vn)):
         raise ValueError("decode_chain: pools, q, k_new and v_new must be contiguous")
-    tables = tables.to(torch.int64).contiguous()
-    lens = lens.to(torch.int64).contiguous()
+    return route, kd, vd, tables.to(torch.int64).contiguous(), lens.to(torch.int64).contiguous()
+
+
+def _workspace(q, splits):
+    b, n, h = q.shape
+    if splits == 1:
+        return None, None, None
+    ws_m = torch.empty((b, n, splits), dtype=torch.float32, device=q.device)
+    return ws_m, torch.empty_like(ws_m), torch.empty((b, n, splits, h), dtype=torch.float32,
+                                                     device=q.device)
+
+
+def _count(splits, sm90):
+    name = "decode_chain_batch" if splits == 1 else "decode_chain_rows"
+    count_launch(name)
+    if sm90:
+        count_launch(f"{name}_sm90")
+
+
+def _decode_general(kc, vc, q, kn, vn, tables, lens, splits, checked=None):
+    """``decode_chain.cu``'s kernel: the route of f32 models; its bf16 and
+    int8 paths stay to time against the sm90 kernel."""
+    _, kd, vd, tables, lens = checked or _decode_checks(kc, vc, q, kn, vn, tables, lens)
+    int8 = isinstance(kc, pa.QuantPool)
+    b, n, h = q.shape
     o = torch.empty_like(q)
-    if splits > 1:
-        ws_m = torch.empty((b, n, splits), dtype=torch.float32, device=q.device)
-        ws_l = torch.empty_like(ws_m)
-        ws_acc = torch.empty((b, n, splits, h), dtype=torch.float32, device=q.device)
-    else:
-        ws_m = ws_l = ws_acc = None
     _launch("paddle_decode_chain", kd, vd, kc.scale if int8 else None,
-            vc.scale if int8 else None, q, kn, vn, tables, lens, o, ws_m, ws_l, ws_acc,
-            b, n, nkv, h, bs, tables.shape[1], splits, int(q.dtype == torch.float32),
-            int(int8), 1.0 / math.sqrt(h))
+            vc.scale if int8 else None, q, kn, vn, tables, lens, o, *_workspace(q, splits),
+            b, n, kd.shape[1], h, kd.shape[2], tables.shape[1], splits,
+            int(q.dtype == torch.float32), int(int8), 1.0 / math.sqrt(h))
+    _count(splits, False)
     return o
+
+
+def _decode_sm90(kc, vc, q, kn, vn, tables, lens, splits, cluster=None, checked=None):
+    """``decode_chain_sm90.cu``: ``splits == 1`` is the ``batch`` layout
+    in clusters of ``cluster`` blocks (``decode_cluster``'s choice unless
+    given), ``splits > 1`` the ``rows`` layout and its combine launch."""
+    route, kd, vd, tables, lens = checked or _decode_checks(kc, vc, q, kn, vn, tables, lens)
+    if route != "sm90":
+        raise TypeError(f"decode_chain: the sm90 kernel takes bf16 q, got {q.dtype}")
+    int8 = isinstance(kc, pa.QuantPool)
+    b, n, h = q.shape
+    nkv, bs, w = kd.shape[1], kd.shape[2], tables.shape[1]
+    if splits == 1:
+        parts = decode_cluster(b, nkv, w, sm_count(q.device)) if cluster is None else cluster
+        if parts not in _CLUSTERS:
+            raise ValueError(f"decode_chain: cluster {parts} is not one of {_CLUSTERS}")
+    else:
+        parts = splits
+    page_bytes = bs * h * kd.element_size()
+    if (page_bytes % 16 or _sm90_smem(page_bytes, w, parts, splits == 1, n // nkv, h) > _MAX_SMEM
+            or kd.data_ptr() % 16 or vd.data_ptr() % 16):
+        raise ValueError(f"decode_chain: pages of {bs} x {h} do not fit the sm90 kernel's "
+                         "ring (16-byte multiples, one stage of K and V in shared memory)")
+    o = torch.empty_like(q)
+    _launch("paddle_decode_chain_sm90", kd, vd, kc.scale if int8 else None,
+            vc.scale if int8 else None, q, kn, vn, tables, lens, o, *_workspace(q, splits),
+            b, n, nkv, h, bs, w, parts, int(int8), 1.0 / math.sqrt(h))
+    _count(splits, True)
+    return o
+
+
+def _decode_cuda(kc, vc, q, kn, vn, tables, lens, splits):
+    checked = _decode_checks(kc, vc, q, kn, vn, tables, lens)
+    launch = _decode_sm90 if checked[0] == "sm90" else _decode_general
+    return launch(kc, vc, q, kn, vn, tables, lens, splits, checked=checked)
 
 
 def decode_chain_batch(kc, vc, q, kn, vn, tables, lens):
@@ -177,13 +324,11 @@ def decode_chain_batch(kc, vc, q, kn, vn, tables, lens):
     kc/vc: pools ``[NB, Nkv, bs, H]`` (bf16, f32, or QuantPools), updated
     in place; q ``[B, N, H]``; kn/vn ``[B, Nkv, H]``; tables ``[B, W]``;
     lens ``[B]`` including this token.  Returns ``(o [B, N, H], kc, vc)``.
-    A CUDA tensor launches the kernel (one launch), a CPU tensor takes the
-    plain version."""
+    A CUDA tensor launches the kernel of its route (one launch), a CPU
+    tensor takes the plain version."""
     if not use_kernel(q, kn, vn, tables, lens, pa._payload(kc), pa._payload(vc)):
         return decode_chain_plain(kc, vc, q, kn, vn, tables, lens)
-    o = _decode_cuda(kc, vc, q, kn, vn, tables, lens, 1)
-    count_launch("decode_chain_batch")
-    return o, kc, vc
+    return _decode_cuda(kc, vc, q, kn, vn, tables, lens, 1), kc, vc
 
 
 def decode_chain_rows(kc, vc, q, kn, vn, tables, lens, *, splits):
@@ -196,9 +341,7 @@ def decode_chain_rows(kc, vc, q, kn, vn, tables, lens, *, splits):
         raise ValueError(f"decode_chain_rows: splits {splits} < 2")
     if not use_kernel(q, kn, vn, tables, lens, kc.data, vc.data):
         return decode_chain_plain(kc, vc, q, kn, vn, tables, lens)
-    o = _decode_cuda(kc, vc, q, kn, vn, tables, lens, int(splits))
-    count_launch("decode_chain_rows")
-    return o, kc, vc
+    return _decode_cuda(kc, vc, q, kn, vn, tables, lens, int(splits)), kc, vc
 
 
 def prefill_chain_plain(q, k, v):
@@ -377,17 +520,35 @@ class DecodeChainSpec:
         s = self.seq
         return np.clip(np.linspace(2, s, self.batch).astype(np.int64), 2, s)
 
+    def sm90(self) -> bool:
+        """Whether the chain runs ``decode_chain_sm90.cu`` (bf16 models;
+        f32 ones take ``decode_chain.cu``): ``_decode_route``'s rule."""
+        return self.dtype == torch.bfloat16
+
+    def parts(self, config) -> int:
+        """Blocks a (row, kv head) of the sm90 kernel: the cluster of
+        ``batch`` (``decode_cluster`` on ``device``) or the ``rows``
+        splits."""
+        if config.get("layout") == "rows":
+            return int(config["splits"])
+        return decode_cluster(self.batch, self.num_kv_heads, self.max_blocks,
+                              sm_count(self.device))
+
     def traffic_bytes(self, config) -> int:
         """Device-memory bytes of one call at the synthetic lengths: each
-        live K/V position read once at the pool's itemsize (plus a scale a
-        page for int8), the written token (int8: the touched page
-        rewritten with its scale), q, k_new, v_new, tables, lens and the
-        output once, and for ``rows`` the partials written and read back."""
+        live K/V position read once at the pool's itemsize (the sm90
+        kernel copies whole pages: the dead tail of a row's last page too),
+        plus a scale a page for int8, the written token (int8: the touched
+        page rewritten with its scale), q, k_new, v_new, tables, lens and
+        the output once, and for ``rows`` the partials written and read
+        back (``batch``'s cluster merges in shared memory: nothing more)."""
         it = self.dtype.itemsize
         b, n, nkv, h, bs = (self.batch, self.num_heads, self.num_kv_heads, self.head_dim,
                             self.block_size)
         lens = self.synthetic_lens()
         live, pages = int(lens.sum()), int((-(-lens // bs)).sum())
+        if self.sm90():
+            live = pages * bs
         if self.kv == "int8":
             reads = 2 * (live * nkv * h + pages * nkv * 4)
             writes = 2 * (b * nkv * bs * h + b * nkv * 4)
@@ -414,10 +575,18 @@ class DecodeChainSpec:
                 + launches * _LAUNCH_S) * 1e3
 
     def smem_bytes(self, config) -> int:
-        """Shared memory of one block of the decode kernel (the JAX spec's
-        ``vmem_bytes``): q of the group, the K and V tiles, the scores and
-        the running statistics, all f32."""
+        """Shared memory of one block of the kernel that runs (the JAX
+        spec's ``vmem_bytes``).  sm90: the ring of K and V pages and its
+        mbarriers, the f32 partials of the warps and, in ``batch``'s
+        cluster, of its blocks (``_sm90_smem``).  ``decode_chain.cu``:
+        q of the group, the K and V tiles, the scores and the running
+        statistics, all f32."""
         h = self.head_dim
+        if self.sm90():
+            page = self.block_size * h * (1 if self.kv == "int8" else 2)
+            return _sm90_smem(page, self.max_blocks, self.parts(config),
+                              config.get("layout") != "rows",
+                              self.num_heads // self.num_kv_heads, h)
         return 4 * (_MAX_GROUP * h + _TILE * (h + 1) + _TILE * h + _MAX_GROUP * _TILE
                     + 3 * _MAX_GROUP)
 

@@ -404,7 +404,8 @@ def test_backward_reaches_every_parameter(cuda):
                       "flash_attention_fwd_sm90": 2, "flash_attention_bwd_dq": 2,
                       "flash_attention_bwd_dkv": 2, "flash_attention_bwd_dq_sm90": 2,
                       "flash_attention_bwd_dkv_sm90": 2, "decode_chain_batch": 0,
-                      "decode_chain_rows": 0, "prefill_chain": 0, "prefill_chain_sm90": 0,
+                      "decode_chain_rows": 0, "decode_chain_batch_sm90": 0,
+                      "decode_chain_rows_sm90": 0, "prefill_chain": 0, "prefill_chain_sm90": 0,
                       "fused_layer_norm": 0, "matmul_epilogue": 0, "matmul_epilogue_sm90": 0,
                       "vpu_chain": 0, "sched_chain": 0, "sched_chain_ktiled": 0}
     assert torch.isfinite(loss)
@@ -476,33 +477,90 @@ def _pools_equal(a, b):
 
 @pytest.mark.parametrize("kv,dtype", [("bf16", torch.bfloat16), ("int8", torch.bfloat16),
                                       ("bf16", torch.float32), ("int8", torch.float32)])
-@pytest.mark.parametrize("layout", ["batch", "rows2", "rows4"])
+@pytest.mark.parametrize("layout", ["batch", "rows2", "rows4", "rows8"])
 @pytest.mark.parametrize("n,nkv,h,bs,lens", [
     (4, 4, 128, 16, [18, 160, 290, 680]),
     (8, 2, 64, 8, [1, 9, 16, 33]),     # fresh block (bs*k + 1) and a block's last slot
-    (32, 8, 128, 16, [17, 32, 49, 64])])
+    (32, 8, 128, 16, [17, 32, 49, 64]),
+    (32, 32, 128, 16, [18, 160, 290, 680]),   # the 7B serving geometry
+    (32, 8, 128, 16, [18, 160, 290, 680]),    # GQA 32:8
+    (32, 4, 128, 16, [18, 160, 290, 680]),    # GQA 32:4 (8 query heads a kv head)
+    (32, 32, 128, 16, [17, 32, 161, 256]),    # ragged: fresh pages and pages' last slots
+    (16, 16, 64, 16, [1, 100, 33, 640]),      # H 64, lens 1
+    (8, 8, 128, 16, [1024, 1024, 1024, 1024])])  # a full 64-page table
 def test_decode_chain_kernels(cuda, kv, dtype, layout, n, nkv, h, bs, lens):
+    """Both routes (bf16: decode_chain_sm90.cu, and decode_chain.cu's kernel
+    on the same inputs; f32: decode_chain.cu) and both layouts: pools
+    bit-exact against the plain version, outputs within 2e-2 (f32 2e-5);
+    the sm90 counter equals the route-less one."""
     from paddle_tpu_torch.ops import decode_chain as dc
 
     if layout != "batch" and kv != "int8":
         pytest.skip("the rows layout is for int8 pools only")
-    w = max(-(-x // bs) for x in lens) + 1
+    pages = max(-(-x // bs) for x in lens)
+    w = pages if lens == [1024] * 4 else pages + 1
     args = _chain_args(cuda, len(lens), n, nkv, h, bs, w, lens, kv, dtype)
     ref_args = (args[0].clone(), args[1].clone()) + args[2:]
+    general_args = (args[0].clone(), args[1].clone()) + args[2:]
+    splits = 1 if layout == "batch" else int(layout[4:])
     fn = dc.DecodeChainSpec(len(lens), n, nkv, h, bs, w, len(lens) * (w + 1), kv=kv,
                             dtype=dtype, device=cuda).build(
-        {"layout": "batch"} if layout == "batch" else {"layout": "rows",
-                                                       "splits": int(layout[4:])})
+        {"layout": "batch"} if layout == "batch" else {"layout": "rows", "splits": splits})
     name = "decode_chain_batch" if layout == "batch" else "decode_chain_rows"
-    before = ops.launch_counts()[name]
+    sm90 = dtype == torch.bfloat16
+    assert dc._decode_route(dtype, args[0].data.dtype if kv == "int8" else dtype, h,
+                            n // nkv) == ("sm90" if sm90 else "general")
+    before = ops.launch_counts()
     o, kc, vc = fn(*args)
-    assert ops.launch_counts()[name] == before + 1
+    after = ops.launch_counts()
+    assert after[name] == before[name] + 1
+    assert after[f"{name}_sm90"] == before[f"{name}_sm90"] + int(sm90)
     r_o, r_kc, r_vc = dc.decode_chain_plain(*ref_args)
+    g_o = dc._decode_general(*general_args, splits)
     torch.cuda.synchronize()
     assert _pools_equal(kc, r_kc) == 0 and _pools_equal(vc, r_vc) == 0
+    assert _pools_equal(general_args[0], r_kc) == 0 and _pools_equal(general_args[1], r_vc) == 0
     tol = dc._tolerance(dtype, kv)
     assert o.dtype == dtype
     torch.testing.assert_close(o.float(), r_o.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(g_o.float(), r_o.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+@pytest.mark.parametrize("lens,w", [([5], 1), ([100], 8)])
+def test_decode_chain_sm90_witness(cuda, kv, lens, w):
+    """The smallest witnesses of a fault in the sm90 decode kernel: one row,
+    one kv head, H 64: a single page in a single block (no cluster), then
+    7 pages dealt over a cluster of 8 blocks (one run empty), merged
+    through distributed shared memory.  Run them first on a card."""
+    from paddle_tpu_torch.ops import decode_chain as dc
+
+    args = _chain_args(cuda, 1, 1, 1, 64, 16, w, lens, kv, torch.bfloat16)
+    ref_args = (args[0].clone(), args[1].clone()) + args[2:]
+    assert dc.decode_cluster(1, 1, w, dc.sm_count(cuda)) == w
+    before = ops.launch_counts()["decode_chain_batch_sm90"]
+    o, kc, vc = dc.decode_chain_batch(*args)
+    assert ops.launch_counts()["decode_chain_batch_sm90"] == before + 1
+    r_o, r_kc, r_vc = dc.decode_chain_plain(*ref_args)
+    torch.cuda.synchronize()
+    assert _pools_equal(kc, r_kc) == 0 and _pools_equal(vc, r_vc) == 0
+    tol = dc._tolerance(torch.bfloat16, kv)
+    torch.testing.assert_close(o.float(), r_o.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
+def test_decode_chain_sm90_every_cluster(cuda, cluster):
+    """Every cluster size the batch layout may take, on the ragged 7B case."""
+    from paddle_tpu_torch.ops import decode_chain as dc
+
+    lens = [17, 32, 161, 256]
+    args = _chain_args(cuda, 4, 32, 32, 128, 16, 17, lens, "bf16", torch.bfloat16)
+    ref_args = (args[0].clone(), args[1].clone()) + args[2:]
+    o = dc._decode_sm90(*args, 1, cluster=cluster)
+    r_o, r_kc, r_vc = dc.decode_chain_plain(*ref_args)
+    torch.cuda.synchronize()
+    assert _pools_equal(args[0], r_kc) == 0 and _pools_equal(args[1], r_vc) == 0
+    torch.testing.assert_close(o.float(), r_o.float(), atol=TOL, rtol=TOL)
 
 
 @pytest.mark.parametrize("dtype,h", [(torch.bfloat16, 128), (torch.float32, 64),

@@ -254,6 +254,7 @@ def test_cpu_tensors_take_the_plain_versions():
                                     "flash_attention_bwd_dq_sm90": 0,
                                     "flash_attention_bwd_dkv_sm90": 0,
                                     "decode_chain_batch": 0, "decode_chain_rows": 0,
+                                    "decode_chain_batch_sm90": 0, "decode_chain_rows_sm90": 0,
                                     "prefill_chain": 0, "prefill_chain_sm90": 0,
                                     "fused_layer_norm": 0, "matmul_epilogue": 0,
                                     "matmul_epilogue_sm90": 0, "vpu_chain": 0, "sched_chain": 0,
