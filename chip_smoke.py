@@ -13,17 +13,30 @@ Phases, each of which raises (exit code != 0) on failure:
    decode_chain_sm90.cu, the general decode_chain.cu, and the prefill
    chain's TMA/wgmma kernel prefill_chain_sm90.cu) and the matmul epilogue
    (matmul_epilogue_sm90.cu, TMA/wgmma, and the general
-   matmul_epilogue.cu) with nvcc, and the generated sources of the codegen
-   cases of phase 2 (csrc/codegen/ templates; one nvcc process per
-   source, all started together), the three Triton kernels at their
-   first launch.
+   matmul_epilogue.cu), RMSNorm and SwiGLU (norm_swiglu.cu) with nvcc,
+   and the generated sources of the codegen cases of phase 2
+   (csrc/codegen/ templates; one nvcc process per source, all started
+   together), the Triton LayerNorm and the two Triton yardsticks (the
+   RMSNorm and SwiGLU kernels norm_swiglu.cu replaced) at their first
+   launch.
 2. Hold each kernel against its plain PyTorch version on the card at the
    serving and training shapes, in bf16, and time the kernel, the plain
    version and, where one exists, the one PyTorch call that computes the
    same function (a yardstick only: the port never calls it) with CUDA
    events, L2 flushed before every launch.  One JSON line per kernel and
    shape; also the plain backward of RMSNorm and SwiGLU at the training
-   shapes.  The flash forward at the serving and training shapes (causal
+   shapes.  First an empty kernel under the same timer (floor_ms) and
+   queued (100 launches behind a spin on the card).  RMSNorm at [4 | 128 |
+   640 | 1024, 4096] and [4096, 2048] with and without the residual (the
+   sum bit-exact), SwiGLU at [4 | 128 | 640 | 1024, 11008] and [4096,
+   5632] on the halves of one gate_up projection, each row with the Triton
+   yardstick's time and error on the same inputs (triton_ms), the time of
+   one torch op that moves the same bytes (copy_ms), the launch geometry,
+   the instantiation's registers and spills from -Xptxas -v, and at the
+   decode shape the queued cost a launch (queued_ms, the yardstick's
+   beside it); f16 and f32, a 4095 tail, odd widths and an RMSNorm weight
+   of another dtype than x (bf16 rows, f32 weight) against the plain
+   versions.  The flash forward at the serving and training shapes (causal
    and not, bf16 and f16: the TMA/wgmma route, with the general kernel's
    time at the main shapes and the host cost of encoding the tensor maps)
    and at small sizes on the general route (f32, head dims 32, 96 and 256,
@@ -70,7 +83,8 @@ Phases, each of which raises (exit code != 0) on failure:
    FLAGS_autotune_cache_dir, so the searcher measures both chains against
    their plain twins in every run and must accept both.  For each engine:
    the streams, that every kernel's launch counter grew by exactly what
-   the run implies (every flash forward and every prefill chain on the
+   the run implies (the Triton yardsticks 0; every flash forward and
+   every prefill chain on the
    TMA/wgmma route, every decode chain on decode_chain_sm90.cu's: 1,024
    launches, 32 layers x 32 token iterations, under the layout the search
    accepts), that its first-token logits of the longest prompt
@@ -85,7 +99,8 @@ Phases, each of which raises (exit code != 0) on failure:
    the first step's loss and gradients match a backward through a forward
    built only from the plain versions, then run 3 warm-up and 10 timed
    steps, checking every step's launch counts (every flash forward and
-   backward on the sm90 route) and that the loss falls.
+   backward on the sm90 route, the Triton yardsticks 0) and that the
+   loss falls.
    Print ms a step, tokens/s, the model-FLOP share and peak memory
    (tools/profile_torch_training.py says where the step's time goes).
 5. Run BERT-base (12 layers, hidden 768, bf16, seeded random weights)
@@ -192,56 +207,197 @@ def max_err(a, b):
     return float((a.float() - b.float()).abs().max())
 
 
-def check_rms_norm(timer, F):
+F32_NORM_TOL = 1e-5   # f32 RMSNorm / SwiGLU: the sum of squares in another order, the
+                      # sigmoid through the fast exponential
+QUEUED = 100          # launches a queued_ms batch
+QUEUE_SLEEP_CYCLES = 40_000_000  # ~20 ms of spinning: longer than enqueueing the batch
+_MANGLED = {torch.bfloat16: "13__nv_bfloat16", torch.float16: "6__half", torch.float32: "f"}
+
+
+def queued_ms(fn, n=QUEUED):
+    """Device ms a launch when ``n`` launches wait in the stream's queue
+    (enqueued behind a spin on the card, events around the batch, the L2
+    warm): what an engine pays for a small launch between other queued
+    launches, where chip_smoke's Timer isolates each one."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(QUEUE_SLEEP_CYCLES)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def launch_floor(timer):
+    """An empty kernel (csrc/norm_swiglu.cu's paddle_empty_kernel) under the
+    same timer, and queued: the fixed cost every launch pays."""
+    from paddle_tpu_torch.ops._norm_swiglu import lib
+
+    fn = lib().paddle_empty_kernel
+
+    def empty():
+        check(fn(torch.cuda.current_stream().cuda_stream) == 0, "the empty kernel failed")
+
+    row = {"check": "launch_floor", "floor_ms": timer(empty), "floor_queued_ms": queued_ms(empty)}
+    emit(row)
+    return row
+
+
+def check_rms_norm(timer, F, logs, floor):
+    """csrc/norm_swiglu.cu's RMSNorm against its plain version and the
+    Triton kernel it replaced (the yardstick, timed beside it on the same
+    inputs) at the serving and training shapes, with and without the
+    residual; the residual sum must be bit-exact."""
     from paddle_tpu_torch import ops
-    from paddle_tpu_torch.ops.fused_norm import rms_norm_plain
+    from paddle_tpu_torch.ops import fused_norm
 
     out = []
     g = torch.Generator(device=DEVICE).manual_seed(1)
-    # serving (LLaMA-7B width: prefill, decode) first, then training
-    for rows, hidden in ((640, 4096), (1024, 4096), (4, 4096), (4096, 2048)):
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    # serving (LLaMA-7B width: prefill, a chained prefill chunk, decode) first, then training
+    for rows, hidden in ((640, 4096), (1024, 4096), (128, 4096), (4, 4096), (4096, 2048)):
         x = torch.randn(rows, hidden, generator=g, device=DEVICE).to(torch.bfloat16)
+        r = torch.randn(rows, hidden, generator=g, device=DEVICE).to(torch.bfloat16)
         w = (1 + 0.1 * torch.randn(hidden, generator=g, device=DEVICE)).to(torch.bfloat16)
-        got = ops.fused_rms_norm(x, w, epsilon=1e-6)
-        want = rms_norm_plain(x, w, 1e-6)
-        torch.cuda.synchronize()
-        err = max_err(got, want)
-        check(torch.allclose(got.float(), want.float(), atol=TOL, rtol=TOL),
-              f"fused_rms_norm [{rows}, {hidden}] disagrees with its plain version: {err}")
-        nbytes = 2 * x.numel() * 2 + hidden * 2
-        b_ms, b_by = bound_ms(nbytes, 4 * x.numel(), F32_FLOPS)
-        out.append({"check": "fused_rms_norm", "shape": [rows, hidden], "max_abs_err": err,
-                    "ms": timer(lambda: ops.fused_rms_norm(x, w, epsilon=1e-6)),
-                    "plain_ms": timer(lambda: rms_norm_plain(x, w, 1e-6)),
-                    "bound_ms": b_ms, "bound_by": b_by,
-                    "library_ms": timer(lambda: F.rms_norm(x, (hidden,), w, 1e-6))})
-        emit(out[-1])
+        o = torch.empty_like(x)
+        for res in (None, r):
+            got = ops.fused_rms_norm(x, w, epsilon=1e-6, residual=res)
+            yard, yard_s = fused_norm._rms_norm_triton(x, res, w, 1e-6)
+            s_want = x + res if res is not None else None
+            want = fused_norm.rms_norm_plain(x if res is None else s_want, w, 1e-6)
+            torch.cuda.synchronize()
+            o = got if res is None else got[0]
+            err, yard_err = max_err(o, want), max_err(yard, want)
+            check(torch.allclose(o.float(), want.float(), atol=TOL, rtol=TOL),
+                  f"fused_rms_norm [{rows}, {hidden}] disagrees with its plain version: {err}")
+            check(torch.allclose(yard.float(), want.float(), atol=TOL, rtol=TOL),
+                  f"the Triton RMSNorm [{rows}, {hidden}] disagrees: {yard_err}")
+            if res is not None:
+                check(torch.equal(got[1], s_want) and torch.equal(yard_s, s_want),
+                      f"fused_rms_norm [{rows}, {hidden}]: x + residual is not bit-exact")
+            n_io = 2 if res is None else 4
+            b_ms, b_by = bound_ms(n_io * x.numel() * 2 + hidden * 2,
+                                  (4 if res is None else 5) * x.numel(), F32_FLOPS)
+            # the shape the wrapper launched: 16-byte rows, the weight of x's dtype (code 0)
+            geo = fused_norm.rms_geometry(rows, hidden, 2, sms, [x.data_ptr(), w.data_ptr()])
+            part = (f"rms_norm_kernelI{_MANGLED[x.dtype]}Li0ELi{geo['nv']}"
+                    f"ELb{int(res is not None)}ELb1ELb{int(geo['tiled'])}E")
+            row = {"check": "fused_rms_norm", "shape": [rows, hidden],
+                   "residual": res is not None, "max_abs_err": err,
+                   "triton_max_abs_err": yard_err,
+                   "ms": timer(lambda: ops.fused_rms_norm(x, w, epsilon=1e-6, residual=res)),
+                   "triton_ms": timer(lambda: fused_norm._rms_norm_triton(x, res, w, 1e-6)),
+                   "plain_ms": timer(lambda: fused_norm.rms_norm_plain(
+                       x if res is None else x + res, w, 1e-6)),
+                   "bound_ms": b_ms, "bound_by": b_by,
+                   "library_ms": (timer(lambda: F.rms_norm(x, (hidden,), w, 1e-6))
+                                  if res is None else None),
+                   "floor_ms": floor["floor_ms"],
+                   # one torch op moving the same bytes (x read once, written once)
+                   "copy_ms": timer(lambda: o.copy_(x)) if res is None else None,
+                   "geometry": geo, "registers": _registers(logs, "norm_swiglu", part)}
+            if rows == 4:  # the decode shape: what the engine pays a launch
+                row["queued_ms"] = queued_ms(
+                    lambda: ops.fused_rms_norm(x, w, epsilon=1e-6, residual=res))
+                row["triton_queued_ms"] = queued_ms(
+                    lambda: fused_norm._rms_norm_triton(x, res, w, 1e-6))
+            out.append(row)
+            emit(row)
     return out
 
 
-def check_swiglu(timer):
+def check_swiglu(timer, logs, floor):
+    """csrc/norm_swiglu.cu's SwiGLU on the halves of one gate_up projection
+    (the main path's layout) against its plain version and the Triton
+    kernel it replaced (the yardstick, timed beside it)."""
     from paddle_tpu_torch import ops
-    from paddle_tpu_torch.ops.swiglu import swiglu_plain
 
+    # the module (paddle_tpu_torch.ops exports the function of the same name)
+    swiglu_mod = importlib.import_module("paddle_tpu_torch.ops.swiglu")
     out = []
     g = torch.Generator(device=DEVICE).manual_seed(2)
-    for rows, cols in ((640, 11008), (1024, 11008), (4, 11008), (4096, 5632)):
-        # the main path's layout: both halves of one gate_up projection
+    for rows, cols in ((640, 11008), (1024, 11008), (128, 11008), (4, 11008), (4096, 5632)):
         gate_up = torch.randn(rows, 2 * cols, generator=g, device=DEVICE).to(torch.bfloat16)
         x, y = gate_up.chunk(2, dim=-1)
         got = ops.swiglu(gate_up)
-        want = swiglu_plain(x, y)
+        yard = swiglu_mod._swiglu_triton(x, y)
+        want = swiglu_mod.swiglu_plain(x, y)
         torch.cuda.synchronize()
-        err = max_err(got, want)
+        err, yard_err = max_err(got, want), max_err(yard, want)
         check(torch.allclose(got.float(), want.float(), atol=TOL, rtol=TOL),
               f"swiglu [{rows}, {cols}] disagrees with its plain version: {err}")
+        check(torch.allclose(yard.float(), want.float(), atol=TOL, rtol=TOL),
+              f"the Triton SwiGLU [{rows}, {cols}] disagrees: {yard_err}")
         b_ms, b_by = bound_ms(3 * rows * cols * 2, 5 * rows * cols, F32_FLOPS)
-        out.append({"check": "swiglu", "shape": [rows, cols], "max_abs_err": err,
-                    "ms": timer(lambda: ops.swiglu(gate_up)),
-                    "plain_ms": timer(lambda: swiglu_plain(x, y)),
-                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
-        emit(out[-1])
+        geo = swiglu_mod.swiglu_grid(rows, cols, 2, x.stride(), (x.data_ptr(), y.data_ptr()))
+        xc, yc, o = x.contiguous(), y.contiguous(), torch.empty_like(got)
+        row = {"check": "swiglu", "shape": [rows, cols], "max_abs_err": err,
+               "triton_max_abs_err": yard_err,
+               "ms": timer(lambda: ops.swiglu(gate_up)),
+               "triton_ms": timer(lambda: swiglu_mod._swiglu_triton(x, y)),
+               "plain_ms": timer(lambda: swiglu_mod.swiglu_plain(x, y)),
+               "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+               "floor_ms": floor["floor_ms"],
+               # one torch op moving the same bytes (two inputs read, one output written)
+               "copy_ms": timer(lambda: torch.mul(xc, yc, out=o)), "geometry": geo,
+               "registers": _registers(logs, "norm_swiglu",
+                                       f"swiglu_kernelI{_MANGLED[x.dtype]}Lb1E")}
+        if rows == 4:
+            row["queued_ms"] = queued_ms(lambda: ops.swiglu(gate_up))
+            row["triton_queued_ms"] = queued_ms(lambda: swiglu_mod._swiglu_triton(x, y))
+        out.append(row)
+        emit(row)
     return out
+
+
+def check_norm_swiglu_dtypes():
+    """f16 and f32 (and a 4095 tail, f16 at hidden 100, an odd SwiGLU width),
+    and RMSNorm weights of another dtype than x, against the plain
+    versions: bf16 and f16 outputs within bf16's TOL, f32 within
+    F32_NORM_TOL."""
+    from paddle_tpu_torch import ops
+    from paddle_tpu_torch.ops.fused_norm import rms_norm_plain
+    from paddle_tpu_torch.ops.swiglu import swiglu_plain
+
+    g = torch.Generator(device=DEVICE).manual_seed(12)
+    errs = {}
+    for dtype, tol in ((torch.float16, TOL), (torch.float32, F32_NORM_TOL)):
+        for rows, hidden in ((640, 4096), (37, 4095), (4096, 100)):
+            x = torch.randn(rows, hidden, generator=g, device=DEVICE).to(dtype)
+            r = torch.randn(rows, hidden, generator=g, device=DEVICE).to(dtype)
+            w = (1 + 0.1 * torch.randn(hidden, generator=g, device=DEVICE)).to(dtype)
+            o, s = ops.fused_rms_norm(x, w, epsilon=1e-6, residual=r)
+            want = rms_norm_plain(x + r, w, 1e-6)
+            check(torch.equal(s, x + r) and torch.allclose(o.float(), want.float(), atol=tol,
+                                                           rtol=tol),
+                  f"fused_rms_norm {dtype} [{rows}, {hidden}]: {max_err(o, want)}")
+            errs[f"rms_norm {dtype} {rows}x{hidden}"] = max_err(o, want)
+        for rows, cols in ((640, 11008), (37, 689)):
+            gate_up = torch.randn(rows, 2 * cols, generator=g, device=DEVICE).to(dtype)
+            got, want = ops.swiglu(gate_up), swiglu_plain(*gate_up.chunk(2, dim=-1))
+            check(torch.allclose(got.float(), want.float(), atol=tol, rtol=tol),
+                  f"swiglu {dtype} [{rows}, {cols}]: {max_err(got, want)}")
+            errs[f"swiglu {dtype} {rows}x{cols}"] = max_err(got, want)
+    # a weight of another dtype than x, taken in its own dtype (f32 in registers)
+    for dtype, wdtype, tol in ((torch.bfloat16, torch.float32, TOL),
+                               (torch.float16, torch.bfloat16, TOL),
+                               (torch.float32, torch.bfloat16, F32_NORM_TOL)):
+        for rows, hidden in ((640, 4096), (37, 4095)):
+            x = torch.randn(rows, hidden, generator=g, device=DEVICE).to(dtype)
+            r = torch.randn(rows, hidden, generator=g, device=DEVICE).to(dtype)
+            w = (1 + 0.1 * torch.randn(hidden, generator=g, device=DEVICE)).to(wdtype)
+            o, s = ops.fused_rms_norm(x, w, epsilon=1e-6, residual=r)
+            want = rms_norm_plain(x + r, w, 1e-6)
+            check(o.dtype == dtype and torch.equal(s, x + r)
+                  and torch.allclose(o.float(), want.float(), atol=tol, rtol=tol),
+                  f"fused_rms_norm {dtype}, {wdtype} weight [{rows}, {hidden}]: "
+                  f"{max_err(o, want)}")
+            errs[f"rms_norm {dtype} {wdtype} weight {rows}x{hidden}"] = max_err(o, want)
+    emit({"check": "norm_swiglu_dtypes", "max_abs_err": errs,
+          "tolerance": {"float16": TOL, "float32": F32_NORM_TOL}})
 
 
 def _qkv(g, bsz, sq, sk, n, nkv, h, dtype=torch.bfloat16, layout="contiguous"):
@@ -912,7 +1068,8 @@ def check_matmul_epilogue(timer, F, logs):
 
 def triton_resources():
     """Registers, spills and shared memory of every compiled variant of
-    the three Triton kernels (read from the JIT's cache after phase 2)."""
+    the Triton LayerNorm and of the two Triton yardsticks (read from the
+    JIT's cache after phase 2)."""
     fused_norm = importlib.import_module("paddle_tpu_torch.ops.fused_norm")
     swiglu = importlib.import_module("paddle_tpu_torch.ops.swiglu")
     kernels = {"fused_rms_norm": fused_norm._KERNELS["_rms_norm_kernel"],
@@ -1326,6 +1483,8 @@ def serve_engine(engine, prompts, new):
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     counts = ops.launch_counts()
+    check(not any(ops.yardstick_counts().values()),
+          f"serving: a Triton yardstick launched: {ops.yardstick_counts()}")
 
     check(all(f is not None for f in firsts.values()), "a request was queued, not admitted")
     for rid in prompts:
@@ -1339,6 +1498,7 @@ def serve_engine(engine, prompts, new):
     return counts, {"requests": len(lengths), "prompt_lengths": lengths,
                     "new_tokens_each": new, "decode_chunk": engine._effective_chunk(),
                     "steps": steps, "launches": counts,
+                    "triton_yardstick_launches": ops.yardstick_counts(),
                     "prefill_s": t1 - t0, "prefill_tokens_per_s": prefill_tokens / (t1 - t0),
                     "decode_s": t2 - t1, "decode_tokens_per_s": decode_tokens / (t2 - t1),
                     "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
@@ -1565,6 +1725,8 @@ def train(card):
         losses.append(step(ids, labels))
         counts = ops.launch_counts()
         check(counts == per_step, f"training step {i}: launch counts {counts} != {per_step}")
+        check(not any(ops.yardstick_counts().values()),
+              f"training step {i}: a Triton yardstick launched: {ops.yardstick_counts()}")
         if i >= warmup:
             totals = {k: totals[k] + counts[k] for k in totals}
     torch.cuda.synchronize()
@@ -1579,7 +1741,8 @@ def train(card):
                          f"{cfg.hidden_size}, batch {batch} x {seq}", "card": card,
               "parameters": n_params, "first_step": first, "losses": losses,
               "warmup_steps": warmup, "timed_steps": timed,
-              "launches_per_step": per_step, "step_ms": step_ms,
+              "launches_per_step": per_step,
+              "triton_yardstick_launches": ops.yardstick_counts(), "step_ms": step_ms,
               "tokens_per_s": tokens / (step_ms / 1e3),
               "model_flops_per_step": flops,
               "model_flop_share": flops / (step_ms / 1e3) / BF16_TC_FLOPS,
@@ -1933,7 +2096,7 @@ def main() -> int:
         logs = _cuda_build.build(["flash_attention_fwd", "flash_attention_fwd_sm90",
                                   "flash_attention_bwd", "flash_attention_bwd_sm90",
                                   "decode_chain", "decode_chain_sm90", "prefill_chain_sm90",
-                                  "matmul_epilogue", "matmul_epilogue_sm90"])
+                                  "matmul_epilogue", "matmul_epilogue_sm90", "norm_swiglu"])
     finally:
         gen_build.join()
     check(len(gen) == len(set(sources.values())), "a generated source failed to build")
@@ -1946,8 +2109,10 @@ def main() -> int:
 
     timer = Timer()
     with torch.no_grad():
-        rms = check_rms_norm(timer, F)
-        sw = check_swiglu(timer)
+        floor = launch_floor(timer)
+        rms = check_rms_norm(timer, F, logs, floor)
+        sw = check_swiglu(timer, logs, floor)
+        check_norm_swiglu_dtypes()
         fl = check_flash(timer, F)
         chains = check_decode_chains(timer, logs)
         pf = check_prefill_chain(timer, F, logs)
@@ -2030,10 +2195,16 @@ def main() -> int:
     chain_src = "paddle_tpu_torch/csrc/decode_chain.cu"
     decode_src = "paddle_tpu_torch/csrc/decode_chain_sm90.cu"
     kernels = [
-        summarize("fused_rms_norm", "triton", "paddle_tpu_torch/ops/fused_norm.py",
-                  "paddle_tpu/ops/fused_norm.py:42", rms, launches("fused_rms_norm")),
-        summarize("swiglu", "triton", "paddle_tpu_torch/ops/swiglu.py",
-                  "paddle_tpu/ops/swiglu.py:17", sw, launches("swiglu")),
+        # the Triton kernels these replaced: yardsticks timed beside them
+        # (triton_ms per shape), launched 0 times on every main path
+        dict(summarize("fused_rms_norm", "cuda", "paddle_tpu_torch/csrc/norm_swiglu.cu",
+                       "paddle_tpu/ops/fused_norm.py:42", rms, launches("fused_rms_norm")),
+             triton_ms=rms[0]["triton_ms"], floor_ms=floor["floor_ms"],
+             queued_ms=next(r["queued_ms"] for r in rms if "queued_ms" in r)),
+        dict(summarize("swiglu", "cuda", "paddle_tpu_torch/csrc/norm_swiglu.cu",
+                       "paddle_tpu/ops/swiglu.py:17", sw, launches("swiglu")),
+             triton_ms=sw[0]["triton_ms"], floor_ms=floor["floor_ms"],
+             queued_ms=next(r["queued_ms"] for r in sw if "queued_ms" in r)),
         # two routes each: the TMA/wgmma kernels (the main paths' launches)
         # and the general kernels (f32, other head dims and strides);
         # per_shape rows name the route each case ran

@@ -197,8 +197,9 @@ class LlamaDecoderLayer(nn.Module):
                                           kv_cache=kv_cache, position_offset=position_offset)
         else:
             h = self.self_attn(h, rope_cos, rope_sin, attn_mask)
-        h = residual + h
-        out = h + self.mlp(self.post_attention_layernorm(h))
+        # the residual add folded into the post-attention norm (one launch)
+        x, h = self.post_attention_layernorm.add_norm(h, residual)
+        out = h + self.mlp(x)
         if new_cache is not None:
             return out, new_cache
         return out
@@ -317,8 +318,9 @@ def _decode_layer_paged(layer, h, cos, sin, kc, vc, tables, lens, chain_cfg=None
         kc = pa.paged_write(kc, kv_, tables, pos)
         vc = pa.paged_write(vc, vv, tables, pos)
         o = pa.paged_decode_attention(qv, kc, vc, tables, lens)
-    h = residual + attn.o_proj(o.reshape(b, 1, n * hd))
-    return h + layer.mlp(layer.post_attention_layernorm(h)), kc, vc
+    x, h = layer.post_attention_layernorm.add_norm(attn.o_proj(o.reshape(b, 1, n * hd)),
+                                                   residual)
+    return h + layer.mlp(x), kc, vc
 
 
 def _decode_layers_paged(layers, h, cos, sin, kpools, vpools, tables, lens, chain_cfg=None):

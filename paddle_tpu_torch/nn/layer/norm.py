@@ -23,6 +23,13 @@ class RMSNorm(nn.Module):
     def forward(self, x):
         return ops.fused_rms_norm(x, self.weight, epsilon=self._epsilon)
 
+    def add_norm(self, x, residual):
+        """``(norm(x + residual), x + residual)`` in one ``fused_rms_norm``
+        launch: the sum is rounded to the dtype before the norm, as a
+        separate add rounds it, so the result equals add-then-norm bit for
+        bit."""
+        return ops.fused_rms_norm(x, self.weight, epsilon=self._epsilon, residual=residual)
+
 
 class LayerNorm(nn.Module):
     """LayerNorm over the trailing ``normalized_shape`` axes, weight ones

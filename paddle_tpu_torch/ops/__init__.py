@@ -19,6 +19,9 @@ An op with two routes (a TMA/wgmma kernel for the layouts TMA reads and a
 general one for the rest: the flash kernels, the prefill chain, the
 matmul epilogue, the decode chains) counts every launch under its name and
 the Hopper kernel's also under the name with ``_sm90``.
+The Triton RMSNorm and SwiGLU kernels that ``csrc/norm_swiglu.cu``
+replaced stay as yardsticks for the timing scripts; they count under
+``yardstick_counts()``, never under ``launch_counts()``.
 The training kernels are ``torch.autograd.Function``s on both devices, so
 gradients reach the parameters below a kernel; the serving chains of
 ``decode_chain`` run under ``no_grad`` only.
@@ -26,7 +29,11 @@ gradients reach the parameters below a kernel; the serving chains of
 
 from __future__ import annotations
 
+import functools
+
 import torch
+
+H100_SMS = 132  # the card the port targets: its SM count where no card is present
 
 _LAUNCHES = {"fused_rms_norm": 0, "swiglu": 0, "flash_attention_fwd": 0,
              "flash_attention_fwd_sm90": 0, "flash_attention_bwd_dq": 0,
@@ -36,6 +43,7 @@ _LAUNCHES = {"fused_rms_norm": 0, "swiglu": 0, "flash_attention_fwd": 0,
              "prefill_chain_sm90": 0, "fused_layer_norm": 0,
              "matmul_epilogue": 0, "matmul_epilogue_sm90": 0, "vpu_chain": 0,
              "sched_chain": 0, "sched_chain_ktiled": 0}
+_YARDSTICKS = {"fused_rms_norm_triton": 0, "swiglu_triton": 0}
 
 
 def launch_counts() -> dict:
@@ -43,13 +51,24 @@ def launch_counts() -> dict:
     return dict(_LAUNCHES)
 
 
+def yardstick_counts() -> dict:
+    """Launches of the replaced kernels kept as yardsticks, since the last
+    `reset_launch_counts` (0 on every main path)."""
+    return dict(_YARDSTICKS)
+
+
 def reset_launch_counts():
-    for name in _LAUNCHES:
-        _LAUNCHES[name] = 0
+    for counts in (_LAUNCHES, _YARDSTICKS):
+        for name in counts:
+            counts[name] = 0
 
 
 def count_launch(name: str):
     _LAUNCHES[name] += 1
+
+
+def count_yardstick(name: str):
+    _YARDSTICKS[name] += 1
 
 
 def use_kernel(*tensors: torch.Tensor) -> bool:
@@ -63,6 +82,21 @@ def use_kernel(*tensors: torch.Tensor) -> bool:
     if kinds in ({"cpu"}, {"meta"}):  # meta: shape inference while a Program is captured
         return False
     raise ValueError(f"tensors lie on mixed or unsupported devices: {sorted(kinds)}")
+
+
+def sm_count(device) -> int:
+    """The SM count of a CUDA device; the H100's where there is no card
+    (the search's cost model and the launch rules on the CPU).  Cached:
+    the RMSNorm wrapper asks at every launch."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        return _cuda_sms(torch.cuda.current_device() if device.index is None else device.index)
+    return H100_SMS
+
+
+@functools.lru_cache(maxsize=None)
+def _cuda_sms(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 from .flash_attention import (flash_attention, flash_attention_bwd,  # noqa: E402,F401

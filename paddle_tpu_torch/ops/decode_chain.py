@@ -68,7 +68,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from . import count_launch, use_kernel
+from . import count_launch, sm_count, use_kernel
 from . import paged_attention as pa
 
 __all__ = ["DecodeChainSpec", "PrefillChainSpec", "spec_from_arrays", "ensure_decision",
@@ -90,7 +90,6 @@ _ROWS_SPLITS = (2, 4, 8)
 _PREFILL_BLOCK_Q = (64, 128)
 _PREFILL_KEYS = 128            # keys a K/V tile of the sm90 prefill kernel
 _MIN_SPLIT_TILES = 4           # K/V tiles a key split holds at the least (prefill_splits)
-H100_SMS = 132                 # the card the port targets: its SM count where no card is present
 _PTR, _INT, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     "paddle_decode_chain": [_PTR] * 13 + [_INT] * 9 + [ctypes.c_float, _PTR],
@@ -361,15 +360,6 @@ def _prefill_route(dtype) -> str:
     (``csrc/prefill_chain_sm90.cu``) for bf16, ``"general"``
     (``decode_chain.cu``'s FMA kernel) for f32."""
     return "sm90" if dtype == torch.bfloat16 else "general"
-
-
-def sm_count(device) -> int:
-    """The SM count of a CUDA device; the H100's where there is no card
-    (the search's cost model on the CPU)."""
-    device = torch.device(device)
-    if device.type == "cuda":
-        return torch.cuda.get_device_properties(device).multi_processor_count
-    return H100_SMS
 
 
 def prefill_splits(s, t, n, block_q, sms) -> int:

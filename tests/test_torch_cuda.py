@@ -15,7 +15,11 @@ plain versions do (count of differing elements 0) and hold the attention
 output at 2e-2 for bf16 outputs and int8 pools, 2e-5 for f32.  f16 flash
 and matmul cases take bf16's 2e-2 (f16 rounds more finely); the f32 flash
 kernels (FMA) are held at 1e-4 against the plain f32 einsums, which sum in
-another order.  On a card, run the TMA kernels' single-tile witnesses
+another order.  The RMSNorm and SwiGLU kernels of ``csrc/norm_swiglu.cu``
+take bf16's 2e-2 in bf16 and f16 and 1e-5 in f32 (the sum of squares in
+another order; SwiGLU's sigmoid through the fast exponential), against
+the plain versions and the Triton yardsticks alike; the residual sum is
+bit-exact.  On a card, run the TMA kernels' single-tile witnesses
 first (``-k witness``).
 """
 
@@ -61,6 +65,142 @@ def test_swiglu_kernel_reads_split_halves(cuda):
     x, y = gate_up.chunk(2, dim=-1)
     torch.testing.assert_close(got.float(), swiglu_plain(x, y).float(),
                                atol=TOL, rtol=TOL)
+
+
+DTYPE_TOL = {torch.bfloat16: TOL, torch.float16: TOL, torch.float32: 1e-5}
+NORM_ROWS = [0, 1, 4, 37, 128, 4096]
+
+
+def _rand_dtype(gen, *shape, dtype, device):
+    return torch.randn(*shape, generator=gen, device=device).to(dtype)
+
+
+def _norm_case(cuda, rows, hidden, dtype, residual):
+    fused_norm = importlib.import_module("paddle_tpu_torch.ops.fused_norm")
+    g = torch.Generator(device=cuda).manual_seed(rows * 7 + hidden)
+    x = _rand_dtype(g, rows, hidden, dtype=dtype, device=cuda)
+    r = _rand_dtype(g, rows, hidden, dtype=dtype, device=cuda) if residual else None
+    w = (1 + 0.1 * torch.randn(hidden, generator=g, device=cuda)).to(dtype)
+    ops.reset_launch_counts()
+    got = ops.fused_rms_norm(x, w, epsilon=1e-6, residual=r)
+    launched = ops.launch_counts()["fused_rms_norm"]
+    yard, yard_s = fused_norm._rms_norm_triton(x, r, w, 1e-6)
+    torch.cuda.synchronize()
+    assert launched == (1 if rows else 0)
+    assert ops.launch_counts()["fused_rms_norm"] == launched  # the yardstick ticks it not
+    assert ops.yardstick_counts()["fused_rms_norm_triton"] == (1 if rows else 0)
+    out, s = got if residual else (got, None)
+    want_s = x + r if residual else None
+    want = rms_norm_plain(want_s if residual else x, w, 1e-6)
+    tol = DTYPE_TOL[dtype]
+    torch.testing.assert_close(out.float(), want.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(out.float(), yard.float(), atol=tol, rtol=tol)
+    if residual:
+        assert torch.equal(s, want_s) and torch.equal(yard_s, want_s)
+
+
+@pytest.mark.parametrize("residual", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
+@pytest.mark.parametrize("hidden", [4096, 2048, 4095])
+@pytest.mark.parametrize("rows", NORM_ROWS)
+def test_rms_norm_cuda_kernel(cuda, rows, hidden, dtype, residual):
+    """csrc/norm_swiglu.cu's RMSNorm against its plain version and the
+    Triton yardstick on the same inputs; 4095 takes the element loads."""
+    _norm_case(cuda, rows, hidden, dtype, residual)
+
+
+@pytest.mark.parametrize("residual", [False, True])
+@pytest.mark.parametrize("rows,hidden", [(1, 100), (37, 100), (4096, 100), (3, 65536),
+                                         (1000, 20000)])
+def test_rms_norm_cuda_kernel_small_and_long_rows(cuda, rows, hidden, residual):
+    """f16 at hidden 100 (200-byte rows: element loads), and rows longer
+    than a block's lanes hold (read twice: the sum of squares first, then
+    the scaled output), 1,000 of them more than stay resident."""
+    _norm_case(cuda, rows, hidden, torch.float16, residual)
+
+
+@pytest.mark.parametrize("residual", [False, True])
+@pytest.mark.parametrize("hidden", [4096, 2048, 4095])
+@pytest.mark.parametrize("dtype,wdtype", [
+    (torch.bfloat16, torch.float32), (torch.float16, torch.float32),
+    (torch.float32, torch.bfloat16), (torch.bfloat16, torch.float16)])
+def test_rms_norm_cuda_weight_of_another_dtype(cuda, dtype, wdtype, hidden, residual):
+    """A weight whose dtype differs from x's (bf16 rows, f32 weight: 32
+    bytes of weight a 16-byte chunk of x; f32 rows, bf16 weight: 8) is
+    read in its own dtype, as the plain version and the Triton yardstick
+    read it; 4095 takes the element loads."""
+    fused_norm = importlib.import_module("paddle_tpu_torch.ops.fused_norm")
+    g = torch.Generator(device=cuda).manual_seed(hidden + 5)
+    x = _rand_dtype(g, 37, hidden, dtype=dtype, device=cuda)
+    r = _rand_dtype(g, 37, hidden, dtype=dtype, device=cuda) if residual else None
+    w = (1 + 0.1 * torch.randn(hidden, generator=g, device=cuda)).to(wdtype)
+    ops.reset_launch_counts()
+    got = ops.fused_rms_norm(x, w, epsilon=1e-6, residual=r)
+    assert ops.launch_counts()["fused_rms_norm"] == 1
+    yard, _ = fused_norm._rms_norm_triton(x, r, w, 1e-6)
+    out = got[0] if residual else got
+    want = rms_norm_plain(x + r if residual else x, w, 1e-6)
+    tol = DTYPE_TOL[dtype]
+    assert out.dtype == dtype
+    torch.testing.assert_close(out.float(), want.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(out.float(), yard.float(), atol=tol, rtol=tol)
+    if residual:
+        assert torch.equal(got[1], x + r)
+
+
+SWIGLU_COLS = [11008, 5632, 688, 689]
+
+
+@pytest.mark.parametrize("split", [True, False])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
+@pytest.mark.parametrize("cols", SWIGLU_COLS)
+@pytest.mark.parametrize("rows", [0, 1, 4, 37, 128, 640])
+def test_swiglu_cuda_kernel(cuda, rows, cols, dtype, split):
+    """csrc/norm_swiglu.cu's SwiGLU on the gate/up halves of one projection
+    (read in place through their row strides) and on two tensors, against
+    the plain version and the Triton yardstick; 689 columns take the
+    element loads."""
+    swiglu_mod = importlib.import_module("paddle_tpu_torch.ops.swiglu")
+    g = torch.Generator(device=cuda).manual_seed(rows + cols)
+    if split:
+        gate_up = _rand_dtype(g, rows, 2 * cols, dtype=dtype, device=cuda)
+        x, y = gate_up.chunk(2, dim=-1)
+    else:
+        x = _rand_dtype(g, rows, cols, dtype=dtype, device=cuda)
+        y = _rand_dtype(g, rows, cols, dtype=dtype, device=cuda)
+    ops.reset_launch_counts()
+    got = ops.swiglu(gate_up) if split else ops.swiglu(x, y)
+    launched = ops.launch_counts()["swiglu"]
+    yard = swiglu_mod._swiglu_triton(x, y)
+    torch.cuda.synchronize()
+    assert launched == (1 if rows else 0) and ops.launch_counts()["swiglu"] == launched
+    assert ops.yardstick_counts()["swiglu_triton"] == (1 if rows else 0)
+    tol = DTYPE_TOL[dtype]
+    want = swiglu_plain(x, y)
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(got.float(), yard.float(), atol=tol, rtol=tol)
+
+
+def test_swiglu_cuda_kernel_many_row_groups(cuda):
+    """More row groups than the grid's 65,535: the blocks walk the rest."""
+    g = torch.Generator(device=cuda).manual_seed(9)
+    x, y = _randn(g, 300000, 16, device=cuda), _randn(g, 300000, 16, device=cuda)
+    got = ops.swiglu(x, y)
+    torch.testing.assert_close(got.float(), swiglu_plain(x, y).float(), atol=TOL, rtol=TOL)
+
+
+def test_norm_swiglu_kernels_refuse_what_they_do_not_take(cuda):
+    for dtype in (torch.float64, torch.int32):
+        x = torch.ones(4, 64, device=cuda, dtype=dtype)
+        with pytest.raises(TypeError, match="unsupported dtype"):
+            ops.fused_rms_norm(x, torch.ones(64, device=cuda, dtype=dtype))
+        with pytest.raises(TypeError, match="unsupported dtypes"):
+            ops.swiglu(x, x)
+    x = torch.ones(4, 64, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(TypeError, match="unsupported weight dtype"):
+        ops.fused_rms_norm(x, torch.ones(64, device=cuda, dtype=torch.float64))
+    with pytest.raises(TypeError, match="unsupported dtypes"):
+        ops.swiglu(x, x.float())
 
 
 @pytest.mark.parametrize("sq,sk,n,nkv,h,causal", [

@@ -216,6 +216,87 @@ def test_rms_norm_gradients_match_jax(dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_rms_norm_residual_matches_jax(dtype):
+    """``fused_rms_norm(x, w, residual=r)`` against the JAX package's: the
+    sum ``x + r`` (rounded to the dtype on both sides: equal bit for bit)
+    and the norm of it, then the gradients in x, r and w of a loss over
+    both outputs (jax.vjp through the Pallas kernel in interpret mode).
+    Tolerances as above; dw sums 24 rows, so its bf16 rounding is
+    relative to its size."""
+    rng = np.random.default_rng(18)
+    x, r, w = _rand(rng, (3, 8, 256)), _rand(rng, (3, 8, 256)), 1 + 0.1 * _rand(rng, (256,))
+    cot_o, cot_s = _rand(rng, x.shape), _rand(rng, x.shape)
+    tdt, jdt, tol, gtol = ((torch.float32, jnp.float32, F32_TOL, GRAD_TOL) if dtype == "float32"
+                           else (torch.bfloat16, jnp.bfloat16, BF16_TOL, BF16_TOL))
+    # the same values in the working dtype on both sides
+    x, r, w = (torch.from_numpy(a).to(tdt).float().numpy() for a in (x, r, w))
+
+    def jfn(a, b, c):
+        return jops.fused_rms_norm(a, c, epsilon=1e-6, residual=b)
+
+    (jo, js), vjp = jax.vjp(jfn, *(jnp.asarray(a, jdt) for a in (x, r, w)))
+    jgrads = vjp((jnp.asarray(cot_o, jdt), jnp.asarray(cot_s, jdt)))
+    ts = [torch.from_numpy(a).to(tdt).requires_grad_() for a in (x, r, w)]
+    to, tsum = tops.fused_rms_norm(ts[0], ts[2], epsilon=1e-6, residual=ts[1])
+    assert to.dtype == tsum.dtype == tdt
+    np.testing.assert_array_equal(tsum.detach().float().numpy(),
+                                  np.asarray(js.astype(jnp.float32)))
+    np.testing.assert_allclose(to.detach().float().numpy(), np.asarray(jo.astype(jnp.float32)),
+                               atol=tol, rtol=tol)
+    (to.float() * torch.from_numpy(cot_o.astype(np.float32)).to(tdt).float()
+     + tsum.float() * torch.from_numpy(cot_s.astype(np.float32)).to(tdt).float()).sum().backward()
+    for name, t, g in zip(("dx", "dr", "dw"), ts, jgrads):
+        want = np.asarray(g.astype(jnp.float32))
+        assert t.grad.dtype == tdt, name
+        np.testing.assert_allclose(t.grad.float().numpy(), want,
+                                   atol=gtol * max(1, np.abs(want).max()), rtol=gtol,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("residual", [False, True])
+@pytest.mark.parametrize("rows", [4, 24])
+@pytest.mark.parametrize("xdt,wdt", [("bfloat16", "float32"), ("float16", "float32"),
+                                     ("float32", "bfloat16"), ("bfloat16", "float16")])
+def test_fused_rms_norm_weight_of_another_dtype_matches_jax(xdt, wdt, rows, residual):
+    """A weight whose dtype differs from x's (bf16 rows with an f32 norm
+    weight): both sides cast it to f32 inside and return x's dtype.  The
+    norm at x's tolerance (bf16's 2e-2 for bf16 and f16 rows, f32's 2e-5),
+    the residual sum bit for bit, and the weight's gradient in its own
+    dtype (bf16's tolerance, relative to its size: it sums the rows)."""
+    rng = np.random.default_rng(19 + rows)
+    x, r, w = _rand(rng, (rows, 256)), _rand(rng, (rows, 256)), 1 + 0.1 * _rand(rng, (256,))
+    cot = _rand(rng, x.shape)
+    tx, tr = (torch.from_numpy(a).to(getattr(torch, xdt)) for a in (x, r))
+    tw = torch.from_numpy(w).to(getattr(torch, wdt))
+    jx, jr = (jnp.asarray(t.float().numpy(), getattr(jnp, xdt)) for t in (tx, tr))
+    jw = jnp.asarray(tw.float().numpy(), getattr(jnp, wdt))
+    tol = F32_TOL if xdt == "float32" else BF16_TOL
+
+    def jfn(a, c):
+        return jops.fused_rms_norm(a, c, epsilon=1e-6, residual=jr if residual else None)
+
+    jout, vjp = jax.vjp(jfn, jx, jw)
+    jo = jout[0] if residual else jout
+    tx.requires_grad_()
+    tw.requires_grad_()
+    tout = tops.fused_rms_norm(tx, tw, epsilon=1e-6, residual=tr if residual else None)
+    to = tout[0] if residual else tout
+    assert to.dtype == tx.dtype
+    np.testing.assert_allclose(to.detach().float().numpy(), np.asarray(jo.astype(jnp.float32)),
+                               atol=tol, rtol=tol)
+    if residual:
+        np.testing.assert_array_equal(tout[1].detach().float().numpy(),
+                                      np.asarray(jout[1].astype(jnp.float32)))
+    jcot = jnp.asarray(cot, jo.dtype)
+    _, jdw = vjp((jcot, jnp.zeros_like(jout[1])) if residual else jcot)
+    (to.float() * torch.from_numpy(cot).to(to.dtype).float()).sum().backward()
+    want = np.asarray(jdw.astype(jnp.float32))
+    assert tw.grad.dtype == tw.dtype
+    np.testing.assert_allclose(tw.grad.float().numpy(), want,
+                               atol=BF16_TOL * max(1, np.abs(want).max()), rtol=BF16_TOL)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("split", [False, True])
 def test_swiglu_gradients_match_jax(dtype, split):
     """Including the split form: the gradient reaches one [rows, 2 * cols]

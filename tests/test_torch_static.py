@@ -479,9 +479,12 @@ def test_unported_passes_raise_naming_the_roadmap():
 
 def test_captured_llama_fuses_the_residual_rms_norms():
     """The port's own LLaMA captured as a Program: its RMSNorm layers record
-    as fused_rms_norm and AddNormPattern fuses every residual add into the
-    next norm (2 a layer; the first norm has no add before it); the
-    fetches equal the eager forward's (the same plain versions run)."""
+    as fused_rms_norm, every residual add ends fused into the next norm (2
+    a layer; the first norm has no add before it): the post-attention
+    norm takes its residual in the model itself (fused_rms_norm with
+    ``residual=``), and AddNormPattern fuses the input norms' and the final
+    norm's; the fetches equal the eager forward's (the same plain versions
+    run)."""
     import collections
 
     from paddle_tpu_torch.models import LlamaForCausalLM, llama_tiny
@@ -496,7 +499,10 @@ def test_captured_llama_fuses_the_residual_rms_norms():
     (got,) = tstatic.Executor("cpu").run(prog, feed={"ids": ids}, fetch_list=[logits],
                                          return_numpy=False)
     counts = collections.Counter(_optypes(prog))
-    assert counts["add_rms_norm"] == 4 and counts["fused_rms_norm"] == 1, counts
+    with_residual = [len(op.arg_spec) == 3 for op in prog.global_block().ops
+                     if op.type == "fused_rms_norm"]
+    assert counts["add_rms_norm"] == 2 and with_residual.count(True) == 2, counts
+    assert with_residual.count(False) == 1, with_residual
     assert counts["swiglu"] == 2 and counts["scaled_dot_product_attention"] == 2, counts
     with torch.no_grad():
         want = model(ids)
