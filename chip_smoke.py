@@ -69,11 +69,13 @@ Phases, each of which raises (exit code != 0) on failure:
    The generated kernels: the elementwise chain (#11; BERT's mask chain
    and the JAX package's test chain at BERT-base's FFN size) at its
    default and tuned launch shapes, and every enumerated config of the
-   schedule-search subgraphs (#12, #13 split-K: the BERT pooler,
-   bench_schedule_search.py's three programs at its chip shapes, the
-   softmax at BERT-base's logits), each against the replay of the
-   recorded ops (bf16 one bf16 step, f32 1e-5), with registers and nvcc
-   seconds from -Xptxas -v.
+   schedule-search subgraphs (#12, #13 split-K merged inside a cluster
+   in one launch: the BERT pooler, bench_schedule_search.py's three
+   programs at its chip shapes, the softmax at BERT-base's logits), each
+   against the replay of the recorded ops (bf16 one bf16 step, f32 1e-5)
+   and timed, with registers and nvcc seconds from -Xptxas -v; the
+   matmul cases' yardstick is torch.addmm of the product plus bias
+   alone (TF32 off), the softmax cases' torch.softmax.
 3. Serve 4 greedy requests (prompts of 17, 128, 250 and 640 tokens, 32 new
    tokens each) on LLaMA-7B at full width, bf16, all 32 layers, random
    weights from a seeded generator, each engine after one warm-up pass
@@ -119,9 +121,10 @@ Phases, each of which raises (exit code != 0) on failure:
    FLAGS_schedule_search on and a fresh verdict cache (op counts, every
    run's launches, the pooler's decision, logits as in phase 5, ms a
    batch); then bench_schedule_search.py's three programs through the
-   Executor with the real search (decisions, outputs against the unfused
-   program); then fresh captures of all four, whose verdicts must come
-   from the cache with no new search.
+   Executor with the real search (each program's decision and win
+   against the gate, outputs against the unfused program); then fresh
+   captures of all four, whose verdicts must come from the cache with no
+   new search.
 7. Print the ``kernels`` JSON line (all thirteen kernels, launches by main
    path; the flash forward, the two backward kernels, the prefill chain and
    the matmul epilogue with their launches by route), then the result line.
@@ -1295,15 +1298,20 @@ def check_sched_chains(timer, specs, build_info):
                             "ms": timer(lambda fn=fn: fn(*args)), "max_abs_err": e,
                             "smem_bytes": spec.smem_bytes(cfg)})
         b_ms, b_by = _spec_bound(spec)
-        library = None
+        library, library_call = None, None
         if name.startswith("softmax"):
-            library = timer(lambda: torch.softmax(args[0], -1))
+            library, library_call = timer(lambda: torch.softmax(args[0], -1)), "torch.softmax"
+        elif spec.kind == "matmul":  # the product plus bias alone, TF32 off: a yardstick
+            x, w, b = (next(a for a, e in zip(args, spec.ext) if e.role == role)
+                       for role in ("xrow", "weight", "bcast"))
+            library = timer(lambda: torch.addmm(b, x, w))
+            library_call = "torch.addmm (the product plus bias only)"
         shape = {"rows": spec.rows, "cols": spec.cols, "k": list(spec.k_dims),
                  "dtype": str(spec.out_dtype).split(".")[-1], "ops": [o.type for o in spec.ops]}
         common = {"case": name, "shape": shape, "max_abs_err": err, "tolerance": tol,
                   "plain_ms": timer(lambda: spec.reference()(*args)), "bound_ms": b_ms,
-                  "bound_by": b_by, "library_ms": library, **_resources(build_info,
-                                                                          spec.source())}
+                  "bound_by": b_by, "library_ms": library, "library_call": library_call,
+                  **_resources(build_info, spec.source())}
         for rows_out, kernel, pick in ((whole, "sched_chain", False),
                                        (split, "sched_chain_ktiled", True)):
             mine = [c for c in configs if c["split"] == pick]
@@ -1985,7 +1993,8 @@ def static_codegen(card, model, model_f32, batches):
               "op_counts_after_passes": {k: v for k, v in types.items()
                                          if k.startswith(("vpu_", "sched_", "add_layer", "matmul_ep",
                                                           "tanh"))},
-              "pooler_decision": {"key": pooler_key, **pooler_verdict, "adopted": adopted},
+              "pooler_decision": {"key": pooler_key, **pooler_verdict, "adopted": adopted,
+                                  "win": pooler_verdict["meta"].get("win")},
               "first_run_with_search_s": search_s, "launches_per_run":
                   {k: v for k, v in per_run.items() if v}, "logits_rel_l2": errs,
               "ms_per_batch": batch_ms, "sequences_per_s": BERT_BATCH / (batch_ms / 1e3),
@@ -2022,6 +2031,7 @@ def static_codegen(card, model, model_f32, batches):
             emit({"static_codegen_program": name, "card": card,
                   "op_types": [op.type for op in prog.global_block().ops],
                   "decision": {**entry, "adopted": adopted},
+                  "win": entry["meta"].get("win"), "gate": ss.ScheduleSearcher().min_win,
                   "max_abs_err_vs_unfused": max_err(got, want)})
 
         # a second capture of every program: verdicts from the cache, no search

@@ -154,5 +154,5 @@ define_flag(
     False,
     "Verify-mode for the static IR (static/verify.py in the JAX package); "
     "not ported: the port's Executor raises while it is on (ROADMAP.md "
-    "queue A item 5)",
+    "A.5.1)",
 )

@@ -38,7 +38,6 @@ struct PtArgs {
   const void* in[PT_MAX_ARGS];
   long long ld[PT_MAX_ARGS];
   void* out;
-  float* ws;  // the split-K partial products (sched_chain_ktiled.cuh)
 };
 
 // Storage types; bf16 and f16 are their raw 16 bits.

@@ -198,6 +198,21 @@ __device__ __forceinline__ void st_dsmem_f32(float* p, uint32_t rank, float v) {
   asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(addr), "f"(v) : "memory");
 }
 
+// The four floats at `p`'s offset (16-byte aligned) in the shared memory of
+// the cluster's block of rank `rank` (mapa, then ld.shared::cluster.v4).
+// The reader and the owner must both have passed a cluster_sync after the
+// owner's stores, and the owner must not exit before the reads are done.
+__device__ __forceinline__ float4 ld_dsmem_f32x4(const float* p, uint32_t rank) {
+  uint32_t addr;
+  float4 v;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(addr) : "r"(smem_u32(p)), "r"(rank));
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
 // -------------------------------------------------------------------- wgmma
 
 // Shared-memory matrix descriptor, 128-byte swizzle (layout type 1).

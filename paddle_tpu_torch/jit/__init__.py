@@ -20,7 +20,7 @@ class TrainStep:
         if scaler is not None:
             raise NotImplementedError(
                 "TrainStep(scaler=): amp (auto_cast, GradScaler) is not ported yet "
-                "(ROADMAP.md queue A item 2)")
+                "(ROADMAP.md A.3.1)")
         self.model = model
         self.optimizer = optimizer
         self.loss_fn = loss_fn
@@ -35,9 +35,9 @@ class TrainStep:
     def lower(self, *batch):
         raise NotImplementedError(
             "TrainStep.lower: capturing the step (a CUDA graph over it) is not ported yet "
-            "(ROADMAP.md queue A item 2)")
+            "(ROADMAP.md A.1.3)")
 
     def warmup(self, *batch):
         raise NotImplementedError(
             "TrainStep.warmup: capturing the step (a CUDA graph over it) is not ported yet "
-            "(ROADMAP.md queue A item 2)")
+            "(ROADMAP.md A.1.3)")

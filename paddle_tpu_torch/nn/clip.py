@@ -5,7 +5,7 @@ list of ``(param, grad)`` pairs to the same list with every clipped grad
 scaled by ``clip_norm / max(global_norm, clip_norm)``.  A parameter with
 ``need_clip = False`` is neither counted nor scaled.  The norm is taken in
 f32 whatever the grads' dtype; each scaled grad keeps its dtype.  The
-other clip classes are not ported yet (ROADMAP.md queue A item 2).
+other clip classes are not ported yet (ROADMAP.md A.3.3).
 """
 
 from __future__ import annotations

@@ -52,6 +52,6 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None, dropout_p=0.
     plain masked path.  One op while a static Program is captured."""
     if dropout_p > 0.0 and training:
         raise NotImplementedError(
-            "attention dropout is not ported yet (ROADMAP.md queue A item 2)")
+            "attention dropout is not ported yet (ROADMAP.md A.3.2)")
     args = (query, key, value) if attn_mask is None else (query, key, value, attn_mask)
     return apply("scaled_dot_product_attention", _sdpa, *args, is_causal=bool(is_causal))

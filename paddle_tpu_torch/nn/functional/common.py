@@ -35,7 +35,7 @@ def embedding(x: torch.Tensor, weight: torch.Tensor, padding_idx=None, sparse=Fa
     """Rows of ``weight`` at ``x``; rows at ``padding_idx`` read as zero."""
     if sparse:
         raise NotImplementedError(
-            "sparse embedding updates are not ported yet (ROADMAP.md queue A item 2.7)")
+            "sparse embedding updates are not ported yet (ROADMAP.md A.3.5)")
     return apply("embedding", _embedding, x, weight, padding_idx=padding_idx)
 
 
@@ -51,4 +51,4 @@ def dropout(x: torch.Tensor, p=0.5, axis=None, training=True, mode="upscale_in_t
             return apply("dropout_infer", _dropout_infer, x, keep=1.0 - p)
         return x
     raise NotImplementedError(
-        "dropout in training (p > 0) is not ported yet (ROADMAP.md queue A item 2.3)")
+        "dropout in training (p > 0) is not ported yet (ROADMAP.md A.3.2)")

@@ -20,7 +20,7 @@ def cross_entropy(input, label, weight=None, ignore_index=-100, reduction="mean"
         raise ValueError(f"cross_entropy: reduction {reduction!r} is not mean, sum or none")
     if soft_label or (label.dim() == input.dim() and label.shape == input.shape):
         raise NotImplementedError(
-            "cross_entropy: soft labels are not ported yet (ROADMAP.md queue A item 2)")
+            "cross_entropy: soft labels are not ported yet (ROADMAP.md A.3.3)")
     axis = axis % input.dim()
     if use_softmax:
         logp = torch.log_softmax(input, dim=axis)

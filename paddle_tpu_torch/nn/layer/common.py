@@ -24,7 +24,7 @@ def _xavier_normal_(w: torch.Tensor, fan_in: int, fan_out: int, generator=None):
 def _check_attr(name, attr):
     if attr is not None and attr is not False:
         raise NotImplementedError(
-            f"{name}: ParamAttr objects are not ported yet (ROADMAP.md queue A item 2.6); "
+            f"{name}: ParamAttr objects are not ported yet (ROADMAP.md A.3.3); "
             "pass None or False")
 
 
@@ -70,7 +70,7 @@ class Embedding(nn.Module):
         super().__init__()
         if sparse:
             raise NotImplementedError(
-                "Embedding(sparse=True) is not ported yet (ROADMAP.md queue A item 2.7)")
+                "Embedding(sparse=True) is not ported yet (ROADMAP.md A.3.5)")
         self.num_embeddings = num_embeddings
         self.embedding_dim = embedding_dim
         self.padding_idx = (None if padding_idx is None else

@@ -55,7 +55,7 @@ kernels sum in another order.  The JAX package's twin is bit-exact by
 replaying its ops inside the Pallas call; that is not a property a CUDA
 kernel can have.
 
-Mesh-sharded chains (``mesh=``) are ROADMAP.md queue A item 6.
+Mesh-sharded chains (``mesh=``) are ROADMAP.md A.6.
 """
 
 from __future__ import annotations
@@ -72,11 +72,12 @@ from . import count_launch, sm_count, use_kernel
 from . import paged_attention as pa
 
 __all__ = ["DecodeChainSpec", "PrefillChainSpec", "spec_from_arrays", "ensure_decision",
+           "decode_refusal", "prefill_refusal",
            "fused_decode_step", "fused_prefill_attention", "decode_chain_batch",
            "decode_chain_rows", "decode_chain_plain", "decode_cluster", "merge_partials",
            "page_runs", "prefill_chain", "prefill_chain_plain"]
 
-_MESH_ITEM = "ROADMAP.md queue A item 6 (distributed)"
+_MESH_ITEM = "ROADMAP.md A.6 (distributed)"
 _MAX_GROUP = 8                 # query heads per kv head the decode kernel takes
 _TILE = 32                     # positions per shared-memory tile of decode_chain.cu
 _CLUSTERS = (1, 2, 4, 8)       # portable cluster sizes of the sm90 decode chain
@@ -110,9 +111,13 @@ def _tolerance(dtype, kv="bf16"):
 
 
 def _as_dtype(dtype) -> torch.dtype:
+    """A torch dtype from a dtype or its name (a model config's "float16")."""
     if isinstance(dtype, torch.dtype):
         return dtype
-    return {"bfloat16": torch.bfloat16, "float32": torch.float32}[str(dtype)]
+    out = getattr(torch, str(dtype).removeprefix("torch."), None)
+    if not isinstance(out, torch.dtype):
+        raise TypeError(f"decode_chain: {dtype!r} is not a dtype")
+    return out
 
 
 # ------------------------------------------------------------------ kernels
@@ -164,6 +169,18 @@ def _decode_route(q_dtype, pool_dtype, h, group) -> str:
     if q_dtype == torch.float32:
         return "general"
     raise TypeError(f"decode_chain: the kernels take bf16 or f32 q, got {q_dtype}")
+
+
+def decode_refusal(q_dtype, pool_dtype, h, group):
+    """Why no decode-chain kernel takes this geometry, or None when one
+    does: ``_decode_route``'s own rule, asked before anything is built
+    (``DecodeChainSpec.build`` refuses with it, so the searcher counts the
+    spec ``refused`` and never launches it)."""
+    try:
+        _decode_route(q_dtype, pool_dtype, h, group)
+    except (TypeError, ValueError) as err:
+        return str(err)
+    return None
 
 
 def decode_cluster(b, nkv, w, sms) -> int:
@@ -381,14 +398,30 @@ def prefill_splits(s, t, n, block_q, sms) -> int:
     return -(-tiles // per)
 
 
-def _check_prefill(q, k, v):
-    _, s, n, h = q.shape
-    if q.dtype not in (torch.bfloat16, torch.float32) or k.dtype != q.dtype \
-            or v.dtype != q.dtype:
-        raise TypeError(f"prefill_chain: the kernel takes bf16 or f32, got {q.dtype}, "
-                        f"{k.dtype}, {v.dtype}")
+def _prefill_geometry(dtype, h):
+    """The dtypes and head dims a prefill-chain kernel takes (bf16 or f32,
+    H 64 or 128): raises for the rest.  The launch (``_check_prefill``)
+    and ``PrefillChainSpec.build`` (``prefill_refusal``) both ask it."""
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"prefill_chain: the kernel takes bf16 or f32, got {dtype}")
     if h not in (64, 128):
         raise ValueError(f"prefill_chain: head_dim {h} is not 64 or 128")
+
+
+def prefill_refusal(dtype, h):
+    """Why no prefill-chain kernel takes this geometry, or None."""
+    try:
+        _prefill_geometry(dtype, h)
+    except (TypeError, ValueError) as err:
+        return str(err)
+    return None
+
+
+def _check_prefill(q, k, v):
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"prefill_chain: the kernel takes one dtype, got {q.dtype}, "
+                        f"{k.dtype}, {v.dtype}")
+    _prefill_geometry(q.dtype, q.shape[-1])
     if not all(_prefill_layout(t) for t in (q, k, v)):
         raise ValueError("prefill_chain: inputs need unit stride on H, strides that are "
                          "multiples of 8 elements and a 16-byte aligned base")
@@ -624,18 +657,14 @@ class DecodeChainSpec:
 
     def build(self, config):
         """The candidate's callable ``(kc, vc, q, kn, vn, tables, lens) ->
-        (o, kc, vc)``; ValueError for a config this geometry refuses."""
-        layout = config.get("layout", "batch")
-        if layout == "batch":
-            return decode_chain_batch
-        if layout != "rows":
-            raise ValueError(f"unknown decode-chain layout {layout!r}")
-        if self.kv != "int8":
-            raise ValueError("the split 'rows' layout is for int8 pools only")
-        splits = int(config.get("splits", 0))
-        if splits not in _ROWS_SPLITS:
-            raise ValueError(f"rows splits {splits} not in {_ROWS_SPLITS}")
-        return functools.partial(decode_chain_rows, splits=splits)
+        (o, kc, vc)``; ValueError for a config this geometry refuses, and
+        for a geometry (dtype, head dim, group) no kernel of the card takes
+        (``decode_refusal``), before anything is built."""
+        why = decode_refusal(self.dtype, torch.int8 if self.kv == "int8" else self.dtype,
+                             self.head_dim, self.num_heads // self.num_kv_heads)
+        if why is not None:
+            raise ValueError(why)
+        return _decode_fn(self.kv, config)
 
 
 @dataclass
@@ -748,10 +777,32 @@ class PrefillChainSpec:
                                         rtol=tol)))
 
     def build(self, config):
+        """``prefill_chain`` at ``block_q``; ValueError for a block that
+        does not tile the chunk, and for a dtype or head dim no kernel of
+        the card takes (``prefill_refusal``), before anything is built."""
+        why = prefill_refusal(self.dtype, self.head_dim)
+        if why is not None:
+            raise ValueError(why)
         bq = int(config.get("block_q", 0))
         if bq not in _PREFILL_BLOCK_Q or self.seq % bq:
             raise ValueError(f"block_q {bq} does not tile a chunk of {self.seq}")
         return functools.partial(prefill_chain, block_q=bq)
+
+
+def _decode_fn(kv, config):
+    """The decode chain of a config's layout; ValueError for a layout the
+    pools refuse."""
+    layout = config.get("layout", "batch")
+    if layout == "batch":
+        return decode_chain_batch
+    if layout != "rows":
+        raise ValueError(f"unknown decode-chain layout {layout!r}")
+    if kv != "int8":
+        raise ValueError("the split 'rows' layout is for int8 pools only")
+    splits = int(config.get("splits", 0))
+    if splits not in _ROWS_SPLITS:
+        raise ValueError(f"rows splits {splits} not in {_ROWS_SPLITS}")
+    return functools.partial(decode_chain_rows, splits=splits)
 
 
 # ----------------------------------------------------------- engine plumbing
@@ -792,8 +843,10 @@ def ensure_decision(spec, searcher=None):
 def fused_decode_step(kc, vc, q, kn, vn, tables, lens, *, config):
     """The decode step's fused seam: the accepted config's kernel in place
     of ``_decode_layer_paged``'s write, write, attend.  Returns
-    ``(o, kc, vc)``."""
-    return spec_from_arrays(kc, q, tables).build(config)(kc, vc, q, kn, vn, tables, lens)
+    ``(o, kc, vc)``.  A geometry no kernel takes raises at the launch (the
+    search refused it: ``DecodeChainSpec.build``)."""
+    kv = "int8" if isinstance(kc, pa.QuantPool) else "bf16"
+    return _decode_fn(kv, config)(kc, vc, q, kn, vn, tables, lens)
 
 
 def fused_prefill_attention(q, k, v, *, block_q):
@@ -801,7 +854,4 @@ def fused_prefill_attention(q, k, v, *, block_q):
     ``models.llama.prefill_chain_scope``): the accepted config's kernel in
     place of the attention core, for a ``[1, S, N, H]`` chunk against
     ``[1, T, N, H]`` post-repeat K/V.  Callers check ``S % block_q == 0``."""
-    _, s, n, h = q.shape
-    spec = PrefillChainSpec(seq=int(s), kv_len=int(k.shape[1]), num_heads=int(n),
-                            head_dim=int(h), dtype=q.dtype, device=q.device)
-    return spec.build({"block_q": int(block_q)})(q, k, v)
+    return prefill_chain(q, k, v, block_q=int(block_q))

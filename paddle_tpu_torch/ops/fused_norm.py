@@ -48,7 +48,8 @@ __all__ = ["fused_rms_norm", "rms_norm_plain", "rms_norm_bwd", "rms_geometry",
 
 tl = None  # triton.language, bound at the first launch
 _KERNELS: dict = {}
-_MAX_HIDDEN = 65536
+_MAX_HIDDEN = 65536  # the Triton kernels' one-block row; the LayerNorm's longer rows take
+_WIDE_BLOCK = 4096   # _layer_norm_wide_kernel, in passes of this many columns
 
 # csrc/norm_swiglu.cu's RMSNorm: a lane holds at most RMS_MAX_NV 16-byte
 # chunks of each input; a row spreads over more warps (8 at most: the
@@ -140,6 +141,48 @@ def _layer_norm_kernel(x_ptr, r_ptr, w_ptr, b_ptr, o_ptr, s_ptr, hidden, eps,
     tl.store(o_ptr + row * hidden + cols, y.to(o_ptr.dtype.element_ty), mask=mask)
 
 
+def _layer_norm_wide_kernel(x_ptr, r_ptr, w_ptr, b_ptr, o_ptr, s_ptr, hidden, eps,
+                            HAS_RES: tl.constexpr, BLOCK: tl.constexpr):
+    """``_layer_norm_kernel`` for a row longer than one block holds, in
+    three passes of BLOCK columns: the sum, the centred sum of squares, the
+    output.  Each pass recomputes ``x + residual`` (the same rounded value;
+    the first pass stores it)."""
+    base = tl.program_id(0).to(tl.int64) * hidden
+    acc = tl.zeros([BLOCK], dtype=tl.float32)
+    for off in range(0, hidden, BLOCK):
+        cols = off + tl.arange(0, BLOCK)
+        mask = cols < hidden
+        x = tl.load(x_ptr + base + cols, mask=mask, other=0.0)
+        if HAS_RES:
+            r = tl.load(r_ptr + base + cols, mask=mask, other=0.0)
+            x = (x.to(tl.float32) + r.to(tl.float32)).to(s_ptr.dtype.element_ty)
+            tl.store(s_ptr + base + cols, x, mask=mask)
+        acc += x.to(tl.float32)
+    mean = tl.sum(acc, axis=0) / hidden
+    acc = tl.zeros([BLOCK], dtype=tl.float32)
+    for off in range(0, hidden, BLOCK):
+        cols = off + tl.arange(0, BLOCK)
+        mask = cols < hidden
+        x = tl.load(x_ptr + base + cols, mask=mask, other=0.0)
+        if HAS_RES:
+            r = tl.load(r_ptr + base + cols, mask=mask, other=0.0)
+            x = (x.to(tl.float32) + r.to(tl.float32)).to(s_ptr.dtype.element_ty)
+        xc = tl.where(mask, x.to(tl.float32) - mean, 0.0)
+        acc += xc * xc
+    inv = 1.0 / tl.sqrt(tl.sum(acc, axis=0) / hidden + eps)
+    for off in range(0, hidden, BLOCK):
+        cols = off + tl.arange(0, BLOCK)
+        mask = cols < hidden
+        x = tl.load(x_ptr + base + cols, mask=mask, other=0.0)
+        if HAS_RES:
+            r = tl.load(r_ptr + base + cols, mask=mask, other=0.0)
+            x = (x.to(tl.float32) + r.to(tl.float32)).to(s_ptr.dtype.element_ty)
+        w = tl.load(w_ptr + cols, mask=mask, other=0.0).to(tl.float32)
+        b = tl.load(b_ptr + cols, mask=mask, other=0.0).to(tl.float32)
+        y = (x.to(tl.float32) - mean) * inv * w + b
+        tl.store(o_ptr + base + cols, y.to(o_ptr.dtype.element_ty), mask=mask)
+
+
 def _kernel(fn):
     """JIT a Triton kernel on first use (no triton import at module
     import: the CPU tests import this module without triton)."""
@@ -175,8 +218,10 @@ def layer_norm_plain(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     return (xc * inv * weight.float() + bias.float()).to(x.dtype)
 
 
-def _check_rows(name, x2d, r2d, params):
-    """Raise on what the row kernels do not take."""
+def _check_rows(name, x2d, r2d, params, max_hidden=None):
+    """Raise on what the row kernels do not take (the wrappers hand them
+    contiguous rows of one dtype; ``max_hidden``: a kernel that holds a row
+    in one block)."""
     hidden = x2d.shape[1]
     if x2d.dtype not in DTYPES:
         raise TypeError(f"{name}: unsupported dtype {x2d.dtype}")
@@ -189,22 +234,28 @@ def _check_rows(name, x2d, r2d, params):
     tensors = [x2d] + ([r2d] if r2d is not None else []) + list(params)
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{name}: the kernel takes contiguous rows, weight and bias")
-    if hidden > _MAX_HIDDEN:
-        raise ValueError(f"{name}: hidden {hidden} exceeds the kernels' {_MAX_HIDDEN}")
+    if max_hidden is not None and hidden > max_hidden:
+        raise ValueError(f"{name}: hidden {hidden} exceeds the kernel's {max_hidden}")
 
 
-def _rows_cuda(name, kernel, x2d, r2d, params, eps):
+def _rows_cuda(name, kernel, x2d, r2d, params, eps, wide=None):
     """Launch a Triton row kernel over ``[rows, hidden]`` (none without
     rows); returns ``(out, sum)`` with ``sum`` the written ``x + residual``
-    (None without a residual)."""
+    (None without a residual).  A row above ``_MAX_HIDDEN`` takes ``wide``
+    (the row in passes of ``_WIDE_BLOCK`` columns); without one it is
+    refused."""
     rows, hidden = x2d.shape
-    _check_rows(name, x2d, r2d, params)
+    _check_rows(name, x2d, r2d, params, None if wide is not None else _MAX_HIDDEN)
     out = torch.empty_like(x2d)
     s = torch.empty_like(x2d) if r2d is not None else None
     if rows == 0:
         return out, s
-    block = 1 << (hidden - 1).bit_length()
     ptrs = [x2d, r2d if r2d is not None else x2d, *params, out, s if s is not None else out]
+    if hidden > _MAX_HIDDEN:
+        _kernel(wide)[(rows,)](*ptrs, hidden, float(eps), HAS_RES=r2d is not None,
+                               BLOCK=_WIDE_BLOCK, num_warps=8)
+        return out, s
+    block = 1 << (hidden - 1).bit_length()
     _kernel(kernel)[(rows,)](*ptrs, hidden, float(eps), HAS_RES=r2d is not None,
                              BLOCK=block, num_warps=min(16, max(1, block // 256)))
     return out, s
@@ -226,7 +277,7 @@ def _rms_cuda(x2d, r2d, weight, eps):
     in its own dtype; returns ``(out, sum)`` with ``sum`` the written
     ``x + residual`` (None without a residual)."""
     rows, hidden = x2d.shape
-    _check_rows("fused_rms_norm", x2d, r2d, (weight,))
+    _check_rows("fused_rms_norm", x2d, r2d, (weight,))  # any hidden: a long row in passes
     if weight.dtype not in DTYPES:
         raise TypeError(f"fused_rms_norm: unsupported weight dtype {weight.dtype}")
     out = torch.empty_like(x2d)
@@ -282,7 +333,7 @@ class _RMSNormFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x2d, r2d, weight, eps):
         if use_kernel(*(t for t in (x2d, r2d, weight) if t is not None)):
-            out, s = _rms_cuda(x2d, r2d, weight, eps)
+            out, s = _rms_cuda(*_dense(x2d, r2d, weight), eps)
         else:
             s = x2d + r2d if r2d is not None else None
             out = rms_norm_plain(x2d if s is None else s, weight, eps)
@@ -306,8 +357,9 @@ class _LayerNormFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x2d, r2d, weight, bias, eps):
         if use_kernel(*(t for t in (x2d, r2d, weight, bias) if t is not None)):
-            out, s = _rows_cuda("fused_layer_norm", _layer_norm_kernel, x2d, r2d,
-                                (weight, bias), eps)
+            x_, r_, w_, b_ = _dense(x2d, r2d, weight, bias)
+            out, s = _rows_cuda("fused_layer_norm", _layer_norm_kernel, x_, r_, (w_, b_), eps,
+                                wide=_layer_norm_wide_kernel)
             if x2d.shape[0]:
                 count_launch("fused_layer_norm")
         else:
@@ -327,6 +379,19 @@ class _LayerNormFn(torch.autograd.Function):
         return dx, None, dw, db, None
 
 
+def _dense(*tensors):
+    """The kernels' layout: each tensor contiguous (rows of a row stride
+    other than hidden are copied), None kept."""
+    return tuple(None if t is None else t.contiguous() for t in tensors)
+
+
+def _residual_apart(x, residual):
+    """A residual the kernels cannot add in place: another dtype or shape.
+    The reference adds it first (``x + residual``, promoting and
+    broadcasting); so do the wrappers, in torch, and norm the sum."""
+    return residual is not None and (residual.dtype != x.dtype or residual.shape != x.shape)
+
+
 def _rows(x, residual):
     shape = x.shape
     r2d = residual.reshape(-1, shape[-1]) if residual is not None else None
@@ -334,6 +399,9 @@ def _rows(x, residual):
 
 
 def _fused_rms_norm(x, weight, residual=None, *, epsilon):
+    if _residual_apart(x, residual):
+        s = x + residual
+        return _fused_rms_norm(s, weight, epsilon=epsilon), s
     shape, x2d, r2d = _rows(x, residual)
     out = _RMSNormFn.apply(x2d, r2d, weight, epsilon)
     if residual is not None:
@@ -342,6 +410,9 @@ def _fused_rms_norm(x, weight, residual=None, *, epsilon):
 
 
 def _fused_layer_norm(x, weight, bias, residual=None, *, epsilon):
+    if _residual_apart(x, residual):
+        s = x + residual
+        return _fused_layer_norm(s, weight, bias, epsilon=epsilon), s
     shape, x2d, r2d = _rows(x, residual)
     if bias is None:
         bias = torch.zeros(shape[-1], dtype=x.dtype, device=x.device)

@@ -171,7 +171,8 @@ class _SwiGLUFn(torch.autograd.Function):
     def forward(ctx, x2d, y2d):
         ctx.save_for_backward(x2d, y2d)
         if use_kernel(x2d, y2d):
-            return _swiglu_cuda(x2d, y2d)
+            # the kernel reads rows of unit column stride (any row stride)
+            return _swiglu_cuda(*(t if t.stride(1) == 1 else t.contiguous() for t in (x2d, y2d)))
         return swiglu_plain(x2d, y2d)
 
     @staticmethod
@@ -183,6 +184,11 @@ def _swiglu(x, y=None):
     if y is None:
         x, y = x.chunk(2, dim=-1)
     shape = x.shape
+    if x.dtype != y.dtype:
+        # as the reference: silu(x) * y in f32 over both inputs, written in
+        # x's dtype; the kernel takes one dtype, so both go in promoted
+        dt = torch.promote_types(x.dtype, y.dtype)
+        return _swiglu(x.to(dt), y.to(dt)).to(x.dtype)
     return _SwiGLUFn.apply(x.reshape(-1, shape[-1]), y.reshape(-1, shape[-1])).reshape(shape)
 
 

@@ -2,7 +2,7 @@
 
 Plain Python on floats, as in the JAX package.  Ported: the base class,
 ``LinearWarmup`` and ``CosineAnnealingDecay``; the other schedulers are
-queued (ROADMAP.md queue A item 2).
+queued (ROADMAP.md A.3.3).
 """
 
 from __future__ import annotations

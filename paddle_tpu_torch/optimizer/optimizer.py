@@ -65,7 +65,7 @@ class Optimizer:
         else:
             raise NotImplementedError(
                 f"weight_decay {type(weight_decay).__name__}: regularizer objects are not "
-                "ported yet (ROADMAP.md queue A item 2); pass a float (L2 decay)")
+                "ported yet (ROADMAP.md A.3.3); pass a float (L2 decay)")
         self._grad_clip = grad_clip
         self._accumulators: dict = {}
         self._step_count = 0
@@ -129,7 +129,7 @@ class Optimizer:
             if g.is_sparse:
                 raise NotImplementedError(
                     "sparse (SelectedRows) gradient updates are not ported yet "
-                    "(ROADMAP.md queue A item 2)")
+                    "(ROADMAP.md A.3.5)")
             gv = g.float() if g.dtype == torch.float16 else g
             if p.dtype in _LOW_PRECISION:
                 master = self._acc("master_weight", p, init=lambda p=p: p.detach().float())

@@ -3,7 +3,7 @@
 The update math follows the JAX package operation for operation, in f32
 for the moments; the moments and ``beta{1,2}_pow`` accumulators are
 updated in place.  The other optimizers are not ported yet (ROADMAP.md
-queue A item 2).
+A.3.3).
 """
 
 from __future__ import annotations
@@ -74,7 +74,7 @@ class AdamW(Adam):
         else:
             raise NotImplementedError(
                 f"AdamW weight_decay {type(weight_decay).__name__}: regularizer objects are "
-                "not ported yet (ROADMAP.md queue A item 2); pass a float")
+                "not ported yet (ROADMAP.md A.3.3); pass a float")
         self._apply_decay_fn = apply_decay_param_fun
         self._lr_ratio = lr_ratio
 

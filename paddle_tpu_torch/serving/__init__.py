@@ -36,8 +36,8 @@ from paddle_tpu_torch.ops import paged_attention as pa
 
 __all__ = ["GenerationEngine", "schedule_decode_stats", "reset_schedule_decode_stats"]
 
-_SERVING_ITEM = "ROADMAP.md queue A item 4 (serving features)"
-_DIST_ITEM = "ROADMAP.md queue A item 6 (distributed)"
+_SERVING_ITEM = "ROADMAP.md A.2 (serving features)"
+_DIST_ITEM = "ROADMAP.md A.6 (distributed)"
 
 
 def _not_ported(what: str, item: str):

@@ -4,7 +4,7 @@ paddle_tpu/static/): capture a model into a ``Program`` under
 ``PallasFusionPass`` first, as the JAX Executor does), and the schedule
 searcher's protocol (``schedule_search``).
 
-Not ported yet (ROADMAP.md queue A item 5): ``verify.py``, ``io``
+Not ported yet (ROADMAP.md A.5): ``verify.py``, ``io``
 (``save_inference_model`` ...), ``autodiff`` (``append_backward``),
 control flow, the lint tiers, the startup program, and the codegen passes.
 """

@@ -708,19 +708,31 @@ def subgraph_source(chain: Chain, tiles=(), ktiled=False) -> str:
     else:
         xs = storage(chain.inputs[chain.x_in].dtype)
         ws = storage(chain.inputs[chain.w_in].dtype)
-        # the product in f32, each K slice summed apart and the slices in
-        # k order (bk = 0: one slice), then the epilogue
+        # the product in f32 as the card's split-K runs it: for each block
+        # of bm rows, each K slice of bk summed apart (one fmaf a k, in
+        # order), then rank q of the gk slices' cluster sums rows
+        # [q * per, (q + 1) * per) of every slice's partial in k order and
+        # runs the epilogue on them (bk = 0: the whole K; bm = 0: all rows)
         out.append(
-            'extern "C" void pt_host_mm(const PtArgs* a, int M, int N, int K, int bk) {\n'
-            "  std::vector<float> acc(N);\n  if (bk <= 0) bk = K > 0 ? K : 1;\n"
-            "  for (int r = 0; r < M; ++r) {\n    for (int c = 0; c < N; ++c) {\n"
-            "      float total = 0.f;\n      for (int k0 = 0; k0 < K; k0 += bk) {\n"
-            "        float part = 0.f;\n        for (int k = k0; k < K && k < k0 + bk; ++k)\n"
-            f"          part = fmaf(pt_ld<{xs}>(a->in[PtBody::kX], r * a->ld[PtBody::kX] + k),\n"
-            f"                      pt_ld<{ws}>(a->in[PtBody::kW], k * a->ld[PtBody::kW] + c), part);\n"
-            "        total = k0 == 0 ? part : total + part;\n      }\n      acc[c] = total;\n    }\n"
-            "    if constexpr (PtBody::kRowMode) PtBody::row<1>(*a, r, 0, acc.data());\n"
-            "    else for (int c = 0; c < N; ++c) PtBody::elem(*a, r, c, acc[c]);\n  }\n}\n")
+            'extern "C" void pt_host_mm(const PtArgs* a, int M, int N, int K, int bk, int bm) {\n'
+            "  if (bk <= 0 || bk > K) bk = K > 0 ? K : 1;\n  if (bm <= 0) bm = M;\n"
+            "  const int gk = K > 0 ? (K + bk - 1) / bk : 1;\n  const int per = (bm + gk - 1) / gk;\n"
+            "  std::vector<float> part((size_t)gk * bm * N), acc(N);\n"
+            "  for (int m0 = 0; m0 < M; m0 += bm) {\n"
+            "    for (int q = 0; q < gk; ++q)\n      for (int r = 0; r < bm; ++r)\n"
+            "        for (int c = 0; c < N; ++c) {\n          float p = 0.f;\n"
+            "          for (int k = q * bk; m0 + r < M && k < K && k < (q + 1) * bk; ++k)\n"
+            f"            p = fmaf(pt_ld<{xs}>(a->in[PtBody::kX], (long long)(m0 + r) * a->ld[PtBody::kX] + k),\n"
+            f"                     pt_ld<{ws}>(a->in[PtBody::kW], (long long)k * a->ld[PtBody::kW] + c), p);\n"
+            "          part[((size_t)q * bm + r) * N + c] = p;\n        }\n"
+            "    for (int rank = 0; rank < gk; ++rank)\n"
+            "      for (int r = rank * per; r < bm && r < (rank + 1) * per && m0 + r < M; ++r) {\n"
+            "        for (int c = 0; c < N; ++c) {\n          float s = part[(size_t)r * N + c];\n"
+            "          for (int q = 1; q < gk; ++q) s = s + part[((size_t)q * bm + r) * N + c];\n"
+            "          acc[c] = s;\n        }\n"
+            "        if constexpr (PtBody::kRowMode) PtBody::row<1>(*a, m0 + r, 0, acc.data());\n"
+            "        else for (int c = 0; c < N; ++c) PtBody::elem(*a, m0 + r, c, acc[c]);\n"
+            "      }\n  }\n}\n")
     out.append("#endif\n")
     return "".join(out)
 
@@ -731,13 +743,13 @@ class PtArgs(ctypes.Structure):
     """The ``PtArgs`` block of csrc/codegen/pt_codegen.cuh."""
 
     _fields_ = [("inp", ctypes.c_void_p * 24), ("ld", ctypes.c_longlong * 24),
-                ("out", ctypes.c_void_p), ("ws", ctypes.c_void_p)]
+                ("out", ctypes.c_void_p)]
 
 
 MAX_ARGS = 24
 
 
-def args_block(ptrs, lds, out, ws=None) -> PtArgs:
+def args_block(ptrs, lds, out) -> PtArgs:
     if len(ptrs) > MAX_ARGS:
         raise ValueError(f"{len(ptrs)} kernel arguments > {MAX_ARGS}")
     a = PtArgs()
@@ -745,7 +757,6 @@ def args_block(ptrs, lds, out, ws=None) -> PtArgs:
         a.inp[i] = p
         a.ld[i] = ld
     a.out = out
-    a.ws = ws
     return a
 
 

@@ -62,7 +62,7 @@ class scope_guard:
 
 def _unported(what):
     return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md queue A item 5): the port's Executor "
+        f"{what} is not ported yet (ROADMAP.md A.5): the port's Executor "
         "would skip it, which is a different result")
 
 

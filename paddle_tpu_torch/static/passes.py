@@ -95,11 +95,11 @@ _REGISTRY = {
 }
 # the JAX package's other passes, each with the ROADMAP item that ports it
 _UNPORTED = {
-    "weight_only_quant": "queue A item 5 (static passes)",
-    "auto_parallel_fp16": "queue A item 6",
-    "auto_parallel_recompute": "queue A item 6",
-    "auto_parallel_gradient_merge": "queue A item 6",
-    "auto_parallel_sharding": "queue A item 6",
+    "weight_only_quant": "A.5.6 (static passes)",
+    "auto_parallel_fp16": "A.6",
+    "auto_parallel_recompute": "A.6",
+    "auto_parallel_gradient_merge": "A.6",
+    "auto_parallel_sharding": "A.6",
 }
 
 

@@ -52,8 +52,8 @@ from .codegen import REDUCE as _REDUCE_OPS
 from .codegen import ROWWISE as _ROWWISE_OPS
 
 __all__ = ["ExtInput", "SubgraphSpec", "match_subgraph", "enumerate_candidates",
-           "candidate_smem_bytes", "candidate_roofline_ms", "build_kernel", "build_reference",
-           "Decision", "ScheduleSearcher", "measure_override", "schedule_search_stats",
+           "candidate_smem_bytes", "candidate_traffic_bytes", "candidate_roofline_ms",
+           "build_kernel", "build_reference", "Decision", "ScheduleSearcher", "measure_override", "schedule_search_stats",
            "reset_schedule_search_stats"]
 
 _COUNTERS = {
@@ -624,44 +624,50 @@ def match_subgraph(root, graph, min_ops=2, device="cpu"):
 # ---------------------------------------------------------------------------
 # the card's schedule space
 
-_MM_BM = {torch.bfloat16: (16, 32, 64, 128), torch.float32: (16, 32, 64)}
+_MM_BM = (16, 32, 64, 128)  # bf16 row blocks (f32 derives its own from the width)
 _MM_BN = (64, 128, 256)
-_SPLIT_K = (128, 256, 512, 1024)
+_F32_OUTS = (64, 32)     # f32 outputs a thread: 8 x 8, or 4 x 8 where the tile is small
+_F32_BN = (64, 2048)     # f32 tile widths: powers of two (a thread grid of BN / 8 columns)
+_F32_MAX_BM = 128
+_SPLIT_K = (64, 128, 256, 512, 1024)
+_MAX_SPLITS = 8          # a split's blocks form one cluster: at most the portable 8
 _ROW_WARPS = (1, 2, 4, 8, 16)
 _MAX_ROW_COLS = 2048     # a warp holds a row: cols / 32 values a lane for each row value
 _SMS = 132               # H100 SXM
 _K_STEP_S = 1.5e-7       # one 32-deep step of a block's K loop (a 128 x 128 bf16 tile at
                          # the SM's share of the mma peak): the serial part of a block
+_K_STEP_F32_S = 3.4e-6   # one 32-deep step of an f32 tile of 64 outputs a thread (256 x 64
+                         # x 32 FMAs; half for 32 outputs), ~60 % of the FMA peak: NVIDIA
+                         # H100 80GB HBM3, 700.00 W, tools/time_torch_sched_chain.py's
+                         # ktiled_f32 at 128 x 128 whole K (64 blocks, one wave, 64 steps)
+_SMEM_BUDGET = 227 * 1024  # a block's shared memory on the H100 (232,448 bytes)
+_MERGE_S = 1e-6          # a split's cluster merge: two cluster barriers and a tile's share
+                         # read through distributed shared memory, a wave
 _ROW_STEP_S = 2e-8       # one column-group of a row's warp
-_LAUNCH_S = 2e-6         # the split's combine launch
 
 
 def _mm_dtype(spec):
     return next(e.dtype for e in spec.ext if e.role == "xrow")
 
 
-def _bn_quantum(spec, bm):
-    """The tile width's granule: whole 16-column blocks a warp (bf16), a
-    16 x 16 thread grid (f32)."""
-    if _mm_dtype(spec) == torch.float32:
-        return 16
-    return 16 * (8 // (2 if bm >= 32 else 1))
-
-
 def _tile(spec, config):
     """(BM, BN): the block's output tile; a whole-row config pads the row
-    to the tile's granule."""
+    to the tile's granule (f32: the next power of two, at least 64)."""
     bm = int(config["block_rows"])
     bc = int(config["block_cols"])
-    q = _bn_quantum(spec, bm)
+    if _mm_dtype(spec) == torch.float32:
+        return bm, max(_F32_BN[0], 1 << max(0, bc - 1).bit_length())
+    q = 16 * (8 // (2 if bm >= 32 else 1))  # bf16: whole 16-column blocks a warp
     return bm, -(-bc // q) * q
 
 
 def _tile_fits(spec, bm, bn):
-    """The accumulator a thread holds stays within 128 floats (bf16) or
-    64 (f32), so a tile never spills by design."""
+    """The accumulator a thread holds: within 128 floats (bf16); exactly 8
+    x 8 or 4 x 8 (f32, a 256-thread grid of BM / rows-a-thread by BN / 8),
+    so a tile never spills by design."""
     if _mm_dtype(spec) == torch.float32:
-        return bm % 16 == 0 and bn % 16 == 0 and (bm // 16) * (bn // 16) <= 64
+        return (_F32_BN[0] <= bn <= _F32_BN[1] and bn & (bn - 1) == 0 and bm <= _F32_MAX_BM
+                and bm * bn in tuple(o * 256 for o in _F32_OUTS))
     wm_ = 2 if bm >= 32 else 1
     return (bm // wm_) % 16 == 0 and (bn // (8 // wm_)) % 16 == 0 and \
         (bm // wm_ // 16) * (bn // (8 // wm_) // 8) * 4 <= 128
@@ -673,32 +679,50 @@ def _tiles(spec, configs):
     return [_tile(spec, c) for c in configs]
 
 
+def _row_blocks(spec, bc):
+    """The row blocks offered at tile width ``bc``: bf16's fixed list;
+    f32's two (8 x 8 and 4 x 8 outputs a thread at that width), at most
+    128.  Blocks twice the rows or more are dropped (the smallest stays)."""
+    rows = spec.rows
+    if _mm_dtype(spec) == torch.float32:
+        bn = _tile(spec, {"block_rows": 1, "block_cols": bc})[1]
+        bms = [o * 256 // bn for o in _F32_OUTS if 4 <= o * 256 // bn <= _F32_MAX_BM]
+    else:
+        bms = list(_MM_BM)
+    return [b for b in bms if b == min(bms) or b < 2 * rows]
+
+
 def enumerate_candidates(spec: SubgraphSpec):
     """Candidate configs on the H100.
 
     - reduce kind: ``block_rows`` rows (warps) a block, 1-16; the row stays
       whole (``block_cols`` = cols);
-    - matmul kind: ``block_rows`` x ``block_cols`` output tiles (rows
-      16-128 bf16 / 16-64 f32; cols 64, 128, 256 below cols, and cols
-      itself), whole rows only when the chain reduces or has a rowwise op;
-      ``grid_order`` both rasters when the grid is 2-D and unsplit;
-      ``block_k`` the split-K slices 128-1024 that divide K (and K), for
-      K-tilable chains.
+    - matmul kind: ``block_rows`` x ``block_cols`` output tiles (bf16: rows
+      16-128, cols 64, 128, 256 below cols, and cols itself; f32: the same
+      widths rounded up to a power of two, rows such that a thread holds 8
+      x 8 or 4 x 8 outputs: 128 x 128, 128 x 64, 64 x 128, ..., 32 x 512
+      and 16 x 512 for a row of 512), whole rows only when the chain
+      reduces or has a rowwise op; ``grid_order`` both rasters when the
+      grid is 2-D and unsplit; ``block_k`` the split-K slices 64-1024 that
+      divide K into at most 8 (a cluster), and K, for K-tilable chains.
     """
     rows, cols = spec.rows, spec.cols
     if spec.kind == "reduce":
         return [{"block_rows": w, "block_cols": cols, "grid_order": "rows_first"}
                 for w in _ROW_WARPS if w == 1 or w <= rows]
-    bms = [b for b in _MM_BM.get(_mm_dtype(spec), (16, 32, 64)) if b == 16 or b < 2 * rows]
     bcs = ([b for b in _MM_BN if b < cols] if spec.col_tilable else []) + [cols]
     K = spec.k_dims[0] if spec.k_dims else 0
-    bks = ([b for b in _SPLIT_K if b < K and K % b == 0] + [K]) if spec.k_tilable and K else [None]
+    bks = [None]
+    if spec.k_tilable and K:
+        bks = [b for b in _SPLIT_K if b < K and K % b == 0 and K // b <= _MAX_SPLITS] + [K]
     out, tiles = [], set()
-    for br in bms:
-        for bc in bcs:
+    for bc in bcs:
+        for br in _row_blocks(spec, bc):
             bm, bn = _tile(spec, {"block_rows": br, "block_cols": bc})
             if not _tile_fits(spec, bm, bn) or (bm, bn) in tiles:
                 continue  # a tile of its granule's width is one kernel, enumerated once
+            if candidate_smem_bytes(spec, {"block_rows": br, "block_cols": bc}) > _SMEM_BUDGET:
+                continue
             tiles.add((bm, bn))
             gm, gn = -(-rows // bm), -(-cols // bc)
             for bk in bks:
@@ -723,54 +747,47 @@ def _k_split(spec, config):
     return K, 1
 
 
+def _ring_stages(stage_bytes):
+    """The copy ring's stages (csrc/codegen/sched_chain.cuh: ring_stages):
+    as many as leave room for two blocks an SM, between 2 and 4."""
+    return min(4, max(2, _SMEM_BUDGET // 2 // stage_bytes))
+
+
 def candidate_smem_bytes(spec: SubgraphSpec, config: dict) -> int:
     """Shared memory a block of the candidate takes: none for the reduce
-    kind (a row lives in registers); the matmul kind's staged operand tiles
-    or its f32 accumulator tile, whichever is larger (and the split's
-    combine launch, eight rows of sums, for a reducing chain)."""
+    kind (a row lives in registers); the matmul kind's ring of operand
+    stages (f32: x's k-major tile and w's, two stages 32 deep, 16 for 8 x
+    8 tiles of 512 columns, 8 from 1,024 columns; bf16: 32 deep, 16 above
+    1,024 columns) or its f32 product tile, whichever is larger.  A split's cluster merge reads the product tiles where they
+    lie."""
     if spec.kind == "reduce":
         return 0
     bm, bn = _tile(spec, config)
     if _mm_dtype(spec) == torch.float32:
-        stage = (16 * (bm + 4) + 16 * (bn + 4)) * 4
+        bk = 8 if bn >= 1024 else 16 if bn >= 512 and bm * bn == 256 * 64 else 32
+        ring = 2 * (bk * (bm + 4) + bk * bn) * 4  # x through registers: two stages
     else:
-        stage = (bm * 40 + 32 * (bn + 8)) * 2
-    smem = max(stage, bm * (bn + 4) * 4)
-    if _k_split(spec, config)[1] > 1 and spec.has_reduce:
-        smem = max(smem, 8 * spec.cols * 4)
-    return smem
+        bk = 16 if bn > 1024 else 32
+        stage = (bm * (bk + 8) + bk * (bn + 8)) * 2
+        ring = _ring_stages(stage) * stage
+    return max(ring, bm * (bn + 4) * 4)
 
 
-def candidate_roofline_ms(spec: SubgraphSpec, config: dict, cost_model=None) -> float:
-    """Roofline estimate (``cost_model.flops_time``) with the JAX package's
-    traffic model: an operand indexed by the column block is re-fetched
-    once per row block under ``rows_first``, one indexed by the row block
-    once per column block under ``cols_first``; a split re-streams x per
-    column block and w per row block and writes and reads its f32
-    partials.  A latency term adds what the blocks do in sequence: waves
-    of blocks (a matmul block an SM, a reduce warp of 64 an SM) times each
-    block's serial steps (its K loop, or its row's column groups), and the
-    split's combine launch; it breaks ties between configs of equal
-    traffic and lets a split-K config rank ahead where few output tiles
-    would leave SMs idle."""
-    if cost_model is None:
-        from paddle_tpu_torch.cost_model import OpCostModel
-
-        cost_model = OpCostModel(spec.device)
+def candidate_traffic_bytes(spec: SubgraphSpec, config: dict) -> float:
+    """Device-memory bytes of the candidate, the JAX package's traffic
+    model: an operand indexed by the column block is re-fetched once per
+    row block under ``rows_first``, one indexed by the row block once per
+    column block under ``cols_first``; a split re-streams x per column
+    block and w per row block (its partials stay in the cluster's shared
+    memory)."""
     rows, cols = spec.rows, spec.cols
-    if spec.kind == "reduce":
-        bm, bn = int(config["block_rows"]), cols
-    else:
-        bm, bn = int(config["block_rows"]), int(config["block_cols"])
+    bm = int(config["block_rows"])
+    bn = cols if spec.kind == "reduce" else int(config["block_cols"])
     gm, gn = -(-rows // bm), -(-cols // bn)
-    bk, gk = _k_split(spec, config)
+    gk = _k_split(spec, config)[1]
     order = config.get("grid_order", "rows_first")
     tiled = gn > 1
-    flops = sum(2.0 * rows * k * cols for k in spec.k_dims)
-    flops += (len(spec.ops) - len(spec.k_dims)) * rows * cols
     traffic = float(np.prod(spec.out_shape)) * spec.out_dtype.itemsize
-    if gk > 1:
-        traffic += 2.0 * gk * rows * cols * 4
     for e in spec.ext:
         sz = float(np.prod(e.shape)) * e.dtype.itemsize
         if gk > 1 and e.role == "xrow":
@@ -783,12 +800,39 @@ def candidate_roofline_ms(spec: SubgraphSpec, config: dict, cost_model=None) -> 
             traffic += sz * (gn if order == "cols_first" else 1)
         else:
             traffic += sz
+    return traffic
+
+
+def candidate_roofline_ms(spec: SubgraphSpec, config: dict, cost_model=None) -> float:
+    """Roofline estimate (``cost_model.flops_time``) of the candidate's
+    operations and ``candidate_traffic_bytes``, plus a latency term for
+    what the blocks do in sequence: waves of blocks (a matmul block an SM,
+    a reduce warp of 64 an SM) times each block's serial steps (its K
+    loop: a bf16 step, or an f32 one scaled by the outputs a thread holds;
+    or its row's column groups), and a split's cluster merge a wave; it
+    breaks ties between configs of equal traffic and lets a split-K config
+    rank ahead where few output tiles would leave SMs idle."""
+    if cost_model is None:
+        from paddle_tpu_torch.cost_model import OpCostModel
+
+        cost_model = OpCostModel(spec.device)
+    rows, cols = spec.rows, spec.cols
+    flops = sum(2.0 * rows * k * cols for k in spec.k_dims)
+    flops += (len(spec.ops) - len(spec.k_dims)) * rows * cols
+    traffic = candidate_traffic_bytes(spec, config)
     if spec.kind == "reduce":
-        waves = math.ceil(gm / (_SMS * max(1, 64 // bm)))
+        bm = int(config["block_rows"])
+        waves = math.ceil(-(-rows // bm) / (_SMS * max(1, 64 // bm)))
         latency = waves * math.ceil(cols / 32) * _ROW_STEP_S
     else:
-        waves = math.ceil(gm * gn * gk / _SMS)
-        latency = waves * math.ceil(bk / 32) * _K_STEP_S + (_LAUNCH_S if gk > 1 else 0.0)
+        bm, bn = int(config["block_rows"]), int(config["block_cols"])
+        bk, gk = _k_split(spec, config)
+        waves = math.ceil(-(-rows // bm) * -(-cols // bn) * gk / _SMS)
+        step = _K_STEP_S
+        if _mm_dtype(spec) == torch.float32:
+            tbm, tbn = _tile(spec, config)
+            step = _K_STEP_F32_S * tbm * tbn / (256 * 64)
+        latency = waves * (math.ceil(bk / 32) * step + (_MERGE_S if gk > 1 else 0.0))
     return (cost_model.flops_time(flops, traffic) + latency) * 1e3
 
 
@@ -872,6 +916,9 @@ class _SubgraphKernel:
             if (spec.has_reduce or spec.out_cols != spec.cols) and self.bn < spec.cols:
                 raise ValueError("a reducing chain needs tiles that own whole rows")
             self.bk, self.gk = _k_split(spec, config)
+            if self.gk > 1 and (self.gk > _MAX_SPLITS or self.bk % 16):
+                raise ValueError(f"block_k {self.bk}: a split takes slices of a multiple of "
+                                 f"16 in at most {_MAX_SPLITS} blocks (a cluster), not {self.gk}")
         self.chain = _subgraph_chain(spec)
         self.reference = build_reference(spec)
         self._wide = {}
@@ -925,7 +972,6 @@ class _SubgraphKernel:
             lds.append(0)
         out = torch.empty((spec.rows, spec.out_cols), dtype=spec.out_dtype, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
-        ws = None
         if spec.kind == "reduce":
             a = codegen.args_block(ptrs, lds, out.data_ptr())
             with torch.cuda.device(dev):
@@ -936,17 +982,15 @@ class _SubgraphKernel:
             wi = next(i for i, e in enumerate(spec.ext) if e.role == "weight")
             x, w = keep[xi], keep[wi]
             K, N = x.shape[1], w.shape[1]
-            vec = int(x.dtype == torch.bfloat16 and K % 8 == 0 and N % 8 == 0
-                      and lds[xi] % 8 == 0 and lds[wi] % 8 == 0
-                      and x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0)
+            per = 16 // x.element_size()  # elements in 16 bytes
+            vec = int(K % per == 0 and N % per == 0 and lds[xi] % per == 0
+                      and lds[wi] % per == 0 and x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0)
+            a = codegen.args_block(ptrs, lds, out.data_ptr())
             if self.gk > 1:
-                ws = torch.empty(self.gk * spec.rows * N, dtype=torch.float32, device=dev)
-                a = codegen.args_block(ptrs, lds, out.data_ptr(), ws.data_ptr())
                 with torch.cuda.device(dev):
                     err = fn(ctypes.byref(a), spec.rows, N, K, self.bk, vec, stream)
                 counter = "sched_chain_ktiled"
             else:
-                a = codegen.args_block(ptrs, lds, out.data_ptr())
                 cols_first = int(self.config.get("grid_order") == "cols_first")
                 with torch.cuda.device(dev):
                     err = fn(ctypes.byref(a), spec.rows, N, K, cols_first, vec, stream)

@@ -65,9 +65,8 @@ def empty(shape, dtype):
     return to_numpy(torch.empty(shape, dtype=dtype))
 
 
-def args(arrays, lds, out, ws=None):
-    return codegen.args_block([a.ctypes.data for a in arrays], lds, out.ctypes.data,
-                              None if ws is None else ws.ctypes.data)
+def args(arrays, lds, out):
+    return codegen.args_block([a.ctypes.data for a in arrays], lds, out.ctypes.data)
 
 
 def run_elementwise(kernel, tensors):
@@ -82,9 +81,12 @@ def run_elementwise(kernel, tensors):
     return from_numpy(out, kernel.dtype)
 
 
-def run_subgraph(spec, tensors, block_k=0):
-    """A SubgraphSpec's generated code on the CPU (the product, if any, in
-    f32 with its K slices of ``block_k`` summed in k order)."""
+def run_subgraph(spec, tensors, block_k=0, block_rows=0):
+    """A SubgraphSpec's generated code on the CPU.  The product, if any, is
+    taken in f32 as the card's cluster split-K takes it: each K slice of
+    ``block_k`` summed apart, then, in each block of ``block_rows`` rows,
+    the rows dealt among the slices' ranks, each summing its rows'
+    partials in k order before the epilogue (0: the whole K, all rows)."""
     from paddle_tpu_torch.static import schedule_search as ss
 
     chain = ss._subgraph_chain(spec)
@@ -109,6 +111,6 @@ def run_subgraph(spec, tensors, block_k=0):
         x = next(t for e, t in zip(spec.ext, tensors) if e.role == "xrow")
         w = next(t for e, t in zip(spec.ext, tensors) if e.role == "weight")
         fn = lib.pt_host_mm
-        fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 4
-        fn(ctypes.byref(a), spec.rows, w.shape[1], x.shape[-1], block_k)
+        fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 5
+        fn(ctypes.byref(a), spec.rows, w.shape[1], x.shape[-1], block_k, block_rows)
     return from_numpy(out, spec.out_dtype).reshape(spec.out_shape)

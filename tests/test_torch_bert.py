@@ -159,5 +159,5 @@ def test_ernie_names_alias_bert():
 
 def test_dropout_in_training_raises_naming_the_roadmap():
     tm = tbert.BertForSequenceClassification(tbert.bert_tiny(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A item 2"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A.3.2"):
         tm(torch.ones(1, 4, dtype=torch.int32))

@@ -100,3 +100,43 @@ def test_unported_config_values_raise_naming_their_item(field, value, item):
     cfg = tllama.llama_tiny(num_hidden_layers=1, **{field: value})
     with pytest.raises(NotImplementedError, match=f"{field}.*ROADMAP.md {item}"):
         tllama.LlamaForCausalLM(cfg, device="cpu")
+
+
+def _raiser(case):
+    """A call of the port that raises NotImplementedError naming a ROADMAP
+    item (the message's item, then the call)."""
+    from paddle_tpu_torch import static as tstatic
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.nn import functional as tF
+    from paddle_tpu_torch.nn.layer.common import Embedding
+    from paddle_tpu_torch.static.passes import apply_pass
+
+    x = torch.ones(2, 4)
+    calls = {
+        "scaler": ("A.3.1", lambda: TrainStep(None, None, None, scaler=object())),
+        "lower": ("A.1.3", lambda: TrainStep(None, None, None).lower()),
+        "warmup": ("A.1.3", lambda: TrainStep(None, None, None).warmup()),
+        "dropout": ("A.3.2", lambda: tF.dropout(x, p=0.5, training=True)),
+        "regularizer": ("A.3.3", lambda: topt.SGD(0.1, parameters=[torch.nn.Parameter(x)],
+                                                  weight_decay=object())),
+        "adamw_regularizer": ("A.3.3", lambda: topt.AdamW(
+            0.1, parameters=[torch.nn.Parameter(x)], weight_decay=object())),
+        "sparse_embedding": ("A.3.5", lambda: Embedding(8, 4, sparse=True)),
+        "static_pass": ("A.5.6", lambda: apply_pass(tstatic.Program(), "weight_only_quant")),
+        "mesh_pass": ("A.6", lambda: apply_pass(tstatic.Program(), "auto_parallel_sharding")),
+    }
+    return calls[case]
+
+
+@pytest.mark.parametrize("case", ["scaler", "lower", "warmup", "dropout", "regularizer",
+                                  "adamw_regularizer", "sparse_embedding", "static_pass",
+                                  "mesh_pass"])
+def test_unported_calls_name_the_current_roadmap_item(case):
+    """Each message names the item of ROADMAP.md's queue A that ports it
+    (serving A.2, training A.3 with amp A.3.1, dropout A.3.2, regularizers
+    and the other optimizers A.3.3, sparse A.3.5; compiled steps A.1.3;
+    static A.5; distributed A.6), never a retired "queue A item" number."""
+    item, call = _raiser(case)
+    with pytest.raises(NotImplementedError) as err:
+        call()
+    assert f"ROADMAP.md {item}" in str(err.value) and "queue A item" not in str(err.value)

@@ -200,7 +200,7 @@ def test_norm_swiglu_kernels_refuse_what_they_do_not_take(cuda):
     with pytest.raises(TypeError, match="unsupported weight dtype"):
         ops.fused_rms_norm(x, torch.ones(64, device=cuda, dtype=torch.float64))
     with pytest.raises(TypeError, match="unsupported dtypes"):
-        ops.swiglu(x, x.float())
+        ops.swiglu(x.double(), x.double())
 
 
 @pytest.mark.parametrize("sq,sk,n,nkv,h,causal", [
@@ -970,8 +970,8 @@ def test_new_kernels_refuse_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="unit column stride"):
         ops.matmul_bias_act(x, torch.zeros(8, 64, device=cuda, dtype=torch.bfloat16).t())
     w = torch.ones(64, device=cuda, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="residual"):
-        ops.fused_layer_norm(x, w, w, residual=x.float())
+    with pytest.raises(ValueError, match="weight/bias"):
+        ops.fused_layer_norm(x, w[:32], w[:32], residual=x)
 
 
 def test_static_bert_runs_the_new_kernels(cuda):
@@ -1143,30 +1143,105 @@ _SCHED_CASES = {
 }
 
 
-@pytest.mark.parametrize("case", sorted(_SCHED_CASES))
-def test_sched_chain_every_config(cuda, case):
-    """#12 and #13: every enumerated config of each subgraph (the split-K
-    ones too) against the replay on the same inputs, within the parity
-    gate's tolerance; each launch counted on its own kernel."""
+# chip_smoke.py's five cases at their shapes (bench_schedule_search.py's
+# programs, BERT-base's pooler and attention logits)
+_SMOKE_CASES = {
+    "smoke_softmax_f32": (_softmax_dag, [("x", (8, 128, 512), "float32")]),
+    "smoke_pooler_bf16": (_linear_tanh, [("x", (32, 768), "bfloat16"),
+                                         ("w", (768, 768), "bfloat16"), ("b", (768,), "bfloat16")]),
+    "smoke_softmax_bf16": (_softmax_dag, [("x", (32, 12, 128, 128), "bfloat16")]),
+    "smoke_matmul_mean_f32": (_matmul_mean, [("x", (1024, 512), "float32"),
+                                             ("w", (512, 512), "float32"),
+                                             ("b", (512,), "float32")]),
+    "smoke_ktiled_f32": (_relu_linear, [("x", (1024, 2048), "float32"),
+                                        ("w", (2048, 1024), "float32"),
+                                        ("b", (1024,), "float32")]),
+}
+# M, N and K off every tile; K = 600 split 2 to 8 ways in slices that do
+# not divide it (f32 N 130 takes the scalar copies, the others 16 bytes)
+_RAGGED_CASES = {
+    "ragged_relu_linear_f32": (_relu_linear, [("x", (100, 600), "float32"),
+                                              ("w", (600, 130), "float32"),
+                                              ("b", (130,), "float32")]),
+    "ragged_matmul_mean_f32": (_matmul_mean, [("x", (100, 600), "float32"),
+                                              ("w", (600, 132), "float32"),
+                                              ("b", (132,), "float32")]),
+    "ragged_pooler_bf16": (_linear_tanh, [("x", (50, 600), "bfloat16"),
+                                          ("w", (600, 200), "bfloat16"),
+                                          ("b", (200,), "bfloat16")]),
+    "ragged_matmul_mean_bf16": (_matmul_mean, [("x", (70, 600), "bfloat16"),
+                                               ("w", (600, 96), "bfloat16"),
+                                               ("b", (96,), "bfloat16")]),
+}
+
+
+@pytest.fixture(scope="module")
+def sched_specs():
+    """Every subgraph spec of this file, its generated source built with
+    the others (one nvcc each, all together) before the first test."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the hand-written kernels have no CPU mode")
+    from paddle_tpu_torch.ops import _cuda_build
+
+    cases = {**_SCHED_CASES, **_SMOKE_CASES, **_RAGGED_CASES}
+    specs = {name: _sched_spec(build, *feeds, device=torch.device("cuda"))
+             for name, (build, feeds) in cases.items()}
+    _cuda_build.build_generated([sp.source() for sp in specs.values()])
+    return specs
+
+
+def _check_config(spec, cfg, args, want, case):
     from paddle_tpu_torch.static import schedule_search as ss
 
-    build, feeds = _SCHED_CASES[case]
-    spec = _sched_spec(build, *feeds, device=cuda)
+    fn = spec.build(cfg)
+    split = bool(cfg.get("block_k")) and cfg["block_k"] < spec.k_dims[0]
+    name = "sched_chain_ktiled" if split else "sched_chain"
+    before = ops.launch_counts()
+    got = fn(*args)
+    after = ops.launch_counts()
+    assert after[name] == before[name] + 1, (case, cfg)  # one launch: no combine launch
+    assert sum(after.values()) == sum(before.values()) + 1, (case, cfg)
+    rtol, atol = ss.parity_tolerance(spec.out_dtype, want)
+    err = float((got.float() - want.float()).abs().max())
+    assert got.shape == want.shape and torch.allclose(
+        got.float(), want.float(), rtol=rtol, atol=atol), (case, cfg, err, atol)
+
+
+@pytest.mark.parametrize("case", sorted(_SCHED_CASES) + sorted(_SMOKE_CASES))
+def test_sched_chain_every_config(cuda, sched_specs, case):
+    """#12 and #13: every enumerated config of each subgraph (the split-K
+    ones, merged inside a cluster, too) against the replay on the same
+    inputs, within the parity gate's tolerance; each call one launch,
+    counted on its own kernel."""
+    spec = sched_specs[case]
     args = spec.synthetic_args()
     want = spec.reference()(*args)
     configs = spec.enumerate_configs()
     assert configs
-    rtol, atol = ss.parity_tolerance(spec.out_dtype, want)
     for cfg in configs:
-        fn = spec.build(cfg)
-        split = bool(cfg.get("block_k")) and cfg["block_k"] < spec.k_dims[0]
-        name = "sched_chain_ktiled" if split else "sched_chain"
-        before = ops.launch_counts()[name]
-        got = fn(*args)
-        assert ops.launch_counts()[name] == before + 1, (case, cfg)
-        err = float((got.float() - want.float()).abs().max())
-        assert got.shape == want.shape and torch.allclose(
-            got.float(), want.float(), rtol=rtol, atol=atol), (case, cfg, err, atol)
+        _check_config(spec, cfg, args, want, case)
+
+
+@pytest.mark.parametrize("case", sorted(_RAGGED_CASES))
+def test_sched_chain_ragged_every_split(cuda, sched_specs, case):
+    """Every tile of the space at M, N and K off the tile, whole and split
+    2 to 8 ways in slices (multiples of 16) that leave a short last one,
+    against the replay at the parity gate's tolerance."""
+    from paddle_tpu_torch.static import schedule_search as ss
+
+    spec = sched_specs[case]
+    args = spec.synthetic_args()
+    want = spec.reference()(*args)
+    K = spec.k_dims[0]
+    tiles = {(c["block_rows"], c["block_cols"]) for c in spec.enumerate_configs()}
+    assert tiles
+    for br, bc in sorted(tiles):
+        base = {"block_rows": br, "block_cols": bc, "grid_order": "rows_first"}
+        _check_config(spec, base, args, want, case)
+        for gk in range(2, ss._MAX_SPLITS + 1):
+            bk = -(-(-(-K // gk)) // 16) * 16
+            assert -(-K // bk) == gk and K % bk
+            _check_config(spec, dict(base, block_k=bk), args, want, case)
 
 
 def test_sched_chain_executor_searches_on_the_card(cuda, tmp_path):
@@ -1197,3 +1272,120 @@ def test_sched_chain_executor_searches_on_the_card(cuda, tmp_path):
     finally:
         set_flags({"FLAGS_autotune_cache_dir": "", "FLAGS_schedule_search": False})
         at._CACHES.clear()
+
+
+# ------------------------------------------ layouts the reference takes
+
+
+def _row_case(cuda, case):
+    """(x, residual) of a layout the kernels cannot take as they lie."""
+    g = torch.Generator(device=cuda).manual_seed(41)
+    bf = torch.bfloat16
+    if case == "residual_f32":
+        return _rand_dtype(g, 37, 512, dtype=bf, device=cuda), torch.randn(
+            37, 512, generator=g, device=cuda)
+    if case == "residual_broadcast":
+        return (_rand_dtype(g, 37, 512, dtype=bf, device=cuda),
+                _rand_dtype(g, 512, dtype=bf, device=cuda))
+    if case == "strided_rows":
+        wide = _rand_dtype(g, 37, 1024, dtype=bf, device=cuda)
+        return wide[:, :512], _rand_dtype(g, 512, 37, dtype=bf, device=cuda).t()
+    # a row above the Triton kernels' one block: the RMSNorm reads it in passes,
+    # the LayerNorm takes its wide kernel
+    return (_rand_dtype(g, 3, 70000, dtype=bf, device=cuda),
+            _rand_dtype(g, 3, 70000, dtype=bf, device=cuda))
+
+
+@pytest.mark.parametrize("kind", ["rms", "layer"])
+@pytest.mark.parametrize("case", ["residual_f32", "residual_broadcast", "strided_rows", "wide"])
+def test_norm_kernels_take_what_the_reference_takes(cuda, kind, case):
+    """A residual of another dtype or shape (added first, promoting and
+    broadcasting, then the kernel on the sum), strided rows and residuals
+    (made dense), hidden 70,000: the kernel runs (one launch) and matches
+    the plain version of the same sum."""
+    from paddle_tpu_torch.ops.fused_norm import layer_norm_plain
+
+    x, r = _row_case(cuda, case)
+    hidden = x.shape[-1]
+    g = torch.Generator(device=cuda).manual_seed(42)
+    w = (1 + 0.1 * torch.randn(hidden, generator=g, device=cuda)).to(torch.bfloat16)
+    b = (0.1 * torch.randn(hidden, generator=g, device=cuda)).to(torch.bfloat16)
+    name = "fused_rms_norm" if kind == "rms" else "fused_layer_norm"
+    before = ops.launch_counts()[name]
+    if kind == "rms":
+        out, s = ops.fused_rms_norm(x, w, residual=r)
+        want = rms_norm_plain(x + r, w, 1e-6)
+    else:
+        out, s = ops.fused_layer_norm(x, w, b, residual=r)
+        want = layer_norm_plain(x + r, w, b, 1e-5)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()[name] == before + 1
+    assert torch.equal(s, x + r) and out.dtype == want.dtype and out.shape == want.shape
+    tol = DTYPE_TOL[want.dtype]
+    torch.testing.assert_close(out.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("case", ["strided_columns", "transposed", "x_bf16_y_f32",
+                                  "x_f32_y_bf16"])
+def test_swiglu_kernel_takes_what_the_reference_takes(cuda, case):
+    """Halves with a column stride (made dense), and operands of two dtypes
+    (both promoted for the kernel, the result in x's dtype as the
+    reference writes it): one launch, within the plain version's
+    tolerance."""
+    g = torch.Generator(device=cuda).manual_seed(43)
+    bf = torch.bfloat16
+    if case == "strided_columns":
+        buf = _rand_dtype(g, 37, 4 * 688, dtype=bf, device=cuda)
+        x, y = buf[:, 0::4], buf[:, 1::4]
+    elif case == "transposed":
+        x = _rand_dtype(g, 688, 37, dtype=bf, device=cuda).t()
+        y = _rand_dtype(g, 688, 37, dtype=bf, device=cuda).t()
+    else:
+        xd, yd = (bf, torch.float32) if case == "x_bf16_y_f32" else (torch.float32, bf)
+        x = _rand_dtype(g, 37, 688, dtype=xd, device=cuda)
+        y = _rand_dtype(g, 37, 688, dtype=yd, device=cuda)
+    before = ops.launch_counts()["swiglu"]
+    got = ops.swiglu(x, y)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["swiglu"] == before + 1 and got.dtype == x.dtype
+    torch.testing.assert_close(got.float(), swiglu_plain(x, y).float(), atol=TOL, rtol=TOL)
+
+
+def test_f16_engine_with_the_search_serves_the_unsearched_stream(cuda, tmp_path):
+    """An f16 llama_tiny (head_dim 64) with FLAGS_schedule_search on: no
+    chain kernel takes f16, so the search refuses both chains before
+    building them and the engine serves the same greedy tokens as with the
+    search off."""
+    from paddle_tpu_torch import set_flags
+    from paddle_tpu_torch.models import LlamaForCausalLM, llama_tiny
+    from paddle_tpu_torch.ops import autotune as at
+    from paddle_tpu_torch.serving import GenerationEngine
+    from paddle_tpu_torch.static import schedule_search as ss
+
+    g = torch.Generator(device=cuda).manual_seed(44)
+    model = LlamaForCausalLM(llama_tiny(dtype="float16"), device=cuda, generator=g)
+    prompts = {"a": [int(t) for t in torch.randint(1, 1000, (150,), generator=g,
+                                                    device=cuda)], "b": [5, 9, 17, 33]}
+
+    def serve():
+        eng = GenerationEngine(model, max_batch=2, block_size=16, num_blocks=64, device=cuda,
+                               decode_chunk=4, prefill_chunk=64)
+        for rid, p in prompts.items():
+            eng.add_request(rid, p, max_new_tokens=8)
+        while eng.has_work():
+            eng.step()
+        return eng, {rid: eng.result(rid) for rid in prompts}
+
+    _, want = serve()
+    set_flags({"FLAGS_autotune_cache_dir": str(tmp_path), "FLAGS_schedule_search": True})
+    at._CACHES.clear()
+    ss.reset_schedule_search_stats()
+    try:
+        eng, got = serve()
+        stats = ss.schedule_search_stats()
+    finally:
+        set_flags({"FLAGS_autotune_cache_dir": "", "FLAGS_schedule_search": False})
+        at._CACHES.clear()
+    assert got == want
+    assert eng.decode_decision.status == eng.prefill_decision.status == "disabled"
+    assert stats["refused"] >= 2 and stats["measured"] == 0, stats

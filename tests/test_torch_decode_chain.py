@@ -217,7 +217,8 @@ def tmp_cache(tmp_path):
 
 
 def _spec(kv="bf16", **kw):
-    base = dict(batch=2, num_heads=4, num_kv_heads=2, head_dim=8, block_size=4, max_blocks=2,
+    """A small geometry a card kernel takes (head_dim 64, group 2)."""
+    base = dict(batch=2, num_heads=4, num_kv_heads=2, head_dim=64, block_size=4, max_blocks=2,
                 num_blocks=8, kv=kv, dtype=torch.float32)
     base.update(kw)
     return dc.DecodeChainSpec(**base)
@@ -268,10 +269,10 @@ def test_traffic_bytes_hand_computed():
                   tables 2*2*8 = 32, lens 16
       rows, 2 splits: partials 2*2*4*2*(8+2)*4 = 1280 more."""
     fixed = 512 + 256 + 32 + 16
-    assert list(_spec().synthetic_lens()) == [2, 8]
-    assert _spec("bf16").traffic_bytes({"layout": "batch"}) == 1280 + 256 + fixed
-    assert _spec("int8").traffic_bytes({"layout": "batch"}) == 368 + 288 + fixed
-    assert _spec("int8").traffic_bytes({"layout": "rows", "splits": 2}) == \
+    assert list(_spec(head_dim=8).synthetic_lens()) == [2, 8]
+    assert _spec("bf16", head_dim=8).traffic_bytes({"layout": "batch"}) == 1280 + 256 + fixed
+    assert _spec("int8", head_dim=8).traffic_bytes({"layout": "batch"}) == 368 + 288 + fixed
+    assert _spec("int8", head_dim=8).traffic_bytes({"layout": "rows", "splits": 2}) == \
         368 + 288 + fixed + 1280
 
 
@@ -352,6 +353,58 @@ def test_refused_candidates_skip_and_other_errors_propagate(tmp_cache):
 
     with ss.measure_override(_win), pytest.raises(RuntimeError, match="700"):
         ss.ScheduleSearcher().search(BrokenSpec(**_spec("bf16", batch=3).__dict__))
+
+
+@pytest.mark.parametrize("kw", [dict(dtype=torch.float16), dict(head_dim=32),
+                                dict(kv="int8", dtype=torch.float16),
+                                dict(num_heads=32, num_kv_heads=2),
+                                dict(dtype="float16")])  # a model config's dtype name
+def test_geometry_no_card_kernel_takes_is_refused_and_disabled(tmp_cache, kw):
+    """An f16 model, head_dim 32 or a group of 16: no route of the card
+    takes it, so ``build`` refuses every candidate before anything is
+    built (``refused``), nothing is measured, and the verdict is
+    ``disabled``, as the JAX package's parity gate prunes a candidate that
+    raises."""
+    calls = []
+    with ss.measure_override(_counting(calls)):
+        d = dc.ensure_decision(_spec(**kw))
+    stats = ss.schedule_search_stats()
+    assert d.status == "disabled" and calls == []
+    assert stats["refused"] >= 1 and stats["disabled"] == 1
+    # every candidate the rankings kept was refused: none built, none timed
+    assert (stats["refused"] + stats["pruned_roofline"] + stats["pruned_smem"]
+            == stats["candidates"] == len(_spec(**kw).enumerate_configs()))
+    assert stats["measured"] == 0 and stats["pruned_parity"] == 0
+
+
+def _prefill_refused(dtype, h):
+    try:
+        dc._check_prefill(*[torch.zeros(1, 64, 2, h, dtype=dtype)] * 3)
+    except (TypeError, ValueError) as err:
+        return str(err)
+    return None
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32, torch.float16])
+@pytest.mark.parametrize("h", [32, 64, 128, 256])
+@pytest.mark.parametrize("group", [1, 8, 16])
+def test_refusal_is_the_launch_rule(dtype, h, group):
+    """``decode_refusal`` and ``prefill_refusal`` (what ``build`` asks)
+    refuse exactly what the launches' checks refuse, with their words."""
+    for pool in (dtype, torch.int8):
+        try:
+            dc._decode_route(dtype, pool, h, group)
+            launch = None
+        except (TypeError, ValueError) as err:
+            launch = str(err)
+        assert dc.decode_refusal(dtype, pool, h, group) == launch
+    assert dc.prefill_refusal(dtype, h) == _prefill_refused(dtype, h)
+    spec = dc.PrefillChainSpec(seq=64, kv_len=128, num_heads=2, head_dim=h, dtype=dtype)
+    if _prefill_refused(dtype, h) is None:
+        assert spec.build({"block_q": 64}).keywords == {"block_q": 64}
+    else:
+        with pytest.raises(ValueError, match=r"bf16 or f32|head_dim"):
+            spec.build({"block_q": 64})
 
 
 def test_search_persists_and_cold_reload_never_remeasures(tmp_cache):

@@ -43,7 +43,10 @@ def _ids(seed, b, s, vocab=1024):
 
 
 def _logits_pair(jm, tm, ids):
-    want = np.asarray(jm(paddle.to_tensor(ids))._value)
+    """The port's logits and the JAX model's, its forward compiled whole
+    (``paddle.jit.to_static``, under the flags set now) rather than op by
+    op: the same logits within 1e-6."""
+    want = np.asarray(paddle.jit.to_static(jm.forward)(paddle.to_tensor(ids))._value)
     with torch.no_grad():
         got = tm(torch.from_numpy(ids)).numpy()
     return got, want

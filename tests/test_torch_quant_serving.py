@@ -42,6 +42,16 @@ LONG = [int(t) for t in np.random.default_rng(9).integers(1, 128, 150)]  # 2 chu
 PAD_LEN = 192
 
 
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """torch on one thread: the engines' token-by-token ops are tiny, and a
+    thread pool only spins beside the other test workers."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def tiny():
     """test_torch_serving's model, with a rope table long enough for LONG."""
@@ -54,6 +64,18 @@ def tiny():
     return jm, tm
 
 
+_COMPILED = {}
+
+
+def _compiled(jm):
+    """The JAX model's forward compiled whole (``paddle.jit.to_static``),
+    once a model: the same logits as its eager forward (within 1e-6),
+    without compiling op by op on every new pad."""
+    if id(jm) not in _COMPILED:
+        _COMPILED[id(jm)] = (jm, paddle.jit.to_static(jm.forward))
+    return _COMPILED[id(jm)][1]
+
+
 def _assert_margins(jm, prompt, stream):
     """Every greedy token of ``stream`` won its step by more than MARGIN on
     the JAX model's full-precision forward (test_torch_serving's check at
@@ -61,7 +83,7 @@ def _assert_margins(jm, prompt, stream):
     seq = list(prompt) + list(stream[:-1])
     ids = np.zeros((1, PAD_LEN), np.int32)
     ids[0, :len(seq)] = seq
-    logits = np.asarray(jm(paddle.to_tensor(ids))._value)[0, len(prompt) - 1:len(seq)]
+    logits = np.asarray(_compiled(jm)(paddle.to_tensor(ids))._value)[0, len(prompt) - 1:len(seq)]
     top2 = np.sort(logits, axis=-1)[:, -2:]
     assert np.argmax(logits, -1).tolist() == list(stream)
     assert (top2[:, 1] - top2[:, 0]).min() > MARGIN
@@ -147,6 +169,18 @@ def test_int8_pools_hold_half_the_bytes(tiny):
 # ------------------------------------------------------- the chained engine
 
 
+@pytest.fixture(scope="module")
+def tiny64():
+    """A port-only model whose attention the card's chain kernels take
+    (head_dim 64, two query heads a kv head; the search refuses head_dim
+    8), seeded random weights: the chained tests compare the port with
+    itself."""
+    cfg = dict(CFG, hidden_size=128, num_attention_heads=2, num_key_value_heads=1,
+               max_position_embeddings=256)
+    g = torch.Generator().manual_seed(43)
+    return None, tllama.LlamaForCausalLM(tllama.llama_tiny(**cfg), device="cpu", generator=g)
+
+
 @pytest.fixture()
 def search(tmp_path):
     set_flags({"FLAGS_autotune_cache_dir": str(tmp_path)})
@@ -179,8 +213,8 @@ def _serve(tm, **kw):
 
 
 @pytest.mark.parametrize("kv", ["bf16", "int8"])
-def test_chained_engine_matches_unchained(tiny, search, monkeypatch, kv):
-    _, tm = tiny
+def test_chained_engine_matches_unchained(tiny64, search, monkeypatch, kv):
+    _, tm = tiny64
     _, want = _serve(tm, kv_cache_dtype=kv, prefill_chunk=CHUNK)
     calls = {"decode": 0, "prefill": 0}
     decode, prefill = dc.fused_decode_step, dc.fused_prefill_attention
@@ -211,8 +245,8 @@ def test_chained_engine_matches_unchained(tiny, search, monkeypatch, kv):
     assert calls["decode"] == 2 * 2 * 4
 
 
-def test_losing_verdicts_keep_the_plain_ops(tiny, search, monkeypatch):
-    _, tm = tiny
+def test_losing_verdicts_keep_the_plain_ops(tiny64, search, monkeypatch):
+    _, tm = tiny64
     _, want = _serve(tm, kv_cache_dtype="int8", prefill_chunk=CHUNK)
 
     def refuse(*a, **k):
@@ -227,10 +261,32 @@ def test_losing_verdicts_keep_the_plain_ops(tiny, search, monkeypatch):
     stats = tserving.schedule_decode_stats()
     assert stats["decode_chains_disabled"] == 1 and stats["prefill_chains_disabled"] == 1
     assert eng._decode_chain_cfg is None and eng._prefill_chain_cfg is None
+    assert ss.schedule_search_stats()["refused"] == 0  # lost at the gate, not refused
 
 
-def test_cold_reload_serves_with_zero_measurements(tiny, search):
+def test_geometry_no_kernel_takes_is_disabled_and_served_plain(tiny, search, monkeypatch):
+    """head_dim 8: no card kernel takes the chains, so the search refuses
+    every candidate before building it and the engine keeps the plain ops,
+    serving the same stream as with the search off."""
     _, tm = tiny
+    _, want = _serve(tm, kv_cache_dtype="int8", prefill_chunk=CHUNK)
+
+    def refuse(*a, **k):
+        raise AssertionError("a refused chain ran")
+
+    monkeypatch.setattr(dc, "fused_decode_step", refuse)
+    monkeypatch.setattr(dc, "fused_prefill_attention", refuse)
+    set_flags({"FLAGS_schedule_search": True})
+    with ss.measure_override(_win):
+        eng, got = _serve(tm, kv_cache_dtype="int8", prefill_chunk=CHUNK)
+    assert got == want
+    stats = ss.schedule_search_stats()
+    assert stats["refused"] >= 2 and stats["measured"] == 0 and stats["disabled"] == 2
+    assert eng.decode_decision.status == eng.prefill_decision.status == "disabled"
+
+
+def test_cold_reload_serves_with_zero_measurements(tiny64, search):
+    _, tm = tiny64
     set_flags({"FLAGS_schedule_search": True})
     with ss.measure_override(_win):
         _, want = _serve(tm, kv_cache_dtype="int8", prefill_chunk=CHUNK)
@@ -250,8 +306,8 @@ def test_cold_reload_serves_with_zero_measurements(tiny, search):
     assert ss.schedule_search_stats()["cache_hits"] == 2
 
 
-def test_flag_change_rearms_engine_verdicts(tiny, search):
-    _, tm = tiny
+def test_flag_change_rearms_engine_verdicts(tiny64, search):
+    _, tm = tiny64
     set_flags({"FLAGS_schedule_search": True})
     with ss.measure_override(_win):
         eng = GenerationEngine(tm, max_batch=2, block_size=8, num_blocks=16, device="cpu",

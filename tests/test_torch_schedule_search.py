@@ -85,18 +85,20 @@ def _optypes(prog):
 
 # ------------------------------------------------------ the two programs
 
-def _jfeed(prog, name, shape):
-    return prog.add_feed(prog.new_var(jax.ShapeDtypeStruct(shape, np.float32), name))
+def _jfeed(prog, name, shape, dtype="float32"):
+    return prog.add_feed(prog.new_var(jax.ShapeDtypeStruct(shape, getattr(jax.numpy, dtype)),
+                                      name))
 
 
-def _programs(body, feeds):
-    """``body(pkg, F, *feeds)`` captured in both packages: [(prog, out)]."""
+def _programs(body, feeds, dtype="float32"):
+    """``body(pkg, F, *feeds)`` captured in both packages, every feed in
+    ``dtype``: [(prog, out)]."""
     jprog = jstatic.Program()
     with jstatic.program_guard(jprog):
-        jout = body(paddle, jF, *[_jfeed(jprog, n, s) for n, s in feeds])
+        jout = body(paddle, jF, *[_jfeed(jprog, n, s, dtype) for n, s in feeds])
     tprog = tstatic.Program()
     with tstatic.program_guard(tprog):
-        tout = body(torch, F, *[tstatic.data(n, list(s), "float32") for n, s in feeds])
+        tout = body(torch, F, *[tstatic.data(n, list(s), dtype) for n, s in feeds])
     return (jprog, jout), (tprog, tout)
 
 
@@ -264,7 +266,9 @@ def test_fetch_frontier_interior_vid_refused_via_rollback(caches):
 # ------------------------------------------------- candidates and pruning
 
 def test_candidate_space_and_pruning_order(caches):
-    feeds = [("x", (64, 16)), ("w", (16, 32)), ("b", (32,))]
+    # K 256: the f32 space's one whole-row tile at 32 columns (128 x 64),
+    # with K whole and split 2 and 4 ways
+    feeds = [("x", (64, 256)), ("w", (256, 32)), ("b", (32,))]
     _, (tprog, tout) = _programs(_matmul_chain, feeds)
     (spec,) = _specs(ProgramGraph, tss, tprog, tout)
     cands = tss.enumerate_candidates(spec)
@@ -288,7 +292,9 @@ def test_candidate_space_and_pruning_order(caches):
 
 
 def test_dimension_order_changes_roofline_traffic(caches):
-    feeds = [("x", (32, 16)), ("w", (16, 256)), ("b", (256,))]
+    # 256 rows: the f32 tiles (at least 32 rows at these widths) leave a
+    # 2-D grid, where both rasters are offered
+    feeds = [("x", (256, 16)), ("w", (16, 256)), ("b", (256,))]
     (jprog, jout), (tprog, tout) = _programs(_epilogue_chain, feeds)
     _, spec = _same_spec(jprog, jout, tprog, tout)
     assert spec.col_tilable
@@ -372,10 +378,12 @@ def test_accepted_schedule_served_from_cache_without_remeasure(caches):
 
 @pytest.mark.parametrize("m,k,n", [(32, 256, 64), (32, 256, 256), (256, 256, 64)])
 def test_ktiled_candidates_generated_code_matches_replay(caches, m, k, n):
-    """Every split of the contraction that the space offers (and the
-    whole K) runs the generated epilogue on its f32 sum of partials, in k
-    order, on the CPU, within the parity tolerance of the replay; on the
-    two square-dim aliasing twins too."""
+    """Every split of the contraction that the space offers (64 and 128:
+    at most 8 slices, and the whole K) runs the generated epilogue on its
+    f32 sum of partials as the cluster merge takes it (each rank's rows,
+    the slices in k order), for every tile's row block, on the CPU, within
+    the parity tolerance of the replay; on the two square-dim aliasing
+    twins too."""
     if codegen_host.compiler() is None:
         pytest.skip("no host C++ compiler to build the generated chain text")
     feeds = [("x", (m, k)), ("w", (k, n)), ("b", (n,))]
@@ -384,13 +392,14 @@ def test_ktiled_candidates_generated_code_matches_replay(caches, m, k, n):
     assert spec.k_tilable
     cands = tss.enumerate_candidates(spec)
     splits = sorted({c["block_k"] for c in cands})
-    assert splits == [128, k] and all(c["grid_order"] == "rows_first"
-                                      for c in cands if c["block_k"] < k)
+    assert splits == [64, 128, k] and all(c["grid_order"] == "rows_first"
+                                          for c in cands if c["block_k"] < k)
     args = spec.synthetic_args()
     want = spec.reference()(*args)
     rtol, atol = tss.parity_tolerance(spec.out_dtype, want)
-    for bk in splits:
-        got = codegen_host.run_subgraph(spec, args, block_k=bk)
+    for c in cands:
+        got = codegen_host.run_subgraph(spec, args, block_k=c["block_k"],
+                                        block_rows=c["block_rows"])
         torch.testing.assert_close(got, want, rtol=rtol, atol=atol)
 
 
@@ -404,20 +413,154 @@ def test_ktiled_reduce_tail_chain_generated_code(caches):
     args = spec.synthetic_args()
     want = spec.reference()(*args)
     rtol, atol = tss.parity_tolerance(spec.out_dtype, want)
-    for bk in (128, 256):
+    for bk in (64, 128, 256):
         torch.testing.assert_close(codegen_host.run_subgraph(spec, args, block_k=bk), want,
                                    rtol=rtol, atol=atol)
 
 
 def test_ktiled_roofline_costs_restreaming(caches):
     """At one tile a split models more traffic (x re-streamed per column
-    block, w per row block, the f32 partials written and read)."""
+    block, w per row block; its partials stay in the cluster's shared
+    memory, so none are written), and its ranking charges the merge."""
     feeds = [("x", (64, 512)), ("w", (512, 256)), ("b", (256,))]
     _, (tprog, tout) = _programs(_epilogue_chain, feeds)
     (spec,) = _specs(ProgramGraph, tss, tprog, tout)
     base = {"block_rows": 32, "block_cols": 128, "grid_order": "rows_first"}
-    assert (tss.candidate_roofline_ms(spec, dict(base, block_k=128))
-            > tss.candidate_roofline_ms(spec, dict(base, block_k=512)))
+    split, whole = dict(base, block_k=128), dict(base, block_k=512)
+    assert tss.candidate_traffic_bytes(spec, split) > tss.candidate_traffic_bytes(spec, whole)
+    # gm = gn = 2: both read w once per row block; the split reads x once
+    # per column block, the whole K once
+    assert (tss.candidate_traffic_bytes(spec, split) - tss.candidate_traffic_bytes(spec, whole)
+            == (2 - 1) * 64 * 512 * 4)
+
+
+# ------------------------------------------------- the H100 space itself
+
+def _port_spec(body, feeds, dtype="float32"):
+    """A port-only capture's one subgraph spec."""
+    prog = tstatic.Program()
+    with tstatic.program_guard(prog):
+        out = body(torch, F, *[tstatic.data(n, list(s), dtype) for n, s in feeds])
+    (spec,) = _specs(ProgramGraph, tss, prog, out)
+    return spec
+
+
+def _pooler(pkg, f, x, w, b):
+    """BERT's pooler as the port's functionals record it (x @ w + b)."""
+    from paddle_tpu_torch.nn import functional as PF
+
+    return PF.tanh(PF.linear(x, w, b))
+
+
+SPACE_CASES = {  # chip_smoke.py's matmul shapes and small ragged ones, f32 and bf16
+    "matmul_mean_f32": (_matmul_chain, [("x", (1024, 512)), ("w", (512, 512)), ("b", (512,))],
+                        "float32"),
+    "ktiled_f32": (_epilogue_chain, [("x", (1024, 2048)), ("w", (2048, 1024)),
+                                     ("b", (1024,))], "float32"),
+    "pooler_bf16": (_pooler, [("x", (32, 768)), ("w", (768, 768)), ("b", (768,))], "bfloat16"),
+    "ragged_f32": (_matmul_chain, [("x", (100, 600)), ("w", (600, 130)), ("b", (130,))],
+                   "float32"),
+    "wide_row_bf16": (_matmul_chain, [("x", (70, 256)), ("w", (256, 2000)), ("b", (2000,))],
+                      "bfloat16"),
+    "wide_row_f32": (_matmul_chain, [("x", (70, 256)), ("w", (256, 2000)), ("b", (2000,))],
+                     "float32"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SPACE_CASES))
+def test_every_candidate_of_the_space_fits_the_card(case):
+    """Each config's tile is one the kernels instantiate (f32: 4 x 8, 8 x 8
+    or 8 x 16 outputs a thread over 256 threads; bf16: at most 128 f32
+    accumulators a thread), its shared memory is within a block's 227 KB,
+    a split runs at most 8 blocks a cluster in slices of a multiple of 16,
+    and ``build`` takes it."""
+    body, feeds, dtype = SPACE_CASES[case]
+    spec = _port_spec(body, feeds, dtype)
+    cands = tss.enumerate_candidates(spec)
+    assert cands
+    for c in cands:
+        bm, bn = tss._tile(spec, c)
+        assert tss._tile_fits(spec, bm, bn), c
+        if dtype == "float32":
+            assert bm * bn // 256 in (32, 64, 128) and bm <= 128, c
+        else:
+            wm = 2 if bm >= 32 else 1
+            assert (bm // wm // 16) * (bn // (8 // wm) // 8) * 4 <= 128, c
+        assert tss.candidate_smem_bytes(spec, c) <= 232448, c
+        bk, gk = tss._k_split(spec, c)
+        assert gk <= 8 and (gk == 1 or bk % 16 == 0), c
+        if spec.has_reduce:
+            assert bn >= spec.cols, c  # a reducing chain's tile owns whole rows
+        tss.build_kernel(spec, c)
+
+
+class _H100:
+    """The card's roofline (the cost model's H100 peaks), whatever device
+    the test runs on."""
+
+    def flops_time(self, flops, nbytes=0):
+        return max(flops / 989e12, nbytes / 3350e9)
+
+
+def test_ranking_puts_a_split_of_the_pooler_first():
+    """BERT-base's pooler (32 x 768 x 768 bf16): whole K, the 6 output
+    tiles of its best width leave the card idle through 24 k-steps, so the
+    ranking puts a split config (one cluster launch) first, as the static
+    codegen path adopts it."""
+    body, feeds, dtype = SPACE_CASES["pooler_bf16"]
+    spec = _port_spec(body, feeds, dtype)
+    ranked = sorted(tss.enumerate_candidates(spec),
+                    key=lambda c: tss.candidate_roofline_ms(spec, c, _H100()))
+    assert tss._k_split(spec, ranked[0])[1] > 1, ranked[0]
+
+
+@pytest.fixture(scope="module")
+def merge_cases():
+    """Per (dtype, chain): the spec of x [48, 600] @ w [600, 64] + b, relu
+    (elementwise) or relu then the row mean (reducing), captured in both
+    packages; its synthetic inputs, the replay, and the JAX package's
+    ``build_kernel`` at its first config (run as the JAX package's tests
+    run it on the CPU)."""
+    from paddle_tpu.static import schedule_search as jss2
+
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        for name, body in (("elementwise", _epilogue_chain), ("reducing", _matmul_chain)):
+            feeds = [("x", (48, 600)), ("w", (600, 64)), ("b", (64,))]
+            (jprog, jout), (tprog, tout) = _programs(body, feeds, dtype)
+            js, ts = _same_spec(jprog, jout, tprog, tout)
+            args = ts.synthetic_args()
+            jvals = [jax.numpy.asarray(a.float().numpy(), getattr(jax.numpy, dtype))
+                     for a in args]
+            jref = np.asarray(jss2.build_kernel(js, jss2.enumerate_candidates(js)[0])(*jvals)
+                              .astype(jax.numpy.float32))
+            out[dtype, name] = (ts, args, ts.reference()(*args), jref)
+    return out
+
+
+@pytest.mark.parametrize("gk", range(2, 9))
+@pytest.mark.parametrize("chain", ["elementwise", "reducing"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_host_build_follows_the_cluster_merge(merge_cases, dtype, chain, gk):
+    """The generated chain text built for the CPU with K 600 split into
+    ``gk`` slices of a multiple of 16 (the last one short), at every row
+    block of the space (rows dealt to the cluster's ranks, BM not always a
+    multiple of gk), summing each rank's rows of the partials in k order:
+    within the parity tolerance (f32 1e-5, bf16 one step, relative) of the
+    replay of the captured ops and of the JAX package's kernel."""
+    if codegen_host.compiler() is None:
+        pytest.skip("no host C++ compiler to build the generated chain text")
+    spec, args, want, jref = merge_cases[dtype, chain]
+    K = spec.k_dims[0]
+    bk = -(-(-(-K // gk)) // 16) * 16
+    assert -(-K // bk) == gk and K % bk
+    rtol, atol = tss.parity_tolerance(spec.out_dtype, want)
+    rows = sorted({tss._tile(spec, c)[0] for c in tss.enumerate_candidates(spec)})
+    for bm in rows + [spec.rows]:
+        got = codegen_host.run_subgraph(spec, args, block_k=bk, block_rows=bm)
+        torch.testing.assert_close(got, want, rtol=rtol, atol=atol)
+        np.testing.assert_allclose(got.float().numpy(), jref, rtol=rtol,
+                                   atol=rtol * 0.1 * float(np.abs(jref).max()) + 2 * atol)
 
 
 def test_ktile_never_offered_when_mm_operand_feeds_elem(caches):

@@ -442,7 +442,7 @@ def test_executor_rules():
         exe.run(prog, feed={}, fetch_list=[y])
     set_flags({"FLAGS_verify_programs": True})
     try:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue A item 5"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md A.5"):
             exe.run(prog, feed={"x": xv}, fetch_list=[y])
     finally:
         set_flags({"FLAGS_verify_programs": False})
