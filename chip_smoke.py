@@ -16,9 +16,9 @@ Phases, each of which raises (exit code != 0) on failure:
    matmul_epilogue.cu), RMSNorm and SwiGLU (norm_swiglu.cu) with nvcc,
    and the generated sources of the codegen cases of phase 2
    (csrc/codegen/ templates; one nvcc process per source, all started
-   together), the Triton LayerNorm and the two Triton yardsticks (the
-   RMSNorm and SwiGLU kernels norm_swiglu.cu replaced) at their first
-   launch.
+   together, with the elementwise cases' arithmetic-floor builds), the
+   Triton LayerNorm and the two Triton yardsticks (the RMSNorm and SwiGLU
+   kernels norm_swiglu.cu replaced) at their first launch.
 2. Hold each kernel against its plain PyTorch version on the card at the
    serving and training shapes, in bf16, and time the kernel, the plain
    version and, where one exists, the one PyTorch call that computes the
@@ -66,11 +66,14 @@ Phases, each of which raises (exit code != 0) on failure:
    ragged M (100) and K 72, and on the general route in f32 and at an odd
    shape (M 100, K 72, N 130); every prefill-chain and epilogue row names
    its route and its kernels' registers and spills.
-   The generated kernels: the elementwise chain (#11; BERT's mask chain
-   and the JAX package's test chain at BERT-base's FFN size) at its
-   default and tuned launch shapes, and every enumerated config of the
-   schedule-search subgraphs (#12, #13 split-K merged inside a cluster
-   in one launch: the BERT pooler, bench_schedule_search.py's three
+   The generated kernels: the elementwise chain (#11; BERT's mask chain,
+   and the JAX package's test chain and the wide-constant chain at
+   BERT-base's FFN size) at every launch config of its persistent grid,
+   beside a torch op that moves the same bytes and the same source built
+   against its arithmetic floor (tools/time_torch_vpu_variants.py's
+   ``floor``), and every enumerated config of the schedule-search
+   subgraphs (#12, #13 split-K merged inside a cluster in one launch: the
+   BERT pooler, bench_schedule_search.py's three
    programs at its chip shapes, the softmax at BERT-base's logits), each
    against the replay of the recorded ops (bf16 one bf16 step, f32 1e-5)
    and timed, with registers and nvcc seconds from -Xptxas -v; the
@@ -137,6 +140,7 @@ before printing any result.  It imports nothing of JAX or paddle_tpu.
 from __future__ import annotations
 
 import copy
+import ctypes
 import gc
 import importlib
 import json
@@ -1089,7 +1093,6 @@ def triton_resources():
 
 CODEGEN_F32_REL = 1e-5           # f32: 1e-5 relative (+ a tenth of it at the largest
                                  # magnitude: products summed in another order)
-VPU_LAUNCHES = [(128, 4), (256, 4), (256, 8), (512, 8)]  # (threads, elements a thread)
 
 
 def _capture(build, feeds):
@@ -1112,6 +1115,13 @@ def jax_test_chain(a, b):
     return torch.sqrt(torch.exp(torch.tanh(a * b + a) * 0.5) + 1.0) * b
 
 
+def wide_bias_chain(a):
+    """tests/test_torch_codegen.py's wide-constant chain: c a captured f32
+    constant of the last dim's width, made from a seed."""
+    c = torch.randn(3072, generator=torch.Generator().manual_seed(7)).to(DEVICE)
+    return torch.tanh(a * 2.0 + c) * 3.0
+
+
 def softmax_dag(x):
     """The decomposed softmax of bench_schedule_search.py."""
     t = torch.exp(x - torch.max(x, -1, keepdim=True).values)
@@ -1132,11 +1142,12 @@ def pooler(x, w, b):
     return PF.tanh(PF.linear(x, w, b))
 
 
-VPU_CASES = {  # name -> (chain, feeds): BERT's mask at phase 6's batch; the JAX test chain at
-               # BERT-base's FFN activation size
+VPU_CASES = {  # name -> (chain, feeds): BERT's mask at phase 6's batch; the JAX test chain and
+               # the wide-constant chain at BERT-base's FFN activation size
     "bert_mask": (bert_mask_chain, [("ids", (32, 128), "int32")]),
     "jax_chain_bf16": (jax_test_chain, [("a", (4096, 3072), "bfloat16"),
                                         ("b", (4096, 3072), "bfloat16")]),
+    "wide_bias_bf16": (wide_bias_chain, [("a", (4096, 3072), "bfloat16")]),
 }
 SCHED_CASES = {  # bench_schedule_search.py:106-108's shapes on the chip; BERT-base's pooler;
                  # the softmax at BERT-base's attention logits.  The first whole-K and the
@@ -1219,10 +1230,29 @@ def _codegen_close(got, want, dtype):
                                equal_nan=True)), rtol
 
 
-def check_vpu_chains(timer, vpu, build_info):
-    """#11 at its default and tuned launch shapes against the replay of
-    the recorded ops: the mask chain bit-exact, bf16 within one bf16
-    step.  Rows: the mask chain (the static BERT path's call) first."""
+def vpu_floor_libraries(vpu):
+    """Each elementwise case's source built against the arithmetic floor of
+    csrc/codegen/vpu_chain.cuh (tools/time_torch_vpu_variants.py: loads
+    replaced by values made in registers, the store behind a condition that
+    never holds), one nvcc each: case -> (library path, nvcc output)."""
+    import time_torch_vpu_variants as vv  # tools/, on the path since main()
+
+    built = vv.build_variant("floor", {name: op.fn.source for name, op in vpu.items()})
+    return {name: built[name] for name in vpu}
+
+
+def check_vpu_chains(timer, vpu, build_info, floor_libs):
+    """#11 at every launch config against the replay of the recorded ops:
+    the mask chain bit-exact, bf16 within one bf16 step; each case's time at
+    its default config beside a torch op that moves the same bytes (copy_ms,
+    the memory floor: tools/time_torch_vpu_variants.py's copy_fn) and the
+    same source built against the arithmetic floor (floor_ms), with
+    registers and spills.  Rows: the mask chain (the static BERT path's
+    call) first."""
+    import time_torch_vpu_variants as vv  # tools/, on the path since main()
+
+    from paddle_tpu_torch.ops import _cuda_build
+
     g = torch.Generator(device=DEVICE).manual_seed(31)
     out = []
     for name, op in vpu.items():
@@ -1231,12 +1261,13 @@ def check_vpu_chains(timer, vpu, build_info):
             ids = torch.randint(0, 3, (32, 128), generator=g, device=DEVICE, dtype=torch.int32)
             inputs = [ids != 0]
         else:
-            inputs = [torch.randn(*VPU_CASES[name][1][i][1], generator=g, device=DEVICE)
-                      .to(torch.bfloat16) for i in range(2)]
+            inputs = [torch.randn(*feed[1], generator=g, device=DEVICE).to(torch.bfloat16)
+                      for feed in VPU_CASES[name][1]]
         want = kernel.replay(*inputs)
-        default = kernel.default_launch()
+        launches = kernel.launches()
+        default = launches[0]
         launch_ms, err = {}, 0.0
-        for launch in [default] + [l for l in VPU_LAUNCHES if l != default]:
+        for launch in launches:
             got = kernel(*inputs, launch=launch)
             torch.cuda.synchronize()
             ok, tol = _codegen_close(got, want, want.dtype)
@@ -1244,20 +1275,28 @@ def check_vpu_chains(timer, vpu, build_info):
                 ok, tol = torch.equal(got, want), 0.0
             err = max(err, max_err(got, want))
             check(ok, f"vpu_chain {name} at launch {launch} disagrees with the replay: {err}")
-            launch_ms[f"{launch[0]}x{launch[1]}"] = timer(
+            launch_ms["x".join(map(str, launch))] = timer(
                 lambda launch=launch: kernel(*inputs, launch=launch))
+        copy_ms = timer(vv.copy_fn(inputs, torch.empty_like(want)))
+        floor_lib, floor_log = floor_libs[name]
+        kernel._bind(ctypes.CDLL(str(floor_lib)))
+        floor_ms = timer(lambda: kernel(*inputs, launch=default))
+        kernel._bind(_cuda_build.load_generated(kernel.source))
         nbytes = sum(t.numel() * t.element_size() for t in inputs) + want.numel() * \
             want.element_size()
         b_ms, b_by = bound_ms(nbytes, len(kernel.ops) * want.numel(), F32_FLOPS)
+        floor_res = ptxas_resources(floor_log)
         out.append({"check": "vpu_chain", "case": name, "shape": {
                         "shape": list(want.shape), "inputs": [str(t.dtype).split(".")[-1]
                                                               for t in inputs],
                         "out": str(want.dtype).split(".")[-1], "ops": len(kernel.ops)},
                     "max_abs_err": err, "tolerance": tol,
-                    "ms": launch_ms[f"{default[0]}x{default[1]}"], "launch_default": default,
-                    "launch_ms": launch_ms, "plain_ms": timer(lambda: kernel.replay(*inputs)),
+                    "ms": launch_ms["x".join(map(str, default))], "launch_default": default,
+                    "launch_ms": launch_ms, "copy_ms": copy_ms, "floor_ms": floor_ms,
+                    "plain_ms": timer(lambda: kernel.replay(*inputs)),
                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-                    **_resources(build_info, kernel.source)})
+                    **_resources(build_info, kernel.source),
+                    "floor_registers": sorted({r["registers"] for r in floor_res.values()})})
         emit(out[-1])
     return out
 
@@ -2083,6 +2122,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
+    sys.path.append(str(ROOT / "tools"))  # time_torch_vpu_variants: #11's floor and copy
     import torch.nn.functional as F
 
     from paddle_tpu_torch.ops import _cuda_build
@@ -2098,10 +2138,19 @@ def main() -> int:
 
     t0 = time.perf_counter()
     vpu, specs, sources = codegen_cases()
-    gen = {}
+    gen, floor_libs = {}, {}
     gen_build = threading.Thread(
         target=lambda: gen.update(_cuda_build.build_generated(list(sources.values()))))
+
+    def build_floors():
+        try:
+            floor_libs.update(vpu_floor_libraries(vpu))
+        except Exception as exc:  # raised again after the join
+            floor_libs["error"] = exc
+
+    floor_build = threading.Thread(target=build_floors)
     gen_build.start()  # the generated sources build beside csrc/'s, one nvcc each
+    floor_build.start()
     try:
         logs = _cuda_build.build(["flash_attention_fwd", "flash_attention_fwd_sm90",
                                   "flash_attention_bwd", "flash_attention_bwd_sm90",
@@ -2109,7 +2158,10 @@ def main() -> int:
                                   "matmul_epilogue", "matmul_epilogue_sm90", "norm_swiglu"])
     finally:
         gen_build.join()
+        floor_build.join()
     check(len(gen) == len(set(sources.values())), "a generated source failed to build")
+    if "error" in floor_libs:
+        raise floor_libs["error"]
     for name, log in logs.items():
         print(f"nvcc {name}:\n{log}", file=sys.stderr)
     for path, info in gen.items():
@@ -2128,7 +2180,7 @@ def main() -> int:
         pf = check_prefill_chain(timer, F, logs)
         ln = check_layer_norm(timer, F)
         mm = check_matmul_epilogue(timer, F, logs)
-        vc = check_vpu_chains(timer, vpu, gen)
+        vc = check_vpu_chains(timer, vpu, gen, floor_libs)
         sc, sk = check_sched_chains(timer, specs, gen)
     triton_resources()
     fb = check_flash_bwd(timer, F)

@@ -181,12 +181,14 @@ PT_HD float pt_maximum(float a, float b) {  // NaN propagates, as torch.maximum
 PT_HD float pt_minimum(float a, float b) {
   return (pt_isnan(a) || pt_isnan(b)) ? pt_nan() : (a < b ? a : b);
 }
-template <class T>
-PT_HD T pt_imax(T a, T b) {
+// integers of two widths (an int64 value against an int literal) compare
+// and return in the wider
+template <class T, class U>
+PT_HD auto pt_imax(T a, U b) -> decltype(a + b) {
   return a > b ? a : b;
 }
-template <class T>
-PT_HD T pt_imin(T a, T b) {
+template <class T, class U>
+PT_HD auto pt_imin(T a, U b) -> decltype(a + b) {
   return a < b ? a : b;
 }
 PT_HD float pt_clamp(float x, float lo, float hi) {  // torch.clamp: NaN stays, lo > hi gives hi

@@ -19,9 +19,9 @@ callable, so each op type is translated here).
   the port's functionals for silu and gelu), ``round`` is half to even
   (``rintf``).
 
-The same module writes the sources: the chain's body (``PtBody``: ``eval``
-for one element, ``thread<E>`` for E of them, ``row<LANES>`` for one row,
-``elem`` for one matmul output), the ``extern "C"`` launchers of every
+The same module writes the sources: the chain's body (``PtBody``: ``Raw``,
+``load`` and ``finish`` for a run of E elements, ``row<LANES>`` for one
+row, ``elem`` for one matmul output), the ``extern "C"`` launchers of every
 candidate config, and a host harness under ``PT_HOST`` that the CPU tests
 build with a host C++ compiler.  The kernels are the templates in
 ``csrc/codegen/`` (``vpu_chain.cuh`` #11, ``sched_chain.cuh`` #12,
@@ -226,6 +226,18 @@ def _clip(a, kw, dom, lo="min", hi="max", lo_default=None, hi_default=None):
     return x
 
 
+def _int_bound(v, dtype):
+    """An integer clip bound as torch's clamp takes it: converted to the
+    tensor's dtype (a negative bound of a uint8 tensor wraps), refused
+    where torch raises (a value the dtype cannot hold)."""
+    if isinstance(v, bool) or not isinstance(v, int | float) or float(v) != int(v):
+        raise Ineligible(f"clip bound {v!r} of an integer op")
+    info, v = torch.iinfo(dtype), int(v)
+    if not (-info.max if dtype == torch.uint8 else info.min) <= v <= info.max:
+        raise Ineligible(f"clip bound {v} does not fit {dtype}")
+    return int(torch.tensor(v, dtype=torch.int64).to(dtype))
+
+
 def _round(a, kw, dom):
     if kw.get("decimals", 0) != 0:
         raise Ineligible(f"round(decimals={kw['decimals']!r})")
@@ -296,8 +308,9 @@ def _base(type_):
     return type_.rsplit("::", 1)[-1]
 
 
-def emit_elementwise(type_, kwargs, operands, out_dtype):
-    """The rounded C++ expression of one elementwise op.  ``operands``:
+def emit_elementwise(type_, kwargs, operands, out_dtype, rounded=True):
+    """The rounded C++ expression of one elementwise op (``rounded``
+    False: before its rounding to ``out_dtype``).  ``operands``:
     (expr, dtype) per entry, dtype None with ``const`` for a scalar
     constant.  Raises Ineligible."""
     entry = _TABLE.get(type_)
@@ -309,13 +322,17 @@ def emit_elementwise(type_, kwargs, operands, out_dtype):
     dom = domain(out_dtype)
     if dom not in doms:
         raise Ineligible(f"op {type_!r} computing in {out_dtype}")
+    if type_ == "clip" and dom == "i":
+        kwargs = {k: _int_bound(v, out_dtype) if k in ("min", "max") and v is not None else v
+                  for k, v in kwargs.items()}
     args = []
     for expr, dtype, const in operands:
         if dtype is None:
             args.append(Operand(literal(const, dom, out_dtype), const))
         else:
             args.append(Operand(_conv(expr, dtype, dom)))
-    return round_to(emit(args, kwargs, dom), out_dtype)
+    expr = emit(args, kwargs, dom)
+    return round_to(expr, out_dtype) if rounded else expr
 
 
 # ------------------------------------------------------------- the chain
@@ -611,29 +628,66 @@ def _used_outside_matmul(chain, k):
     return False
 
 
+_PACKED_ROUND = {torch.bfloat16: "pt_rbf16_run", torch.float16: "pt_rf16_run"}
+
+
+def _vpu_members(chain: Chain) -> str:
+    """The elementwise kernel's members (csrc/codegen/vpu_chain.cuh): a
+    run's raw words of every input and the wide constants' values,
+    ``load`` (input k through the kernel's source ``s``: 16-byte or
+    element loads), ``finish`` (unpack, every op over the run with bf16 /
+    f16 results rounded two at a time, the output packed and stored)."""
+    n_in, last = len(chain.inputs), len(chain.ops) - 1
+    out = [f"  static constexpr int kIns = {n_in};\n"
+           f"  static constexpr int kWide = {len(chain.wide_values)};\n"
+           "  template <int E>\n  struct Raw {\n"]
+    out += [f"    PtRaw<{storage(inp.dtype)}, E> x{k};\n" for k, inp in enumerate(chain.inputs)]
+    out += [f"    float w{m}[E];\n" for m in range(len(chain.wide_values))]
+    out.append("  };\n  template <int E>\n  static PT_HD void load(Raw<E>& r, const PtGlobalSrc& "
+               "s, long long run, bool whole, int col) {\n    (void)col;\n")
+    out += [f"    s.get(r.x{k}, {k}, run, whole);\n" for k in range(n_in)]
+    out += [f"    pt_wide_load<E>(r.w{m}, s.a.in[{n_in + m}], col, kCols, (s.vec >> {n_in + m}) "
+            "& 1u);\n" for m in range(len(chain.wide_values))]
+    out.append("  }\n  template <int E>\n  static PT_HD void finish(const Raw<E>& r, void* out, "
+               "long long run, long long n) {\n")
+    for k, inp in enumerate(chain.inputs):
+        out.append(f"    {compute_type(inp.dtype)} x{k}[E];\n    pt_unpack(r.x{k}, x{k});\n")
+
+    def operand(e):
+        kind, k = e
+        if kind == "in":
+            return (f"x{k}[j]", chain.inputs[k].dtype, None)
+        if kind == "val":
+            return (f"v{k}[j]", chain.ops[k].dtype, None)
+        if kind == "wide":
+            return (f"r.w{k}[j]", torch.float32, None)
+        return ("", None, k)
+
+    for i, op in enumerate(chain.ops):
+        packed = _PACKED_ROUND.get(op.dtype)
+        expr = emit_elementwise(op.type, op.kwargs, [operand(e) for e in op.args], op.dtype,
+                                rounded=packed is None)
+        out.append(f"    {compute_type(op.dtype)} v{i}[E];\n#pragma unroll\n"
+                   f"    for (int j = 0; j < E; ++j) v{i}[j] = {expr};\n")
+        if packed and i < last:  # the last op's rounding is the output's packing
+            out.append(f"    {packed}(v{i});\n")
+    out_s = storage(chain.ops[last].dtype)
+    out.append(f"    PtRaw<{out_s}, E> o;\n    pt_pack(o, v{last});\n    pt_raw_store(o, "
+               f"static_cast<{out_s}*>(out) + run * E, n - run * E);\n  }}\n")
+    return "".join(out)
+
+
 def _body_struct(chain: Chain, vpu: bool) -> str:
-    """``struct PtBody`` for a chain: eval/thread (vpu) or row/elem."""
+    """``struct PtBody`` for a chain: Raw/load/finish (vpu) or row/elem."""
     last = chain.ops[-1]
-    out_s, out_t = storage(last.dtype), compute_type(last.dtype)
+    out_s = storage(last.dtype)
     parts = [f"struct PtBody {{\n  static constexpr int kCols = {chain.cols};\n"
              f"  static constexpr int kOutCols = {chain.out_cols};\n"
              f"  static constexpr bool kRowMode = {'true' if chain.row_mode else 'false'};\n"
              f"  static constexpr int kX = {chain.x_in if chain.x_in is not None else 0};\n"
              f"  static constexpr int kW = {chain.w_in if chain.w_in is not None else 0};\n"]
     if vpu:
-        params = ", ".join(f"{compute_type(inp.dtype)} x{k}" for k, inp in enumerate(chain.inputs))
-        lines, res = _ops_scalar(chain, lambda k: f"x{k}", None)
-        parts.append(f"  static PT_HD {out_t} eval(const PtArgs& a, int col, {params}) {{\n"
-                     "  (void)a; (void)col;\n" + "\n".join(lines) + f"\n  return {res};\n  }}\n")
-        loads = "\n".join(
-            f"    {compute_type(inp.dtype)} x{k}[E];\n    pt_load_run<E, {storage(inp.dtype)}>"
-            f"(x{k}, a.in[{k}], base, n, vec);" for k, inp in enumerate(chain.inputs))
-        call_args = ", ".join(f"x{k}[e]" for k in range(len(chain.inputs)))
-        col = f"(int)((base + e) % {chain.cols})" if chain.wide_values else "0"
-        parts.append(f"  template <int E>\n  static PT_HD void thread(const PtArgs& a, long long "
-                     f"base, long long n, bool vec) {{\n{loads}\n    {out_t} o[E];\n"
-                     f"#pragma unroll\n    for (int e = 0; e < E; ++e) o[e] = eval(a, {col}, "
-                     f"{call_args});\n    pt_store_run<E, {out_s}>(a.out, o, base, n, vec);\n  }}\n")
+        parts.append(_vpu_members(chain))
     if not vpu and chain.row_mode:
         parts.append("  static PT_HD void elem(const PtArgs&, long long, int, float) {}\n")
     if not vpu and not chain.row_mode:
@@ -664,19 +718,22 @@ def _body_struct(chain: Chain, vpu: bool) -> str:
 
 def elementwise_source(chain: Chain) -> str:
     """The generated source of one elementwise chain (#11): its body, the
-    launchers for E = 4 and 8 elements a thread, the host harness."""
+    persistent grid's size and the launcher (runs of 4 or 8 elements), the
+    host harness."""
     return (_HEADER + '#include "vpu_chain.cuh"\n\n' + _body_struct(chain, vpu=True) + """
 #ifdef __CUDACC__
-extern "C" int pt_vpu_4(const PtArgs* a, long long n, int threads, int vec, void* s) {
-  return pt_vpu_chain_launch<PtBody, 4>(a, n, threads, vec, s);
+extern "C" int pt_vpu_grid(int threads, int elems, int sms) {
+  return pt_vpu_grid_for<PtBody>(threads, elems, sms);
 }
-extern "C" int pt_vpu_8(const PtArgs* a, long long n, int threads, int vec, void* s) {
-  return pt_vpu_chain_launch<PtBody, 8>(a, n, threads, vec, s);
+extern "C" int pt_vpu_launch(const PtArgs* a, long long n, int threads, int elems, int blocks,
+                             unsigned vec, void* s) {
+  return pt_vpu_launch_for<PtBody>(a, n, threads, elems, blocks, vec, s);
 }
 #endif
 #ifdef PT_HOST
-extern "C" void pt_host_vpu(const PtArgs* a, long long n) {
-  for (long long i = 0; i < n; ++i) PtBody::thread<1>(*a, i, n, false);
+extern "C" int pt_host_vpu(const PtArgs* a, long long n, int threads, int elems, int blocks,
+                           unsigned vec, int* cover, int* paths) {
+  return pt_vpu_host<PtBody>(*a, n, threads, elems, blocks, vec, cover, paths);
 }
 #endif
 """)
@@ -761,7 +818,9 @@ def args_block(ptrs, lds, out) -> PtArgs:
 
 
 _SIGNATURES = {
-    "vpu": [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+    "vpu": [ctypes.c_void_p, ctypes.c_longlong] + [ctypes.c_int] * 3 + [ctypes.c_uint,
+                                                                       ctypes.c_void_p],
+    "vpu_grid": [ctypes.c_int] * 3,
     "rows": [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p],
     "mm": [ctypes.c_void_p] + [ctypes.c_int] * 5 + [ctypes.c_void_p],
     "mmk": [ctypes.c_void_p] + [ctypes.c_int] * 5 + [ctypes.c_void_p],
@@ -770,7 +829,7 @@ _SIGNATURES = {
 
 def entry_point(lib, name, kind):
     """The C entry point ``name`` of a loaded generated library, typed by
-    its ``kind`` (vpu, rows, mm, mmk)."""
+    its ``kind`` (vpu, vpu_grid, rows, mm, mmk)."""
     fn = getattr(lib, name)
     fn.argtypes = _SIGNATURES[kind]
     fn.restype = ctypes.c_int

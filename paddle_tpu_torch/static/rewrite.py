@@ -735,17 +735,23 @@ class GenericElementwiseFusionPass:
                 return n
 
 
+# (threads a block, elements a run), the default of each dtype class first:
+# what chip_smoke.py holds and times
+VPU_LAUNCHES = ((128, 8), (128, 4), (256, 8), (256, 4), (512, 8), (512, 4))
+
+
 class ElementwiseChainKernel:
     """The generated kernel of one elementwise chain (queue B #11), called
     on the chain's external inputs: on CUDA tensors one launch of
-    ``csrc/codegen/vpu_chain.cuh`` with the chain in registers (the
-    library is compiled at the first launch); on CPU tensors the replay of
-    the recorded ops, its plain version.
+    ``csrc/codegen/vpu_chain.cuh``'s persistent kernel with the chain in
+    registers (the library is compiled at the first launch); on CPU
+    tensors the replay of the recorded ops, its plain version.
 
-    The launch shape (threads a block, elements a thread) comes from the
-    autotune cache's ``vpu_chain`` entry for (rows, cols, n_ops, dtype),
-    as the JAX pass reads its block shape, else 256 threads of 8 elements
-    (16-bit data) or 4."""
+    The launch config (threads a block, elements a run) comes from the
+    autotune cache's ``vpu_chain`` entry for (rows, cols, n_ops, dtype), as
+    the JAX pass reads its block shape, else ``default_launch``.  The grid is the SM count times the blocks an
+    SM holds (the occupancy API), or fewer when the runs are fewer; the
+    argument block is built once for each set of data pointers."""
 
     def __init__(self, ordered, ext_vids, out_vid, graph):
         from . import codegen
@@ -767,7 +773,9 @@ class ElementwiseChainKernel:
         self.chain = chain
         self.source = codegen.elementwise_source(chain)
         self._wide = {}
-        self._fns = {}  # elements a thread -> the loaded entry point
+        self._fn = self._grid_fn = self._count = self._stream = None
+        self._grids = {}     # (device index, launch) -> the persistent grid's blocks
+        self._prepared = {}  # (launch, pointers) -> (argument block, its ref, blocks, vec)
         self._launch_shape = None
 
     def replay(self, *vals):
@@ -779,8 +787,16 @@ class ElementwiseChainKernel:
                 "n_ops": len(self.ops), "dtype": str(self.dtype).split(".")[-1]}
 
     def default_launch(self):
+        """128 threads, runs of 8 elements when no input or output is wider
+        than 16 bits (16-byte loads), else 4: the measured best at
+        chip_smoke.py's cases (PERF.md §6)."""
         widest = max([t.itemsize for t in [self.dtype] + [i.dtype for i in self.chain.inputs]])
-        return 256, (8 if widest <= 2 else 4)
+        return 128, (8 if widest <= 2 else 4)
+
+    def launches(self):
+        """Every config of VPU_LAUNCHES, the default first."""
+        default = self.default_launch()
+        return [default] + [l for l in VPU_LAUNCHES if l != default]
 
     def __call__(self, *vals, launch=None):
         from paddle_tpu_torch import ops
@@ -789,49 +805,91 @@ class ElementwiseChainKernel:
             return self.replay(*vals)
         return self._launch(vals, launch)
 
-    def _launch(self, vals, launch):
-        from paddle_tpu_torch.ops import _cuda_build
-        from paddle_tpu_torch.ops import autotune as at
+    def _bind(self, lib):
+        """Launch through ``lib``, a library built from ``self.source``."""
         from paddle_tpu_torch import ops
 
         from . import codegen
 
-        if launch is None:
-            if self._launch_shape is None:
-                tuned = at.lookup("vpu_chain", self.launch_key())
-                self._launch_shape = ((int(tuned["threads"]), int(tuned["elems"])) if tuned
-                                      else self.default_launch())
-            launch = self._launch_shape
+        self._fn = codegen.entry_point(lib, "pt_vpu_launch", "vpu")
+        self._grid_fn = codegen.entry_point(lib, "pt_vpu_grid", "vpu_grid")
+        self._count = ops.count_launch
+        self._stream = getattr(torch._C, "_cuda_getCurrentRawStream", None) or (
+            lambda index: torch.cuda.current_stream(index).cuda_stream)
+        self._grids.clear()
+        self._prepared.clear()
+
+    def _default(self):
+        from paddle_tpu_torch.ops import autotune as at
+
+        tuned = at.lookup("vpu_chain", self.launch_key())
+        self._launch_shape = ((int(tuned["threads"]), int(tuned["elems"])) if tuned
+                              else self.default_launch())
+        return self._launch_shape
+
+    def _prepare(self, dev, launch, ptrs, out_ptr, n):
+        from . import codegen
+
         threads, elems = launch
-        if elems not in (4, 8):
-            raise ValueError(f"vpu_chain: {elems} elements a thread (4 or 8)")
+        grid = self._grids.get((dev.index, launch))
+        if grid is None:
+            sms = torch.cuda.get_device_properties(dev).multi_processor_count
+            with torch.cuda.device(dev):
+                grid = self._grid_fn(threads, elems, sms)
+            if grid <= 0:
+                raise ValueError(f"vpu_chain: launch {launch} is not one the kernel takes")
+            self._grids[dev.index, launch] = grid
+        if out_ptr % 16:
+            raise RuntimeError("vpu_chain: the output is not 16-byte aligned")
+        runs = -(-n // elems)
+        blocks = min(grid, -(-runs // threads))
+        vec = sum(1 << k for k, p in enumerate(ptrs) if p % 16 == 0)
+        a = codegen.args_block(list(ptrs), [0] * len(ptrs), out_ptr)
+        if len(self._prepared) >= 64:
+            self._prepared.clear()
+        prep = self._prepared[launch, ptrs, out_ptr] = (a, ctypes.byref(a), blocks, vec)
+        return prep
+
+    def _launch(self, vals, launch):
+        if self._fn is None:  # bound once: a launch costs no hashing or lookups
+            from paddle_tpu_torch.ops import _cuda_build
+
+            self._bind(_cuda_build.load_generated(self.source))
+        if launch is None:
+            launch = self._launch_shape or self._default()
+        elif len(launch) != 2:
+            raise ValueError(f"vpu_chain: launch {launch} is not (threads, elems)")
         dev = vals[0].device
         ins = []
         for v, inp in zip(vals, self.chain.inputs):
-            if v.dtype != inp.dtype or tuple(v.shape) != self.shape:
+            if v.dtype != inp.dtype or v.shape != self.shape:
                 raise TypeError(f"vpu_chain input {tuple(v.shape)} {v.dtype}, expected "
                                 f"{self.shape} {inp.dtype}")
-            ins.append(v.contiguous())
-        if dev not in self._wide:
-            self._wide[dev] = [w.to(device=dev, dtype=torch.float32).contiguous().reshape(-1)
-                               for w in self.chain.wide_values]
-        ins += self._wide[dev]
+            ins.append(v if v.is_contiguous() else v.contiguous())
+        wide = self._wide.get(dev)
+        if wide is None:
+            wide = self._wide[dev] = [w.to(device=dev, dtype=torch.float32).contiguous()
+                                      .reshape(-1) for w in self.chain.wide_values]
         out = torch.empty(self.shape, dtype=self.dtype, device=dev)
         n = out.numel()
         if n == 0:
             return out
-        fn = self._fns.get(elems)
-        if fn is None:  # built and typed once: a launch costs no hashing or lookups
-            fn = self._fns[elems] = codegen.entry_point(
-                _cuda_build.load_generated(self.source), f"pt_vpu_{elems}", "vpu")
-        vec = all(t.data_ptr() % 16 == 0 for t in ins + [out])
-        a = codegen.args_block([t.data_ptr() for t in ins], [0] * len(ins), out.data_ptr())
-        with torch.cuda.device(dev):
-            err = fn(ctypes.byref(a), n, threads, int(vec),
-                     torch.cuda.current_stream(dev).cuda_stream)
+        ptrs = tuple(t.data_ptr() for t in ins) + tuple(w.data_ptr() for w in wide)
+        out_ptr = out.data_ptr()
+        launch = tuple(launch)
+        prep = self._prepared.get((launch, ptrs, out_ptr))
+        if prep is None:
+            prep = self._prepare(dev, launch, ptrs, out_ptr, n)
+        _, ref, blocks, vec = prep
+        threads, elems = launch
+        if dev.index == torch.cuda.current_device():
+            err = self._fn(ref, n, threads, elems, blocks, vec, self._stream(dev.index))
+        else:
+            with torch.cuda.device(dev):
+                err = self._fn(ref, n, threads, elems, blocks, vec, self._stream(dev.index))
         if err != 0:
             raise RuntimeError(f"vpu_chain: launch failed with CUDA error {err}")
-        ops.count_launch("vpu_chain")
+        self._count("vpu_chain")
         return out
 
 

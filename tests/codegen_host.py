@@ -69,16 +69,55 @@ def args(arrays, lds, out):
     return codegen.args_block([a.ctypes.data for a in arrays], lds, out.ctypes.data)
 
 
-def run_elementwise(kernel, tensors):
-    """An ElementwiseChainKernel's generated code on the CPU."""
-    lib = load(kernel.source)
-    ins = [to_numpy(t) for t in tensors] + [to_numpy(w.float().reshape(-1))
-                                             for w in kernel.chain.wide_values]
-    out = empty(kernel.shape, kernel.dtype)
+def _vpu_entry(lib):
     fn = lib.pt_host_vpu
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong]
-    fn(ctypes.byref(args(ins, [0] * len(ins), out)), out.size)
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong] + [ctypes.c_int] * 3 + [
+        ctypes.c_uint, ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def run_elementwise(kernel, tensors, launch=None, blocks=3, vec=None, offsets=None):
+    """An ElementwiseChainKernel's generated code on the CPU, walked as the
+    card's kernel deals it: ``launch`` (threads, elements a run; default
+    the kernel's), ``blocks`` blocks, ``vec`` the inputs' and wide
+    constants' 16-byte-alignment bits (default: every bit set) and
+    ``offsets`` each input read that many elements into a longer array
+    (the card's misaligned views)."""
+    lib = load(kernel.source)
+    threads, elems = launch or kernel.default_launch()
+    ins = []
+    for i, t in enumerate(tensors):
+        off = offsets[i] if offsets else 0
+        a = to_numpy(t).reshape(-1)
+        padded = np.zeros(a.size + off, dtype=a.dtype)
+        padded[off:] = a
+        ins.append((padded, off))
+    wides = [to_numpy(w.float().reshape(-1)) for w in kernel.chain.wide_values]
+    ptrs = [a.ctypes.data + off * a.itemsize for a, off in ins] + [w.ctypes.data for w in wides]
+    out = empty(kernel.shape, kernel.dtype)
+    a = codegen.args_block(ptrs, [0] * len(ptrs), out.ctypes.data)
+    mask = (1 << len(ptrs)) - 1 if vec is None else vec
+    err = _vpu_entry(lib)(ctypes.byref(a), out.size, threads, elems, blocks, mask, None, None)
+    if err:
+        raise ValueError(f"the host walk refused {(threads, elems)} x {blocks} blocks")
     return from_numpy(out, kernel.dtype)
+
+
+def vpu_cover(kernel, n, threads, elems, blocks, vec):
+    """How the card's kernel deals n elements: each element's count of
+    runs that cover it, and its path per input (vpu_chain.cuh's
+    PT_VPU_VEC 0, PT_VPU_ELEM 1), from the host walk."""
+    lib = load(kernel.source)
+    k = len(kernel.chain.inputs)
+    cover = np.zeros(n, dtype=np.int32)
+    paths = np.full(n * k, -1, dtype=np.int32)
+    a = codegen.args_block([0] * (k + len(kernel.chain.wide_values)), [0] * k, 0)
+    err = _vpu_entry(lib)(ctypes.byref(a), n, threads, elems, blocks, vec, cover.ctypes.data,
+                          paths.ctypes.data)
+    if err:
+        raise ValueError(f"the host walk refused {(threads, elems)} x {blocks} blocks")
+    return cover, paths.reshape(n, k)
 
 
 def run_subgraph(spec, tensors, block_k=0, block_rows=0):

@@ -1030,7 +1030,7 @@ def _jax_test_chain(a, b):
 @pytest.mark.parametrize("shape,dtype", [((64, 3072), torch.bfloat16), ((37, 129), torch.float32),
                                          ((4096, 3072), torch.bfloat16)])
 @pytest.mark.parametrize("launch", [None, (128, 4), (512, 8)])
-def test_vpu_chain_kernel(cuda, shape, dtype, launch):
+def test_vpu_chain_kernel(cuda, vpu_built, shape, dtype, launch):
     """#11: the JAX package's test chain, one launch; f32 bit-equal in
     most elements and within 1e-5 relative (the kernel evaluates each op
     as torch's CUDA kernel does; transcendental library calls may differ
@@ -1053,7 +1053,7 @@ def test_vpu_chain_kernel(cuda, shape, dtype, launch):
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol * 1e-2)
 
 
-def test_vpu_chain_bert_mask_bool_input(cuda):
+def test_vpu_chain_bert_mask_bool_input(cuda, vpu_built):
     from paddle_tpu_torch.static.passes import apply_pass
 
     main, out = _capture(_mask_chain, ("ids", (32, 128), "int32"))
@@ -1073,7 +1073,7 @@ def _mixed_chain(i, h):
 
 
 @pytest.mark.parametrize("shape", [(8, 1000), (3, 7)])
-def test_vpu_chain_kernel_mixed_dtypes(cuda, shape):
+def test_vpu_chain_kernel_mixed_dtypes(cuda, vpu_built, shape):
     from paddle_tpu_torch.static.passes import apply_pass
 
     main, out = _capture(_mixed_chain, ("i", shape, "int64"), ("h", shape, "float16"))
@@ -1085,6 +1085,188 @@ def test_vpu_chain_kernel_mixed_dtypes(cuda, shape):
     got, want = op.fn(i, h), op.fn.replay(i, h)
     assert got.dtype == torch.float16
     torch.testing.assert_close(got.float(), want.float(), rtol=2.0 ** -10, atol=1e-3)
+
+
+# The redesigned #11 (csrc/codegen/vpu_chain.cuh: a persistent grid whose
+# threads hold their next run in registers; launch = (threads, elements a
+# run)) on every storage dtype, misaligned views, tails, 2 GB inputs, a
+# wide constant and every launch config.  Shapes [n, 1] share one source
+# for every n.
+
+def _int_chain(x):
+    return torch.clip(torch.relu(x * 3 + 1) - 2, -50, 100)
+
+
+def _f32_chain(x):
+    return torch.relu(x * 2.0 + 1.0)
+
+
+def _wide_chain(bias):
+    return lambda a: torch.tanh(a * 2.0 + bias) * 3.0
+
+
+_VPU_INTS = [torch.int8, torch.int16, torch.int32, torch.int64, torch.uint8]
+_VPU_FLOATS = [torch.float16, torch.bfloat16, torch.float32]
+
+
+def _vpu_op(build, *feeds):
+    from paddle_tpu_torch.static.passes import apply_pass
+
+    main, out = _capture(build, *feeds)
+    assert apply_pass(main, "generic_elementwise_fusion", fetch_vids=[out._vid]) == 1
+    return main.global_block().ops[-1]
+
+
+def _vpu_ops():
+    """Every chain the #11 tests launch, by the shapes that set its source."""
+    ops_ = [_vpu_op(_jax_test_chain, ("a", (n, 1), d), ("b", (n, 1), d))
+            for d, n in [(torch.bfloat16, 1), (torch.float16, 1), (torch.float32, 1)]]
+    ops_ += [_vpu_op(_jax_test_chain, ("a", s, d), ("b", s, d))
+             for s, d in [((64, 3072), "bfloat16"), ((37, 129), "float32"),
+                          ((4096, 3072), "bfloat16")]]
+    ops_ += [_vpu_op(_int_chain, ("x", (1, 1), d)) for d in _VPU_INTS]
+    ops_ += [_vpu_op(_mask_chain, ("ids", s, "int32")) for s in [(1, 1), (32, 128)]]
+    ops_ += [_vpu_op(_mixed_chain, ("i", s, "int64"), ("h", s, "float16"))
+             for s in [(8, 1000), (3, 7)]]
+    ops_ += [_vpu_op(_f32_chain, ("x", (1, 1), "float32"))]
+    ops_ += [_vpu_op(_wide_chain(torch.zeros(c)), ("a", (2, c), "bfloat16")) for c in (3072, 3)]
+    return ops_
+
+
+@pytest.fixture(scope="module")
+def vpu_built():
+    """Every #11 source the tests launch, built together (one nvcc each)."""
+    from paddle_tpu_torch.ops import _cuda_build
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the hand-written kernels have no CPU mode")
+
+    _cuda_build.build_generated([op.fn.source for op in _vpu_ops()])
+
+
+def _vpu_close(got, want):
+    if want.dtype in _VPU_FLOATS:
+        tol = _codegen_tol(want.dtype)
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol * 1e-2)
+    else:
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.bool] + _VPU_INTS + _VPU_FLOATS)
+@pytest.mark.parametrize("launch", [None, (256, 4), (512, 8)])
+def test_vpu_chain_every_storage_dtype(cuda, vpu_built, dtype, launch):
+    """#11 on each storage dtype the translator takes, n 2,053 (a tail):
+    the integers exact (their wraps are torch's), the mask chain bit-exact,
+    floats at the codegen tolerance."""
+    n = 2053
+    g = torch.Generator(device=cuda).manual_seed(41)
+    if dtype == torch.bool:
+        op = _vpu_op(_mask_chain, ("ids", (n, 1), "int32"))
+        xs = [torch.rand(n, 1, generator=g, device=cuda) > 0.5]
+    elif dtype in _VPU_INTS:
+        op = _vpu_op(_int_chain, ("x", (n, 1), dtype))
+        lo = 0 if dtype == torch.uint8 else -100
+        xs = [torch.randint(lo, 100, (n, 1), generator=g, device=cuda).to(dtype)]
+    else:
+        op = _vpu_op(_jax_test_chain, ("a", (n, 1), dtype), ("b", (n, 1), dtype))
+        xs = [torch.randn(n, 1, generator=g, device=cuda).to(dtype) for _ in range(2)]
+    before = ops.launch_counts()["vpu_chain"]
+    got = op.fn(*xs, launch=launch)
+    assert ops.launch_counts()["vpu_chain"] == before + 1
+    _vpu_close(got, op.fn.replay(*xs))
+
+
+@pytest.mark.parametrize("offsets", [(1, 2), (3, 0), (2, 3)])
+@pytest.mark.parametrize("launch", [(128, 8), (256, 8), (128, 4)])
+def test_vpu_chain_misaligned_views(cuda, vpu_built, offsets, launch):
+    """Inputs that are views 1-3 elements into a longer buffer (no pointer
+    16-byte aligned: predicated element loads inside the same kernel):
+    bit for bit the output on aligned copies, and the replay's values."""
+    n = 256 * 8 * 5 + 77
+    op = _vpu_op(_jax_test_chain, ("a", (n, 1), "bfloat16"), ("b", (n, 1), "bfloat16"))
+    g = torch.Generator(device=cuda).manual_seed(42)
+    views = []
+    for off in offsets:
+        base = torch.randn(n + 3, generator=g, device=cuda).to(torch.bfloat16)
+        views.append(base[off:off + n].view(n, 1))
+    got = op.fn(*views, launch=launch)
+    aligned = op.fn(*[v.clone() for v in views], launch=(128, 8))
+    assert torch.equal(got, aligned)
+    _vpu_close(got, op.fn.replay(*views))
+
+
+_BLOCK_RUNS = 128 * 8  # elements a block of the default config covers an iteration
+
+
+@pytest.mark.parametrize("n", [1, 100, _BLOCK_RUNS * 132 * 16]
+                         + [_BLOCK_RUNS * 7 + t for t in range(1, 8)])
+@pytest.mark.parametrize("launch", [(128, 8), (256, 8)])
+def test_vpu_chain_sizes_and_tails(cuda, vpu_built, n, launch):
+    """n 1, n below one block's runs, a whole number of them over every SM,
+    and a tail of every length within a 16-byte run: every config bit for
+    bit alike, within one bf16 step of the replay."""
+    op = _vpu_op(_jax_test_chain, ("a", (n, 1), "bfloat16"), ("b", (n, 1), "bfloat16"))
+    g = torch.Generator(device=cuda).manual_seed(43)
+    a, b = (torch.randn(n, 1, generator=g, device=cuda).to(torch.bfloat16) for _ in range(2))
+    got = op.fn(a, b, launch=launch)
+    assert torch.equal(got, op.fn(a, b, launch=(128, 4)))
+    _vpu_close(got, op.fn.replay(a, b))
+
+
+@pytest.mark.parametrize("launch", [None, (512, 8)])
+def test_vpu_chain_offsets_past_2gb(cuda, vpu_built, launch):
+    """An f32 input of 560,000,000 elements (2.24 GB: byte offsets pass
+    2^31), exact against the replay (a product by 2, an add, a relu)."""
+    n = 560_000_000
+    op = _vpu_op(_f32_chain, ("x", (n, 1), "float32"))
+    x = torch.empty(n, 1, device=cuda).uniform_(-4, 4)
+    got = op.fn(x, launch=launch)
+    want = op.fn.replay(x)
+    assert torch.equal(got, want)
+    del got, want, x
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize("shape", [(37, 3072), (1001, 3)])
+@pytest.mark.parametrize("launch", [None, (128, 4), (256, 8), (512, 4)])
+def test_vpu_chain_wide_constant(cuda, vpu_built, shape, launch):
+    """A captured f32 constant of the last dim's width (one more pointer,
+    read by a wrapping column counter): within one bf16 step of the replay."""
+    g = torch.Generator(device=cuda).manual_seed(44)
+    bias = torch.randn(shape[-1], generator=g, device=cuda)
+    op = _vpu_op(_wide_chain(bias), ("a", shape, "bfloat16"))
+    a = torch.randn(*shape, generator=g, device=cuda).to(torch.bfloat16)
+    _vpu_close(op.fn(a, launch=launch), op.fn.replay(a))
+
+
+def _vpu_launches():
+    from paddle_tpu_torch.static.rewrite import VPU_LAUNCHES
+
+    return list(VPU_LAUNCHES)
+
+
+@pytest.mark.parametrize("launch", _vpu_launches())
+def test_vpu_chain_every_launch_config(cuda, vpu_built, launch):
+    """Every config chip_smoke.py holds and times, at the smoke shape
+    [4096, 3072] bf16: bit for bit alike, one launch each."""
+    op = _vpu_op(_jax_test_chain, ("a", (4096, 3072), "bfloat16"),
+                 ("b", (4096, 3072), "bfloat16"))
+    g = torch.Generator(device=cuda).manual_seed(45)
+    a, b = (torch.randn(4096, 3072, generator=g, device=cuda).to(torch.bfloat16)
+            for _ in range(2))
+    before = ops.launch_counts()["vpu_chain"]
+    got = op.fn(a, b, launch=launch)
+    assert ops.launch_counts()["vpu_chain"] == before + 1
+    assert torch.equal(got, op.fn(a, b))
+    _vpu_close(got, op.fn.replay(a, b))
+
+
+def test_vpu_chain_refuses_other_configs(cuda, vpu_built):
+    op = _vpu_op(_jax_test_chain, ("a", (64, 3072), "bfloat16"), ("b", (64, 3072), "bfloat16"))
+    a = torch.ones(64, 3072, device=cuda, dtype=torch.bfloat16)
+    for launch in [(48, 8), (256, 6), (1056, 8), (256, 8, 0)]:
+        with pytest.raises(ValueError):
+            op.fn(a, a, launch=launch)
 
 
 def _sched_spec(build, *feeds, device):
