@@ -86,7 +86,11 @@ Phases, each of which raises (exit code != 0) on failure:
    launch 0 times), then GenerationEngine(kv_cache_dtype="int8" and then
    "bf16", prefill_chunk=128) with FLAGS_schedule_search on and a fresh
    FLAGS_autotune_cache_dir, so the searcher measures both chains against
-   their plain twins in every run and must accept both.  For each engine:
+   their plain twins in every run and must accept both.  Each engine
+   serves the requests twice: through the eager body of its decode step
+   (``_step_eager``, op by op), then, after ``warmup()`` captured the
+   D-token step as a CUDA graph, by replays (``step()``); the streams must
+   be equal.  For each pass:
    the streams, that every kernel's launch counter grew by exactly what
    the run implies (the Triton yardsticks 0; every flash forward and
    every prefill chain on the
@@ -96,8 +100,9 @@ Phases, each of which raises (exit code != 0) on failure:
    (through its own prefill path) match a forward built only from the
    plain versions; for the chained engines also the searcher's decisions
    and one decode step with the accepted config against the same step
-   unfused (pools bit-exact).  Print prefill and decode tokens/s, peak
-   memory and the pools' resident bytes.
+   unfused (pools bit-exact).  Print prefill and decode tokens/s of both
+   passes, warmup()'s seconds, the capture's seconds and graph memory,
+   peak memory and the pools' resident bytes.
 4. Train the flagship configuration of bench.py (vocab 32000, hidden
    2048, FFN 5632, 8 layers, 16 heads, bf16) at full width and depth with
    TrainStep and AdamW on one seeded batch of 4 x 1024 tokens: check that
@@ -114,17 +119,23 @@ Phases, each of which raises (exit code != 0) on failure:
    static.Executor (its PallasFusionPass puts the 25 residual adds +
    LayerNorms and the 12 linear + GELUs on the fused LayerNorm and
    matmul-epilogue kernels) on batches of 32 x 128 ids with ragged padding.
-   Checks the op counts after the pass, every run's launches (every
-   epilogue on the TMA/wgmma route), and the
+   The Executor captures the run as a CUDA graph at its first run and
+   replays it.  Checks the op counts after the pass, every run's launches
+   (every epilogue on the TMA/wgmma route), that every replay's logits
+   are bit for bit the eager run's of the same batch (the pruned op list
+   op by op, ``Executor._run_eager``) and that no run overwrites a fetch
+   an earlier one returned, and the
    logits against the eager forward, the unfused program (the flag
    FLAGS_use_pallas_fusion off) and the f32 forward of the same weights;
-   prints ms a batch, sequences/s, tokens/s and peak memory.
+   prints ms a batch replayed and eager, sequences/s, tokens/s and peak
+   memory.
 6. The codegen passes: the same BERT-base after pallas_fusion and
    generic_elementwise_fusion, run by the Executor with
    FLAGS_schedule_search on and a fresh verdict cache (op counts, every
-   run's launches, the pooler's decision, logits as in phase 5, ms a
-   batch); then bench_schedule_search.py's three programs through the
-   Executor with the real search (each program's decision and win
+   run's launches, the pooler's decision, logits as in phase 5 and bit
+   for bit the eager run's, ms a batch replayed and eager); then
+   bench_schedule_search.py's three programs through the Executor with
+   the real search (each program's decision and win
    against the gate, outputs against the unfused program); then fresh
    captures of all four, whose verdicts must come from the cache with no
    new search.
@@ -1504,52 +1515,86 @@ def expected_counts(engine, lengths, steps):
     return want
 
 
-def serve_engine(engine, prompts, new):
-    """One warm-up pass over the prompts (cuBLAS picks its algorithms per
-    shape; the chained engines run their searches here), then the measured
-    run with every launch count set to 0 just before it.  Checks the
-    streams and the launch counts."""
+def _served_pass(engine, prompts, new, step, tag):
+    """Submit every prompt (rid ``tag + name``) and step with ``step``
+    (the engine's captured ``step`` or its eager body) until idle, with
+    every launch count and the peak memory set to 0 just before.  Returns
+    the launch counts, the streams and the pass's numbers."""
     from paddle_tpu_torch import ops
 
     cfg = engine.model.config
-    for rid, p in prompts.items():
-        engine.add_request("warm-" + rid, p, max_new_tokens=2)
-    while engine.has_work():
-        engine.step()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    firsts = {rid: engine.add_request(rid, p, max_new_tokens=new) for rid, p in prompts.items()}
+    firsts = {rid: engine.add_request(tag + rid, p, max_new_tokens=new)
+              for rid, p in prompts.items()}
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     steps = 0
     while engine.has_work():
-        engine.step()
+        step()
         steps += 1
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     counts = ops.launch_counts()
     check(not any(ops.yardstick_counts().values()),
           f"serving: a Triton yardstick launched: {ops.yardstick_counts()}")
-
     check(all(f is not None for f in firsts.values()), "a request was queued, not admitted")
-    for rid in prompts:
-        stream = engine.result(rid)
-        check(len(stream) == new, f"{rid}: {len(stream)} tokens, expected {new}")
-        check(all(0 <= t < cfg.vocab_size for t in stream), f"{rid}: token id out of range")
+    streams = {rid: engine.result(tag + rid) for rid in prompts}
+    for rid, stream in streams.items():
+        check(len(stream) == new, f"{tag}{rid}: {len(stream)} tokens, expected {new}")
+        check(all(0 <= t < cfg.vocab_size for t in stream), f"{tag}{rid}: token id out of range")
     lengths = [len(p) for p in prompts.values()]
     want = expected_counts(engine, lengths, steps)
-    check(counts == want, f"launch counts {counts} != expected {want}")
+    check(counts == want, f"{tag or 'graphed '}launch counts {counts} != expected {want}")
     prefill_tokens, decode_tokens = sum(lengths), len(lengths) * (new - 1)
+    return counts, streams, {
+        "steps": steps, "prefill_s": t1 - t0, "prefill_tokens_per_s": prefill_tokens / (t1 - t0),
+        "decode_s": t2 - t1, "decode_tokens_per_s": decode_tokens / (t2 - t1),
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def serve_engine(engine, prompts, new):
+    """One warm-up pass over the prompts through the eager body (cuBLAS
+    picks its algorithms per shape; the chained engines run their searches
+    here), a measured pass through the eager body, then ``warmup()``,
+    which captures the D-token step as a CUDA graph, and the measured pass
+    of replays.  Checks both passes' launch counts and that the graphed
+    streams equal the eager ones."""
+    from paddle_tpu_torch import ops
+
+    for rid, p in prompts.items():
+        engine.add_request("warm-" + rid, p, max_new_tokens=2)
+    while engine.has_work():
+        engine._step_eager()
+    eager_counts, eager_streams, eager = _served_pass(engine, prompts, new,
+                                                      engine._step_eager, "eager-")
+    report = engine.warmup()
+    D = engine._effective_chunk()
+    captured = engine._step_fns[D]
+    counts, streams, graphed = _served_pass(engine, prompts, new, engine.step, "")
+    check(streams == eager_streams, f"graphed streams differ from the eager body's: "
+                                    f"{_stream_diff(streams, eager_streams)}")
+    check(counts == eager_counts, f"graphed launches {counts} != eager {eager_counts}")
+    lengths = [len(p) for p in prompts.values()]
     return counts, {"requests": len(lengths), "prompt_lengths": lengths,
-                    "new_tokens_each": new, "decode_chunk": engine._effective_chunk(),
-                    "steps": steps, "launches": counts,
+                    "new_tokens_each": new, "decode_chunk": D,
+                    "steps": graphed["steps"], "launches": counts,
                     "triton_yardstick_launches": ops.yardstick_counts(),
-                    "prefill_s": t1 - t0, "prefill_tokens_per_s": prefill_tokens / (t1 - t0),
-                    "decode_s": t2 - t1, "decode_tokens_per_s": decode_tokens / (t2 - t1),
-                    "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+                    **{k: v for k, v in graphed.items() if k != "steps"},
+                    "eager": eager, "streams_equal_eager": True,
+                    "warmup": report, "capture_s": captured.capture_s,
+                    "graph_bytes": captured.graph_bytes,
+                    "decode_speedup": graphed["decode_tokens_per_s"] / eager["decode_tokens_per_s"],
                     "pool_bytes": engine.pool_bytes()}
+
+
+def _stream_diff(a, b):
+    """The first differing position of each differing stream."""
+    return {rid: next(((i, x, y) for i, (x, y) in enumerate(zip(a[rid], b[rid])) if x != y),
+                      (min(len(a[rid]), len(b[rid])), None, None))
+            for rid in a if a[rid] != b[rid]}
 
 
 def check_first_token(model, engine, ids, want_logits):
@@ -1832,6 +1877,44 @@ def capture_bert(model):
     return main, logits
 
 
+def check_replay_equals_eager(what, exe, program, ids, logits, got, per_run, held):
+    """The replayed run's logits bit for bit the eager run's of the same
+    batch (the pruned op list run op by op), whose launches are the
+    replay's; ``held`` keeps each replay's fetch beside a copy."""
+    from paddle_tpu_torch import ops
+
+    ops.reset_launch_counts()
+    (eager,) = exe._run_eager(program, feed={"ids": ids}, fetch_list=[logits])
+    counts = ops.launch_counts()
+    check(counts == per_run, f"{what}: eager launches {counts} != {per_run}")
+    check(torch.equal(got, eager), f"{what}: the replay differs from the eager run: "
+                                   f"{max_err(got, eager)}")
+    held.append((got, got.clone()))
+
+
+def check_fetches_held(held, what):
+    """No later run wrote into a fetch a caller holds."""
+    check(all(torch.equal(a, b) for a, b in held), f"{what}: a later run overwrote a fetch")
+
+
+def captured_of(exe, program):
+    """Seconds and graph memory of the Executor's captured run of
+    ``program`` (one feed signature and fetch set in these phases)."""
+    (entry,) = [e for key, e in exe._cache.items() if key[0] is program]
+    return {"capture_s": entry.step.capture_s, "graph_bytes": entry.step.graph_bytes}
+
+
+def eager_batch_ms(exe, program, logits, batches, warmup, timed):
+    """ms a batch of the eager run (op by op), timed as the replays are."""
+    for i in range(warmup + timed):
+        if i == warmup:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        exe._run_eager(program, feed={"ids": batches[i % len(batches)]}, fetch_list=[logits])
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / timed
+
+
 def static_bert(card):
     """Phase 5: BERT-base (bf16, full width and depth, seeded random
     weights) captured as a static Program and run by the Executor, whose
@@ -1878,13 +1961,14 @@ def static_bert(card):
     # every linear + GELU on the TMA/wgmma epilogue
     per_run.update(fused_layer_norm=2 * layers + 1, matmul_epilogue=layers,
                    matmul_epilogue_sm90=layers)
-    errs = []
+    errs, held = [], []
     with torch.no_grad():
         for b, want_unfused in zip(batches, unfused):
             ops.reset_launch_counts()
             (got,) = exe.run(main, feed={"ids": b}, fetch_list=[logits], return_numpy=False)
             counts = ops.launch_counts()
             check(counts == per_run, f"static BERT: launches {counts} != {per_run}")
+            check_replay_equals_eager("static BERT", exe, main, b, logits, got, per_run, held)
             eager, ref = model(b), model_f32(b)
             check(got.shape == (BERT_BATCH, 2) and bool(torch.isfinite(got).all()),
                   f"static BERT: logits {tuple(got.shape)} or not finite")
@@ -1913,6 +1997,8 @@ def static_bert(card):
             totals = {k: totals[k] + counts[k] for k in totals}
     torch.cuda.synchronize()
     batch_ms = (time.perf_counter() - t0) * 1e3 / timed
+    check_fetches_held(held, "static BERT")
+    eager_ms = eager_batch_ms(exe, main, logits, batches, warmup, timed)
     real = sum(int((batches[i % len(batches)] != 0).sum()) for i in range(warmup,
                                                                         warmup + timed))
     emit({"static_bert": f"bert-base bf16 {layers} layers, batch {BERT_BATCH} x {BERT_SEQ}, "
@@ -1922,7 +2008,8 @@ def static_bert(card):
           "logits_rel_l2": errs, "tolerance": BERT_LOGITS_REL_TOL,
           "f32_ratio_limit": BERT_F32_RATIO,
           "warmup_runs": warmup, "timed_runs": timed, "ms_per_batch": batch_ms,
-          "sequences_per_s": BERT_BATCH / (batch_ms / 1e3),
+          "eager_ms_per_batch": eager_ms, "replay_bit_for_bit_eager": True,
+          **captured_of(exe, main), "sequences_per_s": BERT_BATCH / (batch_ms / 1e3),
           "tokens_per_s": BERT_BATCH * BERT_SEQ / (batch_ms / 1e3),
           "real_tokens_per_s": real / timed / (batch_ms / 1e3),
           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9})
@@ -1996,13 +2083,15 @@ def static_codegen(card, model, model_f32, batches):
                        matmul_epilogue_sm90=layers, vpu_chain=1)
         if adopted:
             per_run[_sched_kernel(pooler_spec[-1], pooler_verdict["config"])] = 1
-        errs = []
+        errs, held = [], []
         with torch.no_grad():
             for b in batches:
                 ops.reset_launch_counts()
                 (got,) = exe.run(main, feed={"ids": b}, fetch_list=[logits], return_numpy=False)
                 counts = ops.launch_counts()
                 check(counts == per_run, f"static codegen BERT: launches {counts} != {per_run}")
+                check_replay_equals_eager("static codegen BERT", exe, main, b, logits, got,
+                                          per_run, held)
                 eager, ref = model(b), model_f32(b)
                 check(got.shape == (BERT_BATCH, 2) and bool(torch.isfinite(got).all()),
                       f"static codegen BERT: logits {tuple(got.shape)} or not finite")
@@ -2026,6 +2115,8 @@ def static_codegen(card, model, model_f32, batches):
                 totals = {k: totals[k] + counts[k] for k in totals}
         torch.cuda.synchronize()
         batch_ms = (time.perf_counter() - t0) * 1e3 / timed
+        check_fetches_held(held, "static codegen BERT")
+        eager_ms = eager_batch_ms(exe, main, logits, batches, warmup, timed)
         emit({"static_codegen_bert": f"bert-base bf16 {layers} layers, batch {BERT_BATCH} x "
                                      f"{BERT_SEQ}, pallas_fusion + generic_elementwise_fusion + "
                                      "FLAGS_schedule_search", "card": card,
@@ -2036,7 +2127,9 @@ def static_codegen(card, model, model_f32, batches):
                                   "win": pooler_verdict["meta"].get("win")},
               "first_run_with_search_s": search_s, "launches_per_run":
                   {k: v for k, v in per_run.items() if v}, "logits_rel_l2": errs,
-              "ms_per_batch": batch_ms, "sequences_per_s": BERT_BATCH / (batch_ms / 1e3),
+              "ms_per_batch": batch_ms, "eager_ms_per_batch": eager_ms,
+              "replay_bit_for_bit_eager": True, **captured_of(exe, main),
+              "sequences_per_s": BERT_BATCH / (batch_ms / 1e3),
               "schedule_search_stats": ss.schedule_search_stats()})
 
         g = torch.Generator(device=DEVICE).manual_seed(32)

@@ -7,19 +7,28 @@ the cached forward (whole, or in ``prefill_chunk``-token chunks) and the
 pour into pool pages, bf16 or int8 pools (``kv_cache_dtype``), the
 macro-step decode of D tokens per ``step()`` with finished lanes masked
 onto their scratch pages, EOS and ``max_len`` stops, per-request
-temperature sampling, and the schedule searcher's serving chains: with
+temperature sampling inside the step (``serving/sampling.py``),
+``warmup()``, and the schedule searcher's serving chains: with
 ``FLAGS_schedule_search`` the engine resolves once, at first use, a
 decode-chain and a prefill-chain verdict for its geometry
 (``_resolve_decode_chain`` / ``_resolve_prefill_chain``) and runs the
-accepted kernels; a flag change re-arms both.  In JAX the D-token
-macro-step is one ``lax.scan`` inside a jitted program; here it is a
-Python loop over eager device work with one device-to-host copy per
-``step()``.  Options of the JAX engine that this package does not port
-yet raise ``NotImplementedError`` naming their ROADMAP item.
+accepted kernels; a flag change re-arms both and drops the captured steps.
+
+In JAX the D-token macro-step is one ``lax.scan`` inside a jitted program,
+compiled once per D.  Here its body reads fixed device buffers (tokens,
+tables, lens, max_lens, done, temperatures, keys and counters, filled by
+one copy from a pinned host area at every ``step()``), the pools and the
+weights, and is recorded once per D as a CUDA graph (``_core/graphs.py``)
+that every ``step()`` replays, with one device-to-host copy of the
+``[B, D]`` tokens.  On the CPU the same body runs eagerly.  The admission
+prefill stays eager, as in the JAX package (its length varies by prompt).
+Options of the JAX engine that this package does not port yet raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
 
+import time
 import weakref
 from collections import deque
 from dataclasses import dataclass, field
@@ -28,11 +37,14 @@ import numpy as np
 import torch
 
 from paddle_tpu_torch._core import flags as _flags
+from paddle_tpu_torch._core import graphs
 from paddle_tpu_torch._core.device import resolve_device
 from paddle_tpu_torch.models.llama import (_decode_layers_paged, _model_forward_cached,
                                            prefill_chain_scope)
 from paddle_tpu_torch.ops import decode_chain as dc
 from paddle_tpu_torch.ops import paged_attention as pa
+
+from . import sampling
 
 __all__ = ["GenerationEngine", "schedule_decode_stats", "reset_schedule_decode_stats"]
 
@@ -70,7 +82,8 @@ def reset_schedule_decode_stats():
 
 # Live engines: a flag change re-arms their chain verdicts, which are then
 # resolved again at the next use (the flags decide whether, and which,
-# chain an engine may run).
+# chain an engine may run), and drops their captured steps, which hold the
+# verdict they were recorded with.
 _ENGINES: "weakref.WeakSet[GenerationEngine]" = weakref.WeakSet()
 _CHAIN_UNSET = object()
 
@@ -78,6 +91,7 @@ _CHAIN_UNSET = object()
 @_flags.on_change
 def _rearm_chain_verdicts(_changed):
     for eng in list(_ENGINES):
+        eng._step_fns.clear()
         eng._decode_chain_cfg = _CHAIN_UNSET
         eng._prefill_chain_cfg = _CHAIN_UNSET
 
@@ -92,11 +106,16 @@ class _Slot:
     last_token: int = 0
     generated: list = field(default_factory=list)
     temperature: float = 0.0  # 0 = greedy
-    generator: torch.Generator | None = None
+    key: int = 0              # the sampler's key, _request_seed(seed, nonce)
+
+
+# the step's input row of a lane, one int64 each: the last token, the W
+# block-table entries, then these columns
+_LEN, _MAX_LEN, _DONE, _KEY, _COUNTER, _TEMP = range(6)
 
 
 def _request_seed(seed: int, nonce: int) -> int:
-    """A 63-bit generator seed from the request's (seed, nonce)."""
+    """A 63-bit sampler key from the request's (seed, nonce)."""
     state = np.random.SeedSequence([seed & (2**63 - 1), nonce]).generate_state(1, np.uint64)
     return int(state[0]) & (2**63 - 1)
 
@@ -113,8 +132,10 @@ class GenerationEngine:
 
     ``step()`` advances D = decode_chunk tokens (None -> FLAGS_decode_chunk,
     default 8) and returns ``{rid: [tokens...]}``; at D == 1 it returns
-    ``{rid: token}``.  ``device=None`` means the CUDA card and raises
-    without one; the model must lie on the engine's device.
+    ``{rid: token}``.  On the card each D's step is captured as a CUDA
+    graph at its first use, or ahead of traffic by ``warmup()``.
+    ``device=None`` means the CUDA card and raises without one; the model
+    must lie on the engine's device.
     """
 
     def __init__(self, model, max_batch=4, block_size=16, num_blocks=128,
@@ -184,6 +205,14 @@ class GenerationEngine:
             np.tile(np.asarray(self._scratch, np.int64)[:, None],
                     (1, self._max_blocks_per_seq)), device=self.device)
         self._req_counter = 0
+        # the macro-step's inputs: one int64 row a lane (_LEN ...), staged
+        # on the host (pinned on the card) and copied to the device buffer
+        # the captured steps read; temperatures travel as float32 bits
+        self._stage = torch.zeros((self.max_batch, 1 + self._max_blocks_per_seq + 6),
+                                  dtype=torch.int64, pin_memory=self.device.type == "cuda")
+        self._inputs = torch.zeros_like(self._stage, device=self.device)
+        self._vocab_hash = sampling.vocab_hash(cfg.vocab_size, self.device)
+        self._step_fns: dict = {}  # D -> graphs.Captured
         # the schedule searcher's verdicts (Decisions) and the configs the
         # engine runs, resolved at first use
         self.decode_decision = self.prefill_decision = None
@@ -226,7 +255,6 @@ class GenerationEngine:
         slot.blocks = []
         slot.active = False
         slot.rid = None
-        slot.generator = None
 
     def add_request(self, rid, prompt_ids, max_new_tokens=16, temperature=None, seed=0,
                     adapter=None, priority="normal"):
@@ -238,10 +266,11 @@ class GenerationEngine:
         and its first token surfaces in that step's output.  A request
         that can never fit the per-sequence block table raises.
 
-        temperature None/0 decodes greedily; > 0 samples with a
-        ``torch.Generator`` seeded from ``(seed, nonce)``, where the nonce
-        is reserved at submit time, so a queued request draws the same
-        stream an immediately admitted one would."""
+        temperature None/0 decodes greedily; > 0 samples with the
+        counter-based sampler (``serving/sampling.py``) keyed by ``(seed,
+        nonce)``, where the nonce is reserved at submit time, so a queued
+        request draws the same stream an immediately admitted one
+        would."""
         if adapter is not None:
             raise _not_ported("LoRA adapters (adapter=)", _SERVING_ITEM)
         if priority != "normal":
@@ -276,10 +305,6 @@ class GenerationEngine:
                                    "with an idle engine (pool too small?)")
             break
         return admitted
-
-    def _sample(self, logits_row, temperature, generator):
-        probs = torch.softmax(logits_row.float() / temperature, dim=-1)
-        return torch.multinomial(probs, 1, generator=generator)[0]
 
     @torch.no_grad()
     def _try_admit(self, req):
@@ -323,10 +348,14 @@ class GenerationEngine:
         slot.max_len = req["max_len"]
         slot.blocks = blocks
         slot.temperature = req["temperature"]
+        slot.key = _request_seed(req["seed"], req["nonce"])
         if slot.temperature > 0.0:
-            slot.generator = torch.Generator(device=self.device)
-            slot.generator.manual_seed(_request_seed(req["seed"], req["nonce"]))
-            first = int(self._sample(logits_last, slot.temperature, slot.generator))
+            # counter 0: this request's first generated token
+            dev = self.device
+            first = int(sampling.sample(
+                logits_last[None], torch.tensor([slot.temperature], device=dev),
+                torch.tensor([slot.key], device=dev),
+                torch.zeros(1, dtype=torch.int64, device=dev), self._vocab_hash)[0])
         else:
             first = int(torch.argmax(logits_last))
         slot.last_token = first
@@ -416,38 +445,119 @@ class GenerationEngine:
         self._prefill_chain_cfg = cfg
         return cfg
 
-    @torch.no_grad()
-    def _decode(self, chunk, tokens, tables, lens, max_lens, done):
-        """``chunk`` decode tokens for every lane, all on the device:
-        lanes that stop (EOS, or no room left within max_len) flip
+    def _decode_body(self, chunk):
+        """The macro-step body: ``chunk`` decode tokens for every lane,
+        all on the device, from the input buffer alone (``_fill_inputs``).
+        Lanes that stop (EOS, or no room left within max_len) flip
         ``done``; from then on their writes land on their scratch page
-        with lens 1 and their tokens are dropped on the host.  Returns
-        ``[B, chunk]`` token ids."""
+        with lens 1, their counters freeze, and their tokens are dropped
+        on the host.  The decode-chain verdict is resolved here, outside
+        the body: a captured step holds it.  Returns the body, which
+        returns ``[B, chunk]`` token ids."""
         model = self.model
         mm = model.model
-        samplers = [(i, s.temperature, s.generator) for i, s in enumerate(self._slots)
-                    if s.active and s.temperature > 0.0]
         eos = self.eos_token_id
         chain_cfg = self._resolve_decode_chain()
-        out = []
-        for _ in range(chunk):
-            tables_eff = torch.where(done[:, None], self._scratch_tables, tables)
-            lens_eff = torch.where(done, torch.ones_like(lens), lens)
-            h = mm.embed_tokens(tokens)
-            h, self._kpools, self._vpools = _decode_layers_paged(
-                mm.layers, h, mm.rope_cos, mm.rope_sin, self._kpools, self._vpools,
-                tables_eff, lens_eff, chain_cfg)
-            lg = model._logits(mm.norm(h))[:, -1, :]
-            nxt = torch.argmax(lg, dim=-1)
-            for i, temperature, generator in samplers:
-                nxt[i] = self._sample(lg[i], temperature, generator)
-            fin = (nxt == eos) if eos is not None else torch.zeros_like(done)
-            new_done = done | fin | (lens + 1 >= max_lens)
-            lens = torch.where(done, lens, lens + 1)
-            done = new_done
-            tokens = nxt[:, None]
-            out.append(nxt)
-        return torch.stack(out, dim=1)
+        w, inp = self._max_blocks_per_seq, self._inputs
+        c = 1 + w  # the first column after the tables
+
+        @torch.no_grad()
+        def body():
+            tokens, tables = inp[:, :1], inp[:, 1:c]
+            lens, max_lens = inp[:, c + _LEN], inp[:, c + _MAX_LEN]
+            done, keys = inp[:, c + _DONE] != 0, inp[:, c + _KEY]
+            counters = inp[:, c + _COUNTER]
+            temps = inp[:, c + _TEMP].to(torch.int32).view(torch.float32)
+            out = []
+            for _ in range(chunk):
+                tables_eff = torch.where(done[:, None], self._scratch_tables, tables)
+                lens_eff = torch.where(done, torch.ones_like(lens), lens)
+                h = mm.embed_tokens(tokens)
+                h, kp, vp = _decode_layers_paged(
+                    mm.layers, h, mm.rope_cos, mm.rope_sin, self._kpools, self._vpools,
+                    tables_eff, lens_eff, chain_cfg)
+                if any(a is not b for a, b in zip(kp + vp, self._kpools + self._vpools)):
+                    raise RuntimeError("a pool write returned a new pool: a captured step "
+                                       "must write the pools in place")
+                lg = model._logits(mm.norm(h))[:, -1, :]
+                nxt = sampling.sample(lg, temps, keys, counters, self._vocab_hash)
+                fin = (nxt == eos) if eos is not None else torch.zeros_like(done)
+                new_done = done | fin | (lens + 1 >= max_lens)
+                lens = torch.where(done, lens, lens + 1)
+                counters = torch.where(done, counters, counters + 1)
+                done = new_done
+                tokens = nxt[:, None]
+                out.append(nxt)
+            return torch.stack(out, dim=1)
+
+        return body
+
+    def _fill_inputs(self, idle=False):
+        """Stage every lane's step inputs and copy them to the device
+        buffer.  Inactive lanes (every lane when ``idle``) park on their
+        scratch page with lens 1 and done set."""
+        w, c = self._max_blocks_per_seq, 1 + self._max_blocks_per_seq
+        st = self._stage.numpy()
+        st[:] = 0
+        st[:, c + _LEN] = 1
+        st[:, c + _DONE] = 1
+        for i, s in enumerate(self._slots):
+            if s.active and not idle:
+                st[i, 0] = s.last_token
+                st[i, 1:c] = list(s.blocks) + [s.blocks[-1]] * (w - len(s.blocks))
+                st[i, c + _LEN] = s.seq_len + 1  # includes the token being decoded
+                st[i, c + _MAX_LEN] = s.max_len
+                st[i, c + _DONE] = 0
+                st[i, c + _KEY] = s.key
+                st[i, c + _COUNTER] = len(s.generated)  # this request's token counter
+                st[i, c + _TEMP] = int(np.float32(s.temperature).view(np.int32))
+            else:
+                st[i, 1:c] = self._scratch[i]  # park masked lanes off-pool
+        # the idle fill is rare: a blocking copy, so the next fill cannot
+        # overwrite the staging area under it
+        self._inputs.copy_(self._stage, non_blocking=not idle)
+
+    def _build_step(self, chunk):
+        """Warm up and capture the D = ``chunk`` macro-step (on the CPU:
+        keep its body).  The card's warm-up runs with every lane idle, so
+        it writes only scratch pages and leaves the shared pool as it was;
+        a later fill of the inputs is what a replay decodes."""
+        self._fill_inputs(idle=True)
+        return graphs.capture(self._decode_body(chunk), self.device)
+
+    def warmup(self, chunks=None, *, prefill=True, adopt=True):
+        """Build and capture this engine's hot steps before traffic (the
+        JAX engine's ``warmup``, which compiles them).  ``chunks`` lists
+        the decode widths D to capture (default: the effective chunk); each
+        lands in the ``_step_fns`` table ``step()`` consults.  The one
+        D-token step is also the tail step: lanes that finish mid-chunk
+        park on their scratch pages.  ``prefill=True`` also runs the
+        admission prefill of a single-block prompt over empty caches,
+        which builds the prefill's kernels, cuBLAS's handles and the
+        Triton JIT (longer prompts still meet new shapes lazily).
+        ``adopt`` is accepted and does nothing: it warms the prefix
+        cache's page adoption, which the port does not have yet.  Returns
+        ``{"chunks": [warmed widths], "seconds": wall}``, capture and
+        instantiation included."""
+        t0 = time.perf_counter()
+        todo = sorted({int(c) for c in (
+            chunks if chunks is not None else [self._effective_chunk()])})
+        if any(d < 1 for d in todo):
+            raise ValueError("decode chunk widths must be >= 1")
+        for d in todo:
+            if d not in self._step_fns:
+                self._step_fns[d] = self._build_step(d)
+        if prefill:
+            cfg = self.model.config
+            caches = [(torch.zeros((1, 0, self._nkv, self._head_dim), dtype=cfg.torch_dtype,
+                                   device=self.device),) * 2 for _ in range(self._n_layers)]
+            dummy = torch.zeros((1, self.block_size), dtype=torch.int64, device=self.device)
+            with torch.no_grad():
+                h, _ = _model_forward_cached(self.model.model, dummy, caches, 0)
+                self.model._logits(h[:, -1:, :])
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return {"chunks": todo, "seconds": time.perf_counter() - t0}
 
     def step(self):
         """One macro-step for every live request: D = decode_chunk tokens
@@ -455,6 +565,15 @@ class GenerationEngine:
         ``{rid: [tok, ...]}`` (``{rid: tok}`` at D == 1); a request admitted
         from the pending queue in this step always maps to a list led by
         its prefill-produced first token."""
+        return self._macro_step(eager=False)
+
+    def _step_eager(self):
+        """``step()`` through the eager body in place of the captured
+        step: the yardstick the timing tools and the card checks compare
+        the graph with, not a serving option."""
+        return self._macro_step(eager=True)
+
+    def _macro_step(self, eager):
         if not self.has_work():
             return {}
         admitted = self._admit_pending()
@@ -462,28 +581,15 @@ class GenerationEngine:
             # admitted requests may have finished at admission
             return {rid: list(self._results[rid]) for rid in admitted}
         D = self._effective_chunk()
-        B, W = self.max_batch, self._max_blocks_per_seq
-        tokens = np.zeros((B, 1), np.int64)
-        tables = np.zeros((B, W), np.int64)
-        lens = np.ones((B,), np.int64)
-        max_lens = np.zeros((B,), np.int64)
-        done = np.ones((B,), bool)
-        for i, s in enumerate(self._slots):
-            if s.active:
-                tokens[i, 0] = s.last_token
-                tables[i] = list(s.blocks) + [s.blocks[-1]] * (W - len(s.blocks))
-                lens[i] = s.seq_len + 1  # includes the token being decoded
-                max_lens[i] = s.max_len
-                done[i] = False
-            else:
-                tables[i] = self._scratch[i]  # park masked lanes off-pool
-        dev = self.device
-        nxt = self._decode(D, torch.as_tensor(tokens, device=dev),
-                           torch.as_tensor(tables, device=dev),
-                           torch.as_tensor(lens, device=dev),
-                           torch.as_tensor(max_lens, device=dev),
-                           torch.as_tensor(done, device=dev))
-        nxt = nxt.cpu().numpy()  # [B, D]: the one device sync per step
+        if eager:
+            run = self._decode_body(D)
+        else:
+            step_fn = self._step_fns.get(D)
+            if step_fn is None:
+                step_fn = self._step_fns[D] = self._build_step(D)
+            run = step_fn.replay
+        self._fill_inputs()
+        nxt = run().cpu().numpy()  # [B, D]: the one device sync per step
 
         out = {}
         for i, s in enumerate(self._slots):

@@ -1,15 +1,23 @@
 """Static-graph executor (counterpart of paddle_tpu/static/executor.py).
 
-The JAX Executor traces the Program's op list once under ``jax.jit``; here
-the pruned op list runs eagerly under ``torch.no_grad()`` on the
-Executor's device, each op a torch call (the fused ones launch the port's
-kernels on the card).  Before a run the default pass pipeline
-(``PallasFusionPass`` while ``FLAGS_use_pallas_fusion`` is on, then
-``ScheduleSearchPass`` on the Executor's device while
-``FLAGS_schedule_search`` is on, as in the JAX package) rewrites the
-program, each stage memoised per (program version, fetch set).  Persistent state (parameters) lives in a Scope keyed by var id; the
-scope holds each parameter's own storage (no copy: the port donates no
-buffers, and no program of this tier writes state yet).
+The JAX Executor compiles the Program's pruned op list with ``jax.jit``,
+once per (program, version, feed shapes and dtypes, fetch set).  Here the
+same key holds a captured run (``_core/graphs.py``): the first run of a key
+copies the feeds into fixed buffers and runs the pruned op list eagerly
+under ``torch.no_grad()`` on the Executor's device (building the kernels,
+the searches' kernels and the Triton JIT; its fetches are that run's),
+then records it as a CUDA graph; every later run copies the feeds in and
+replays.  On the CPU the same body runs eagerly every time.  Before a run
+the default pass pipeline (``PallasFusionPass`` while
+``FLAGS_use_pallas_fusion`` is on, then ``ScheduleSearchPass`` on the
+Executor's device while ``FLAGS_schedule_search`` is on, as in the JAX
+package) rewrites the program, each stage memoised per (program version,
+fetch set).  Persistent state (parameters) lives in a Scope keyed by var
+id; the scope holds each parameter's own storage, except state a program
+writes, which the scope holds in a copy that each run updates in place
+(no program of this tier writes state yet).  A captured run reads the
+scope's tensors it was recorded over: if the scope holds others, the key
+is recorded again.
 """
 
 from __future__ import annotations
@@ -19,7 +27,7 @@ import functools
 import numpy as np
 import torch
 
-from paddle_tpu_torch._core import flags
+from paddle_tpu_torch._core import flags, graphs
 from paddle_tpu_torch._core.device import resolve_device
 
 from .program import Program, Variable, default_main_program
@@ -67,9 +75,45 @@ def _unported(what):
 
 
 def _fetch_numpy(t: torch.Tensor) -> np.ndarray:
-    if t.dtype == torch.bfloat16:
-        t = t.float()  # numpy has no bf16: every bf16 value is exact in f32
-    return t.detach().cpu().numpy()
+    """A fresh array: a later run must not overwrite what the caller holds.
+    numpy has no bf16: every bf16 value is exact in f32."""
+    dtype = torch.float32 if t.dtype == torch.bfloat16 else t.dtype
+    return t.detach().to("cpu", dtype, copy=True).numpy()
+
+
+class _CapturedRun:
+    """One key's captured run: fixed feed buffers, the scope's state
+    tensors it reads (and writes in place, where the program writes
+    state), and the captured step returning the fetches."""
+
+    def __init__(self, run_fn, feeds, state, written, place):
+        self.feeds = [torch.empty(f.shape, dtype=f.dtype, device=place) for f in feeds]
+        self.state = state
+
+        @torch.no_grad()
+        def body():
+            fetches, new_state = run_fn(self.feeds, state)
+            for i in written:
+                state[i].copy_(new_state[i])
+            return fetches
+
+        self._copy_in(feeds)
+        self.step = graphs.capture(body, place)
+
+    def _copy_in(self, feeds):
+        for buf, f in zip(self.feeds, feeds):
+            buf.copy_(f)
+
+    def first(self):
+        """The fetches of the first run: the card's warm-up call, or on
+        the CPU the body's first call."""
+        if self.step.warm_outputs is not None:
+            return self.step.warm_outputs
+        return self.step.replay()
+
+    def run(self, feeds):
+        self._copy_in(feeds)
+        return self.step.replay()
 
 
 class Executor:
@@ -83,7 +127,8 @@ class Executor:
 
     def __init__(self, place=None):
         self.place = resolve_device(place)
-        self._cache = {}
+        self._cache = {}   # (program, version, feed signature, fetch set) -> _CapturedRun
+        self._pruned = {}  # (program, version, fetch set) -> program.as_function(...)
 
     def _check_device(self, what, t):
         if t.device != self.place:
@@ -94,13 +139,18 @@ class Executor:
         for vid, init in program.param_inits.items():
             if scope.find_var(vid) is None:
                 self._check_device(f"parameter {program._var_by_vid[vid].name}", init)
-                scope.set_var(vid, init.detach())
+                # state a program writes is updated in place: the scope's own copy
+                scope.set_var(vid, init.detach().clone() if vid in program.writes
+                              else init.detach())
 
     def _feed_value(self, var: Variable, value):
+        """The feed in its ``static.data`` dtype: a torch tensor on the
+        Executor's device, or a numpy value on the host (copied to the
+        device by the run's copy into its feed buffer)."""
         if isinstance(value, torch.Tensor):
             self._check_device(f"feed '{var.name}'", value)
             return value.to(var.dtype)
-        return torch.as_tensor(np.asarray(value), dtype=var.dtype, device=self.place)
+        return torch.as_tensor(np.asarray(value), dtype=var.dtype)
 
     @staticmethod
     def _rewrite_stage(program, fetch_vids, stamp_attr, pass_cls):
@@ -132,11 +182,10 @@ class Executor:
                     self._check_device(f"a const of op {op.type}", s[1])
         return pruned
 
-    def run(self, program=None, feed=None, fetch_list=None, scope=None, return_numpy=True):
-        """Run ``program`` on ``feed`` and return the ``fetch_list`` values:
-        numpy arrays (a bf16 fetch comes back as exact float32, since numpy
-        has no bf16) or, with ``return_numpy=False``, torch tensors on the
-        Executor's device in their own dtype."""
+    def _prepare(self, program, feed, fetch_list, scope):
+        """Check and convert the run's arguments, run the pass pipeline;
+        returns (program, scope, fetch vids, feed values), or None when
+        there is nothing to run."""
         program = program or default_main_program()
         scope = scope or global_scope()
         feed = feed or {}
@@ -144,7 +193,7 @@ class Executor:
         if flags.flag("FLAGS_verify_programs"):
             raise _unported("FLAGS_verify_programs (static/verify.py)")
         if not program.global_block().ops and not program.param_inits and not fetch_list:
-            return []
+            return None
 
         self._ensure_state(program, scope)
         fetch_vids = []
@@ -174,21 +223,64 @@ class Executor:
 
             self._rewrite_stage(program, fetch_vids, "_sched_searched_at",
                                 functools.partial(ScheduleSearchPass, device=self.place))
+        return program, scope, fetch_vids, feed_vals
 
+    def _function(self, program, fetch_vids):
         key = (program, program.version, fetch_vids)  # the program itself: its id may recur
-        if key not in self._cache:
-            self._cache[key] = program.as_function(list(fetch_vids),
-                                                   ops=self._prune(program, fetch_vids))
-        run_fn, _, state_vids = self._cache[key]
-        state_vals = [scope.find_var(vid) for vid in state_vids]
-        with torch.no_grad():
-            fetches, new_state = run_fn(feed_vals, state_vals)
-        if program.writes:
-            for vid, val in zip(state_vids, new_state):
-                scope.set_var(vid, val)
+        if key not in self._pruned:
+            self._pruned[key] = program.as_function(list(fetch_vids),
+                                                    ops=self._prune(program, fetch_vids))
+        return self._pruned[key]
+
+    @staticmethod
+    def _results(fetches, return_numpy):
         if return_numpy:
             return [_fetch_numpy(t) for t in fetches]
-        return list(fetches)
+        return [t.clone() for t in fetches]  # fresh: the next replay overwrites the graph's
+
+    def run(self, program=None, feed=None, fetch_list=None, scope=None, return_numpy=True):
+        """Run ``program`` on ``feed`` and return the ``fetch_list`` values:
+        numpy arrays (a bf16 fetch comes back as exact float32, since numpy
+        has no bf16) or, with ``return_numpy=False``, torch tensors on the
+        Executor's device in their own dtype.  Either is the caller's own:
+        no later run writes into it."""
+        prepared = self._prepare(program, feed, fetch_list, scope)
+        if prepared is None:
+            return []
+        program, scope, fetch_vids, feed_vals = prepared
+        sig = tuple((tuple(f.shape), f.dtype) for f in feed_vals)
+        key = (program, program.version, sig, fetch_vids)
+        run_fn, _, state_vids = self._function(program, fetch_vids)
+        state = [scope.find_var(vid) for vid in state_vids]
+        entry = self._cache.get(key)
+        if entry is not None and all(a is b for a, b in zip(entry.state, state)):
+            fetches = entry.run(feed_vals)
+        else:
+            written = [i for i, vid in enumerate(state_vids) if vid in program.writes]
+            entry = self._cache[key] = _CapturedRun(run_fn, feed_vals, state, written,
+                                                    self.place)
+            fetches = entry.first()
+        return self._results(fetches, return_numpy)
+
+    def _run_eager(self, program=None, feed=None, fetch_list=None, scope=None,
+                   return_numpy=False):
+        """``run()`` with the pruned op list run eagerly, op by op, and no
+        captured step: the yardstick the timing tools and the card checks
+        compare the replays with, not a run option."""
+        prepared = self._prepare(program, feed, fetch_list, scope)
+        if prepared is None:
+            return []
+        program, scope, fetch_vids, feed_vals = prepared
+        run_fn, _, state_vids = self._function(program, fetch_vids)
+        state = [scope.find_var(vid) for vid in state_vids]
+        feed_vals = [f.to(self.place) for f in feed_vals]
+        with torch.no_grad():
+            fetches, new_state = run_fn(feed_vals, state)
+            for t, vid, new in zip(state, state_vids, new_state):
+                if vid in program.writes:
+                    t.copy_(new)
+        return self._results(fetches, return_numpy)
 
     def close(self):
         self._cache.clear()
+        self._pruned.clear()

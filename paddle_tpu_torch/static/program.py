@@ -228,14 +228,27 @@ class Program:
         state_vids = state_vids if state_vids is not None else list(self.param_inits)
         ops = list(self.global_block().ops) if ops is None else list(ops)
         writes = dict(self.writes)
+        # each value is dropped after the last op that reads it (or at once
+        # when none does), unless fetched or state: a run then holds the
+        # live values only, and so does a CUDA graph recorded over it
+        keep = set(fetch_vids) | set(state_vids) | set(writes.values())
+        last_read = {}
+        for i, op in enumerate(ops):
+            for vid in op.input_vids():
+                last_read[vid] = i
+        dead_after = [[v for v in dict.fromkeys(op.input_vids() + list(op.out_vids))
+                       if v not in keep and last_read.get(v, -1) <= i]
+                      for i, op in enumerate(ops)]
 
         def run(feed_vals, state_vals):
             env = dict(zip(feed_vids, feed_vals))
             env.update(zip(state_vids, state_vals))
             with suspend_capture():  # the ops run, even inside a program_guard
-                for op in ops:
+                for op, dead in zip(ops, dead_after):
                     out = op.fn(*[env[s[1]] for s in op.arg_spec if s[0] == "var"])
                     env.update(zip(op.out_vids, pytree.tree_leaves(out)))
+                    for vid in dead:
+                        env.pop(vid, None)
             fetches = [env[vid] for vid in fetch_vids]
             new_state = [env.get(writes.get(vid, -1), env[vid]) for vid in state_vids]
             return fetches, new_state

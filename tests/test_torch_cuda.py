@@ -1571,3 +1571,158 @@ def test_f16_engine_with_the_search_serves_the_unsearched_stream(cuda, tmp_path)
     assert got == want
     assert eng.decode_decision.status == eng.prefill_decision.status == "disabled"
     assert stats["refused"] >= 2 and stats["measured"] == 0, stats
+
+
+# ------------------------------------------------------------- compiled steps
+# The captured steps (_core/graphs.py) replay the same kernels on the same
+# addresses as the eager body, so tokens, pools and logits are held bit for
+# bit.  Every recording runs under torch.cuda.set_sync_debug_mode("error"),
+# so a hidden host sync names itself.
+
+# (pools, decode-chain config): the default engine (plain paged attention),
+# the bf16 and int8 chains in the batch layout (cluster launches), and the
+# int8 split layout, whose combine launch starts by programmatic dependent
+# launch
+GRAPH_ENGINES = {"default": ("bf16", None), "bf16_batch": ("bf16", {"layout": "batch"}),
+                 "int8_batch": ("int8", {"layout": "batch"}),
+                 "int8_rows": ("int8", {"layout": "rows", "splits": 2})}
+
+
+def _graph_engine(model, cuda, kind, chunk):
+    from paddle_tpu_torch.serving import GenerationEngine
+
+    kv, chain = GRAPH_ENGINES[kind]
+    eng = GenerationEngine(model, max_batch=4, block_size=16, num_blocks=64, device=cuda,
+                           decode_chunk=chunk, kv_cache_dtype=kv)
+    eng._decode_chain_cfg, eng._prefill_chain_cfg = chain, None  # no search: the config given
+    return eng
+
+
+def _serve_graph_engine(eng, step):
+    """Three greedy requests and a sampled one (mixed lanes in one step);
+    the streams and the launches of the decode steps."""
+    g = torch.Generator().manual_seed(45)
+    for i, n in enumerate((5, 17, 40)):
+        eng.add_request(f"g{i}", torch.randint(1, 1000, (n,), generator=g).tolist(),
+                        max_new_tokens=19)
+    eng.add_request("s", [5, 9, 17, 33], max_new_tokens=19, temperature=0.8, seed=7)
+    ops.reset_launch_counts()
+    while eng.has_work():
+        step()
+    torch.cuda.synchronize()
+    return {rid: eng.result(rid) for rid in ("g0", "g1", "g2", "s")}, ops.launch_counts()
+
+
+@pytest.fixture(scope="module")
+def tiny_bf16_llama():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the hand-written kernels have no CPU mode")
+    from paddle_tpu_torch.models import LlamaForCausalLM, llama_tiny
+
+    g = torch.Generator(device="cuda").manual_seed(46)
+    return LlamaForCausalLM(llama_tiny(dtype="bfloat16"), device="cuda", generator=g)
+
+
+@pytest.mark.parametrize("chunk", [1, 8])
+@pytest.mark.parametrize("kind", list(GRAPH_ENGINES))
+def test_graphed_decode_equals_the_eager_body(cuda, tiny_bf16_llama, kind, chunk):
+    """warmup() captures the D-token step; served by replays, the streams,
+    the shared pool and the launch counts equal the eager body's, and a
+    step's launches are its captured step's credit."""
+    eager_eng = _graph_engine(tiny_bf16_llama, cuda, kind, chunk)
+    want, want_counts = _serve_graph_engine(eager_eng, eager_eng._step_eager)
+    eng = _graph_engine(tiny_bf16_llama, cuda, kind, chunk)
+    rep = eng.warmup()
+    assert rep["chunks"] == [chunk]
+    captured = eng._step_fns[chunk]
+    assert captured._graph is not None and captured.graph_bytes >= 0
+    got, counts = _serve_graph_engine(eng, eng.step)
+    assert got == want and counts == want_counts
+    assert eng._step_fns[chunk] is captured
+    shared = slice(0, eng._num_blocks)
+    for a, b in zip(eng._kpools + eng._vpools, eager_eng._kpools + eager_eng._vpools):
+        pa_ = (a.data, a.scale) if hasattr(a, "scale") else (a,)
+        pb_ = (b.data, b.scale) if hasattr(b, "scale") else (b,)
+        for x, y in zip(pa_, pb_):
+            assert torch.equal(x[shared], y[shared])
+    chain = GRAPH_ENGINES[kind][1]
+    if chain:
+        name = "decode_chain_batch" if chain["layout"] == "batch" else "decode_chain_rows"
+        assert counts[name] == counts[f"{name}_sm90"] > 0
+    eng._fill_inputs()  # every request finished: every lane idle, on its scratch page
+    ops.reset_launch_counts()
+    for _ in range(3):
+        captured.replay()
+    torch.cuda.synchronize()
+    assert {k: v for k, v in ops.launch_counts().items() if v} == {
+        k: 3 * v for k, v in captured.launches[0].items()}
+
+
+def test_sampler_uniforms_bit_for_bit_the_cpus(cuda):
+    from paddle_tpu_torch.serving import sampling
+
+    keys = torch.tensor([0, 7, 2 ** 63 - 1, 123456789012345], dtype=torch.int64)
+    counters = torch.tensor([0, 1, 2 ** 32 - 1, 77], dtype=torch.int64)
+    want = sampling.uniforms(keys, counters, sampling.vocab_hash(32000, "cpu"))
+    got = sampling.uniforms(keys.to(cuda), counters.to(cuda), sampling.vocab_hash(32000, cuda))
+    assert torch.equal(got.cpu(), want)
+
+
+def _tiny_bert_program(cuda, codegen):
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.models import BertForSequenceClassification, bert_tiny
+    from paddle_tpu_torch.static.passes import apply_pass
+
+    g = torch.Generator(device=cuda).manual_seed(47)
+    model = BertForSequenceClassification(bert_tiny(), num_classes=2, device=cuda,
+                                          generator=g).to(torch.bfloat16).eval()
+    prog = static.Program()
+    with static.program_guard(prog):
+        logits = model(static.data("ids", [8, 64], "int32"))
+    if codegen:
+        apply_pass(prog, "generic_elementwise_fusion", fetch_vids=[logits._vid])
+    batches = []
+    for _ in range(3):
+        ids = torch.randint(1, 1000, (8, 64), generator=g, device=cuda, dtype=torch.int32)
+        lengths = torch.randint(8, 65, (8,), generator=g, device=cuda)
+        pos = torch.arange(64, device=cuda)
+        batches.append(torch.where(pos[None] < lengths[:, None], ids, torch.zeros_like(ids)))
+    return prog, logits, batches
+
+
+@pytest.mark.parametrize("codegen", [False, True])
+def test_static_replay_equals_the_eager_run(cuda, tmp_path, codegen):
+    """A 2-layer bf16 BERT through the Executor: every replay's logits bit
+    for bit the eager run's, the fetches of earlier runs untouched by
+    later ones, the launches of a replay those of its eager run."""
+    from paddle_tpu_torch import set_flags, static
+    from paddle_tpu_torch.ops import autotune as at
+
+    prog, logits, batches = _tiny_bert_program(cuda, codegen)
+    if codegen:
+        set_flags({"FLAGS_autotune_cache_dir": str(tmp_path), "FLAGS_schedule_search": True})
+        at._CACHES.clear()
+    try:
+        exe = static.Executor()
+        exe.run(prog, feed={"ids": batches[0]}, fetch_list=[logits], return_numpy=False)
+        held = []
+        for b in batches + batches:
+            ops.reset_launch_counts()
+            (want,) = exe._run_eager(prog, feed={"ids": b}, fetch_list=[logits])
+            eager_counts = ops.launch_counts()
+            ops.reset_launch_counts()
+            (got,) = exe.run(prog, feed={"ids": b}, fetch_list=[logits], return_numpy=False)
+            torch.cuda.synchronize()
+            assert ops.launch_counts() == eager_counts
+            assert torch.equal(got, want)
+            held.append((got, want))
+        for got, want in held:
+            assert torch.equal(got, want)
+        assert len(exe._cache) == 1
+        assert eager_counts["fused_layer_norm"] > 0 and eager_counts["matmul_epilogue"] > 0
+        if codegen:
+            assert eager_counts["vpu_chain"] == 1
+    finally:
+        if codegen:
+            set_flags({"FLAGS_autotune_cache_dir": "", "FLAGS_schedule_search": False})
+            at._CACHES.clear()

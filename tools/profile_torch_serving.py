@@ -8,9 +8,13 @@ Builds the ``chip_smoke.py`` phase-3 configuration (LLaMA-7B width, bf16,
 over int8 (or bf16) pools with ``prefill_chunk=128`` and
 FLAGS_schedule_search on (a fresh FLAGS_autotune_cache_dir, so its warm-up
 searches both serving chains; the run fails unless both are accepted).
-It warms the engine up, then traces under ``torch.profiler`` (a) the
-prefill of the 640-token prompt and (b) one decode ``step()`` of D = 8
-tokens for 4 resident requests.  For each it prints one JSON line: wall
+It warms the engine up (one pass through the eager body, then
+``warmup()``, which captures the decode step as a CUDA graph), then
+traces under ``torch.profiler`` (a) the prefill of the 640-token prompt,
+(b) one decode ``step()`` of D = 8 tokens for 4 resident requests, a
+replay of the captured step, and (c) the same step through the eager body
+(``_step_eager``, every op launched from the host), for comparison.  For
+each it prints one JSON line: wall
 time with and without the profiler, the time the card was busy (kernel,
 copy and memset events only, overlaps counted once) and its share of the
 profiled wall time (the rest is the card waiting on the host), the device
@@ -139,11 +143,13 @@ def _run(chip_smoke, engine_kw) -> int:
             engine.add_request(f"warm-{i}", p, max_new_tokens=2)
         prefill_longest("warm")
         while engine.has_work():
-            engine.step()
+            engine._step_eager()
+        engine.warmup()
         for i, p in enumerate(others):
             engine.add_request(f"busy-{i}", p, max_new_tokens=new)
         plain_prefill = _wall(lambda: prefill_longest("plain"))
         plain_step = _wall(engine.step)
+        plain_eager_step = _wall(engine._step_eager)
         # the profiled pair runs on a fresh set of the same requests
         while engine.has_work():
             engine.step()
@@ -157,7 +163,9 @@ def _run(chip_smoke, engine_kw) -> int:
                  f"{engine._prefill_chain_cfg}" if engine_kw else "")
         profile(f"prefill {len(longest)} tokens{label}", lambda: prefill_longest("prof"),
                 plain_prefill)
-        profile(f"decode step D={d} batch 4{label}", engine.step, plain_step, per=d)
+        profile(f"decode step D={d} batch 4{label}, graphed", engine.step, plain_step, per=d)
+        profile(f"decode step D={d} batch 4{label}, eager", engine._step_eager,
+                plain_eager_step, per=d)
     return 0
 
 

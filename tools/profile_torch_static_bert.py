@@ -5,11 +5,13 @@
 
 Builds the ``chip_smoke.py`` phase-5 configuration (BERT-base, bf16,
 batch 32 x 128 with ragged padding), captures it twice as a static
-Program, and for four ways of running the same batch (the fused program
-through ``static.Executor``, the same after ``generic_elementwise_fusion``
-and with FLAGS_schedule_search on (a fresh verdict cache: the first
-warm-up run searches), the unfused program with FLAGS_use_pallas_fusion
-off, the eager forward) prints one JSON line
+Program, and for six ways of running the same batch (the fused program
+through ``static.Executor``, captured as a CUDA graph and replayed, and
+the same through ``Executor._run_eager``, op by op; the same two after
+``generic_elementwise_fusion`` with FLAGS_schedule_search on (a fresh
+verdict cache: the first warm-up run searches); the unfused program with
+FLAGS_use_pallas_fusion off, replayed; the eager forward of the model)
+prints one JSON line
 each: ms a batch on the host clock over 10 unprofiled runs after 3
 warm-up runs, and two runs under ``torch.profiler``: the time the card
 was busy (kernel, copy and memset events only, overlaps counted once),
@@ -85,8 +87,14 @@ def main() -> int:
     def fused():
         exe.run(main_prog, feed={"ids": ids}, fetch_list=[logits], return_numpy=False)
 
+    def fused_eager():
+        exe._run_eager(main_prog, feed={"ids": ids}, fetch_list=[logits])
+
     def codegen():
         exe.run(gen_prog, feed={"ids": ids}, fetch_list=[gen_logits], return_numpy=False)
+
+    def codegen_eager():
+        exe._run_eager(gen_prog, feed={"ids": ids}, fetch_list=[gen_logits])
 
     def unfused():
         exe.run(plain_prog, feed={"ids": ids}, fetch_list=[plain_logits], return_numpy=False)
@@ -95,11 +103,18 @@ def main() -> int:
         with torch.no_grad():
             model(ids)
 
-    print(json.dumps(profile_runs("static program, PallasFusionPass", fused)), flush=True)
+    print(json.dumps(profile_runs("static program, PallasFusionPass, graphed", fused)),
+          flush=True)
+    print(json.dumps(profile_runs("static program, PallasFusionPass, eager", fused_eager)),
+          flush=True)
     with tempfile.TemporaryDirectory() as verdicts:
         set_flags({"FLAGS_schedule_search": True, "FLAGS_autotune_cache_dir": verdicts})
         try:
-            row = profile_runs("static program, PallasFusionPass + codegen passes", codegen)
+            row = profile_runs("static program, PallasFusionPass + codegen passes, graphed",
+                               codegen)
+            print(json.dumps(row), flush=True)
+            row = profile_runs("static program, PallasFusionPass + codegen passes, eager",
+                               codegen_eager)
         finally:
             set_flags({"FLAGS_schedule_search": False, "FLAGS_autotune_cache_dir": ""})
     row["op_types"] = sorted({op.type for op in gen_prog.global_block().ops
