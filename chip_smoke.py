@@ -103,6 +103,28 @@ Phases, each of which raises (exit code != 0) on failure:
    unfused (pools bit-exact).  Print prefill and decode tokens/s of both
    passes, warmup()'s seconds, the capture's seconds and graph memory,
    peak memory and the pools' resident bytes.
+3b. The admission features on phase 3's model: one 512-token system
+   prompt (32 pages) shared by 8 requests with suffixes of 17, 40, 64,
+   100, 128, 150, 180 and 200 tokens (first tokens all different), 32 new
+   tokens each, greedy.  (a) GenerationEngine(kv_cache_dtype="int8",
+   prefill_chunk=128, prefix_cache=True) with the schedule search (fresh
+   cache), atomic admission: the eager body, then after ``warmup()`` the
+   replays (streams equal); 7 prefix hits of 512 tokens each; the 32
+   shared pages' int8 payload and scales unchanged by decoding (lanes
+   finish mid-chunk at D = 8); each hit's first-token logits within
+   LOGITS_REL_TOL of a prefix_cache=False engine's.  (b) bf16 pools,
+   prefix_cache=True, prefill_chunk_blocks=4 (interleaved prefill; the
+   prefill chain at chunk 16 must be counted disabled): the first four
+   requests as "low", two steps, then the next two as "high", which find
+   every lane taken: 2 preemptions (pages parked on the host) and 2
+   re-admissions; every LOW stream bit-equal to an uninterrupted run of
+   the same engine configuration, every stream bit-equal to an atomic
+   engine with prefill_chunk=16 serving the same submissions.  Every
+   pass's launch counts exactly as its admissions (hits' suffix-only
+   prefills, one-block chunks) and decode steps imply, every flash and
+   chain launch on its sm90 route.  Prints each request's prefill ms (hit
+   against miss of the same request), park and unpark ms and bytes, the
+   serving counters and decode tokens/s.
 4. Train the flagship configuration of bench.py (vocab 32000, hidden
    2048, FFN 5632, 8 layers, 16 heads, bf16) at full width and depth with
    TrainStep and AdamW on one seeded batch of 4 x 1024 tokens: check that
@@ -140,7 +162,7 @@ Phases, each of which raises (exit code != 0) on failure:
    captures of all four, whose verdicts must come from the cache with no
    new search.
 7. Print the ``kernels`` JSON line (all thirteen kernels, launches by main
-   path; the flash forward, the two backward kernels, the prefill chain and
+   path, phase 3b's two checked engines among them; the flash forward, the two backward kernels, the prefill chain and
    the matmul epilogue with their launches by route), then the result line.
 
 The script needs the card: without CUDA, or run from a directory that
@@ -1477,25 +1499,33 @@ def build_engine(model=None, **engine_kw):
     return model, engine, serving_prompts(model.config), SERVE_NEW
 
 
-def expected_counts(engine, lengths, steps):
+def prefill_cuts(engine, s0, start=0):
+    """The forwards of one admission prefill over prompt positions [start,
+    s0) (start > 0 after a prefix hit), each as (tokens, runs the prefill
+    chain): interleaved engines forward one block a chunk; atomic ones the
+    whole span at once when it fits ``prefill_chunk``, else
+    ``prefill_chunk``-token chunks; a chunk the accepted prefill config
+    tiles runs the prefill chain, the rest flash attention."""
+    pf_cfg = engine._prefill_chain_cfg
+    if engine._prefill_chunk_blocks() > 0:
+        chunk = engine.block_size
+    elif engine.prefill_chunk is None or s0 - start <= engine.prefill_chunk:
+        return [(s0 - start, False)]
+    else:
+        chunk = engine.prefill_chunk
+    cuts = [min(chunk, s0 - off) for off in range(start, s0, chunk)]
+    return [(c, bool(pf_cfg) and c % pf_cfg["block_q"] == 0) for c in cuts]
+
+
+def expected_counts(engine, cuts, iters):
     """Every kernel's launches implied by one serving run: the prefill
-    forwards (whole prompts, or prefill_chunk chunks: a chunk the accepted
-    prefill config tiles runs the prefill chain, the rest flash attention),
-    then steps x D decode token iterations (the accepted decode config's
-    kernel, one launch a layer), 2L + 1 RMSNorms and L SwiGLUs a forward."""
+    forwards ``cuts`` (``prefill_cuts`` of each admission), then ``iters``
+    decode token iterations (the accepted decode config's kernel, one
+    launch a layer), 2L + 1 RMSNorms and L SwiGLUs a forward."""
     layers = engine.model.config.num_hidden_layers
-    chunk, pf_cfg = engine.prefill_chunk, engine._prefill_chain_cfg
-    forwards = flash = prefill_chain = 0
-    for s0 in lengths:
-        cuts = ([s0] if chunk is None or s0 <= chunk
-                else [min(chunk, s0 - off) for off in range(0, s0, chunk)])
-        for c in cuts:
-            forwards += 1
-            if chunk is not None and s0 > chunk and pf_cfg and c % pf_cfg["block_q"] == 0:
-                prefill_chain += 1
-            else:
-                flash += 1
-    iters = steps * engine._effective_chunk()
+    forwards = len(cuts)
+    prefill_chain = sum(chain for _, chain in cuts)
+    flash = forwards - prefill_chain
     want = {"fused_rms_norm": (2 * layers + 1) * (forwards + iters),
             "swiglu": layers * (forwards + iters), "flash_attention_fwd": layers * flash,
             "flash_attention_fwd_sm90": layers * flash,  # every LLaMA prefill takes the TMA kernel
@@ -1546,7 +1576,8 @@ def _served_pass(engine, prompts, new, step, tag):
         check(len(stream) == new, f"{tag}{rid}: {len(stream)} tokens, expected {new}")
         check(all(0 <= t < cfg.vocab_size for t in stream), f"{tag}{rid}: token id out of range")
     lengths = [len(p) for p in prompts.values()]
-    want = expected_counts(engine, lengths, steps)
+    want = expected_counts(engine, [c for s0 in lengths for c in prefill_cuts(engine, s0)],
+                           steps * engine._effective_chunk())
     check(counts == want, f"{tag or 'graphed '}launch counts {counts} != expected {want}")
     prefill_tokens, decode_tokens = sum(lengths), len(lengths) * (new - 1)
     return counts, streams, {
@@ -1724,6 +1755,337 @@ def serve(card):
               "schedule_decode_stats": stats,
               "pool_bytes_default_engine": default_pool_bytes})
         del engine
+    gc.collect()
+    paths.update(serve_admission(card, model))
+    return paths
+
+
+SYSTEM_TOKENS = 512  # the shared system prompt: 32 pages at block_size 16
+ADMISSION_SUFFIXES = (17, 40, 64, 100, 128, 150, 180, 200)
+INTERLEAVED_BLOCKS = 4  # phase 3b (b): prefill_chunk_blocks
+
+
+def admission_prompts(cfg):
+    """Phase 3b's traffic: one 512-token system prompt and 8 requests that
+    share it, each with its own suffix; the suffixes' first tokens all
+    differ, so a hit is exactly the system prompt's 32 pages."""
+    g = torch.Generator().manual_seed(6)
+    system = torch.randint(0, cfg.vocab_size, (SYSTEM_TOKENS,), generator=g).tolist()
+    prompts = {}
+    for i, n in enumerate(ADMISSION_SUFFIXES):
+        suffix = torch.randint(0, cfg.vocab_size, (n,), generator=g).tolist()
+        suffix[0] = 1 + i
+        prompts[f"s{n}"] = system + suffix
+    return system, prompts
+
+
+class AdmissionLog:
+    """Times an engine's admission work on the card (a sync before and
+    after each call): atomic admissions (``_try_admit``; with the logits
+    its prefill gave the first token, and whether it hit the prefix
+    cache), interleaved prefill chunks (``_prefill_chunk_step``, summed a
+    request), parking and unparking (ms, and the bytes of a parked
+    request's pages on the host)."""
+
+    def __init__(self, engine):
+        from paddle_tpu_torch import serving
+
+        self.prefill, self.logits = {}, {}
+        self.park_ms, self.unpark_ms, self.park_bytes = [], [], []
+        model, stats = engine.model, serving._DECODE_STATS
+        admit, chunk = engine._try_admit, engine._prefill_chunk_step
+        park, unpark = engine._park_request, engine._try_unpark
+
+        def timed(fn, arg):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(arg)
+            torch.cuda.synchronize()
+            return out, (time.perf_counter() - t0) * 1e3
+
+        def try_admit(req):
+            logits, seen, hits = model._logits, [], stats["prefix_hits"]
+
+            def spy(h):  # the admission's one _logits call: its prefill's last position
+                seen.append(logits(h))
+                return seen[-1]
+
+            model._logits = spy
+            try:
+                ok, ms = timed(admit, req)
+            finally:
+                del model._logits
+            if ok:
+                self.prefill[req["rid"]] = {"ms": ms, "hit": stats["prefix_hits"] > hits}
+                self.logits[req["rid"]] = seen[-1][0, -1].float()
+            return ok
+
+        def prefill_chunk_step(slot):
+            rid, hit = slot.rid, bool(slot.prefill.matched)
+            done, ms = timed(chunk, slot)
+            row = self.prefill.setdefault(rid, {"ms": 0.0, "hit": hit, "chunks": 0})
+            row["ms"] += ms
+            row["chunks"] += 1
+            return done
+
+        def park_request(slot):
+            rid = slot.rid
+            _, ms = timed(park, slot)
+            rec = engine._parked[rid]
+            self.park_ms.append(ms)
+            self.park_bytes.append(sum(t.numel() * t.element_size()
+                                       for pages in rec["pages_k"] + rec["pages_v"]
+                                       for t in pages.values()))
+
+        def try_unpark(rid):
+            ok, ms = timed(unpark, rid)
+            if ok:
+                self.unpark_ms.append(ms)
+            return ok
+
+        engine._try_admit, engine._prefill_chunk_step = try_admit, prefill_chunk_step
+        engine._park_request, engine._try_unpark = park_request, try_unpark
+
+    def report(self):
+        return {"prefill_ms": {rid: round(r["ms"], 3) for rid, r in self.prefill.items()},
+                "prefill_hit": {rid: r["hit"] for rid, r in self.prefill.items()},
+                "park_ms": self.park_ms, "unpark_ms": self.unpark_ms,
+                "park_bytes_each": self.park_bytes}
+
+
+_COUNTER_KEYS = ("dispatches", "tokens", "macro_steps", "step_seconds", "sync_seconds",
+                 "prefix_hits", "prefix_misses", "prefix_hit_tokens", "prefix_evictions",
+                 "prefill_chunks", "preemptions", "preempt_readmits", "admitted_high",
+                 "admitted_normal", "admitted_low", "completed_high", "completed_normal",
+                 "completed_low")
+
+
+def admission_engine(model, **engine_kw):
+    """A phase-3b engine over phase 3's model, its search verdicts resolved
+    (the search runs here, outside the counted passes)."""
+    from paddle_tpu_torch.serving import GenerationEngine
+
+    engine = GenerationEngine(model, **ENGINE_KW, **engine_kw, device=DEVICE)
+    engine._resolve_decode_chain()
+    engine._resolve_prefill_chain()
+    return engine
+
+
+def admission_pass(engine, traffic, step, starts):
+    """Drive ``traffic`` — ("add", rid, prompt, priority), ("step",), or
+    ("call", fn) — with ``step`` (the captured ``step`` or the eager body),
+    then step until idle, every launch count set to 0 just before.
+    ``starts`` maps each request to where its prefill must start (its hit
+    length).  Checks the launch counts against what the run implies, the
+    streams' lengths and ids, and that the hits were the ones planned.
+    Returns the counts, the streams, the counter deltas and the log."""
+    from paddle_tpu_torch import ops, serving
+
+    cfg = engine.model.config
+    log = AdmissionLog(engine)
+    torch.cuda.synchronize()
+    before = serving.decode_stats()
+    ops.reset_launch_counts()
+    prompts = {}
+    for op in traffic:
+        if op[0] == "add":
+            prompts[op[1]] = op[2]
+            engine.add_request(op[1], op[2], max_new_tokens=SERVE_NEW, priority=op[3])
+        elif op[0] == "step":
+            step()
+        else:
+            op[1]()
+    while engine.has_work():
+        step()
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    after = serving.decode_stats()
+    delta = {k: after[k] - before[k] for k in _COUNTER_KEYS}
+    check(not any(ops.yardstick_counts().values()),
+          f"admission: a Triton yardstick launched: {ops.yardstick_counts()}")
+    streams = {rid: engine.result(rid) for rid in prompts}
+    for rid, stream in streams.items():
+        check(len(stream) == SERVE_NEW, f"{rid}: {len(stream)} tokens, expected {SERVE_NEW}")
+        check(all(0 <= t < cfg.vocab_size for t in stream), f"{rid}: token id out of range")
+    hits = {rid: start > 0 for rid, start in starts.items()}
+    check({rid: r["hit"] for rid, r in log.prefill.items()} == hits,
+          f"prefix hits {log.report()['prefill_hit']} != planned {hits}")
+    if engine._prefix is not None:
+        check(delta["prefix_hits"] == sum(hits.values())
+              and delta["prefix_hit_tokens"] == sum(starts.values()),
+              f"prefix counters {delta}, planned starts {starts}")
+    cuts = [c for rid, p in prompts.items() for c in prefill_cuts(engine, len(p), starts[rid])]
+    if engine._prefill_chunk_blocks() > 0:
+        check(delta["prefill_chunks"] == len(cuts),
+              f"prefill chunks {delta['prefill_chunks']} != {len(cuts)} planned")
+    want = expected_counts(engine, cuts, delta["dispatches"] * engine._effective_chunk())
+    check(counts == want, f"admission launch counts {counts} != expected {want}")
+    return counts, streams, delta, log
+
+
+def _decode_rate(delta):
+    return delta["tokens"] / delta["step_seconds"] if delta["step_seconds"] else 0.0
+
+
+def _pages_of(engine, blocks):
+    """The bytes of ``blocks`` in every layer's pools (payload, and int8
+    scales)."""
+    from paddle_tpu_torch.ops import paged_attention as pa
+
+    return [t[blocks].clone() for pool in engine._kpools + engine._vpools
+            for _, t in pa.pool_parts(pool)]
+
+
+def _hit_vs_miss(hit_log, miss_log):
+    """Prefill ms of the same request as a hit and as a miss."""
+    return {rid: {"hit_ms": hit_log.prefill[rid]["ms"], "miss_ms": miss_log.prefill[rid]["ms"]}
+            for rid in hit_log.prefill
+            if rid in miss_log.prefill and hit_log.prefill[rid]["hit"]
+            and not miss_log.prefill[rid]["hit"]}
+
+
+def serve_admission(card, model):
+    """Phase 3b: the admission features at LLaMA-7B width, over phase 3's
+    model.  (a) chained int8 engines (prefill_chunk 128, the search on)
+    with the prefix cache, atomic admission: 7 hits of 512 tokens, the
+    shared pages untouched by decoding, each hit's first-token logits
+    against a prefix-off engine's, the replayed streams equal to the eager
+    body's.  (b) bf16 engines with the prefix cache and interleaved
+    prefill (4 blocks a step): four LOW requests, then two HIGH ones that
+    preempt two of them; streams against uninterrupted LOW requests and
+    against atomic admission in one-block chunks.  Returns each checked
+    path's launch counts."""
+    from paddle_tpu_torch import set_flags
+    from paddle_tpu_torch.serving import reset_schedule_decode_stats, schedule_decode_stats
+
+    system, prompts = admission_prompts(model.config)
+    rids = list(prompts)
+    name = f"llama_7b {model.config.dtype} {model.config.num_hidden_layers} layers"
+    paths = {}
+    cache_dir = tempfile.mkdtemp(prefix="autotune-")  # the search runs every smoke run
+    set_flags({"FLAGS_schedule_search": True, "FLAGS_autotune_cache_dir": cache_dir})
+    reset_schedule_decode_stats()
+    try:
+        # (a) chained int8, atomic admission: the first request misses and
+        # pours the system prompt, the 7 others hit its 32 pages
+        kw = dict(CHAINED["int8"], prefix_cache=True)
+        traffic = [("add", rid, p, "normal") for rid, p in prompts.items()]
+        starts = {rid: SYSTEM_TOKENS if i else 0 for i, rid in enumerate(rids)}
+        eager = admission_engine(model, **kw)
+        stats = schedule_decode_stats()
+        check(stats["decode_chains_accepted"] == 1 and stats["prefill_chains_accepted"] == 1,
+              f"admission int8 engine: a chain lost the measured-win gate: {stats}")
+        _, eager_streams, eager_delta, _ = admission_pass(eager, traffic, eager._step_eager,
+                                                          starts)
+        del eager
+        off = admission_engine(model, **CHAINED["int8"])
+        off.warmup()
+        _, off_streams, off_delta, off_log = admission_pass(
+            off, traffic, off.step, {rid: 0 for rid in rids})
+        del off
+        engine = admission_engine(model, **kw)
+        report = engine.warmup()
+        shared = {}
+
+        def snapshot_shared():
+            shared["blocks"] = engine._prefix.match(system)
+            shared["bytes"] = _pages_of(engine, shared["blocks"])
+
+        counts, streams, delta, log = admission_pass(
+            engine, traffic[:1] + [("call", snapshot_shared)] + traffic[1:], engine.step, starts)
+        check(len(shared["blocks"]) == SYSTEM_TOKENS // engine.block_size,
+              f"the system prompt is cached in {len(shared['blocks'])} pages")
+        differing = sum(int((a != b).sum()) for a, b in
+                        zip(shared["bytes"], _pages_of(engine, shared["blocks"])))
+        check(differing == 0, f"decoding changed {differing} bytes of the shared pages")
+        check(delta["prefix_hits"] == 7 and delta["prefix_hit_tokens"] == 7 * SYSTEM_TOKENS,
+              f"int8 prefix engine: {delta['prefix_hits']} hits, "
+              f"{delta['prefix_hit_tokens']} tokens")
+        check(streams == eager_streams, f"graphed streams differ from the eager body's: "
+                                        f"{_stream_diff(streams, eager_streams)}")
+        rel = {}
+        for rid in rids[1:]:
+            got, want = log.logits[rid], off_log.logits[rid]
+            check(bool(torch.isfinite(got).all()), f"{rid}: non-finite logits")
+            rel[rid] = float((got - want).norm() / want.norm())
+            check(int(got.argmax()) == streams[rid][0],
+                  f"{rid}: the first token is not the argmax of the hit's logits")
+        check(max(rel.values()) <= LOGITS_REL_TOL,
+              f"hit first-token logits against the prefix-off engine: relative L2 {rel}")
+        paths["serving_admission_int8"] = counts
+        emit({"engine": f"{name}, int8 pools, prefill_chunk 128, schedule search, prefix cache",
+              "card": card, "requests": len(rids), "system_tokens": SYSTEM_TOKENS,
+              "suffixes": list(ADMISSION_SUFFIXES), "new_tokens_each": SERVE_NEW,
+              "launches": counts, "counters": delta, **log.report(),
+              "hit_vs_miss_prefill_ms": _hit_vs_miss(log, off_log),
+              "prefix_off_counters": off_delta,
+              "hit_first_token_logits_rel_l2": rel, "shared_pages": len(shared["blocks"]),
+              "shared_page_bytes_differing": differing, "streams_equal_eager": True,
+              "eager_counters": eager_delta, "decode_tokens_per_s": _decode_rate(delta),
+              "decode_tokens_per_s_eager": _decode_rate(eager_delta),
+              "decode_tokens_per_s_prefix_off": _decode_rate(off_delta),
+              "warmup": report, "pool_bytes": engine.pool_bytes(),
+              "decode_decision": _decision(engine.decode_decision),
+              "prefill_decision": _decision(engine.prefill_decision)})
+        del engine
+
+        # (b) bf16, interleaved prefill: the four LOW requests reserve
+        # together (all miss), finish their prefill in the first step and
+        # decode; two steps later two HIGH requests find every lane taken,
+        # park two LOW ones on the host and hit the system prompt's pages
+        low, high = rids[:4], rids[4:6]
+        traffic = ([("add", rid, prompts[rid], "low") for rid in low] + [("step",)] * 2
+                   + [("add", rid, prompts[rid], "high") for rid in high])
+        starts = {rid: SYSTEM_TOKENS if rid in high else 0 for rid in low + high}
+        kw = dict(prefix_cache=True, prefill_chunk_blocks=INTERLEAVED_BLOCKS)
+        reset_schedule_decode_stats()
+        engine = admission_engine(model, **kw)
+        stats = schedule_decode_stats()
+        check(stats["prefill_chains_found"] == 1 and stats["prefill_chains_disabled"] == 1
+              and engine._prefill_chain_cfg is None,
+              f"interleaved engine: the prefill chain at chunk {engine.block_size} was not "
+              f"counted disabled: {stats}, {_decision(engine.prefill_decision)}")
+        report = engine.warmup()
+        counts, streams, delta, log = admission_pass(engine, traffic, engine.step, starts)
+        check(delta["preemptions"] == 2 and delta["preempt_readmits"] == 2,
+              f"interleaved engine: {delta['preemptions']} preemptions, "
+              f"{delta['preempt_readmits']} re-admissions")
+        paths["serving_admission_bf16"] = counts
+        ref = admission_engine(model, **kw)
+        ref.warmup()
+        _, ref_streams, ref_delta, _ = admission_pass(
+            ref, traffic[:4], ref.step, {rid: 0 for rid in low})
+        check({rid: streams[rid] for rid in low} == ref_streams,
+              f"preempted LOW streams differ from uninterrupted ones: "
+              f"{_stream_diff({rid: streams[rid] for rid in low}, ref_streams)}")
+        del ref
+        atomic = admission_engine(model, prefix_cache=True, prefill_chunk=engine.block_size)
+        atomic.warmup()
+        _, atomic_streams, atomic_delta, atomic_log = admission_pass(
+            atomic, traffic, atomic.step,
+            {rid: SYSTEM_TOKENS if i else 0 for i, rid in enumerate(low + high)})
+        check(streams == atomic_streams,
+              f"interleaved streams differ from atomic admission in one-block chunks: "
+              f"{_stream_diff(streams, atomic_streams)}")
+        emit({"engine": f"{name}, bf16 pools, prefix cache, prefill_chunk_blocks "
+                        f"{INTERLEAVED_BLOCKS}, schedule search", "card": card,
+              "requests": {"low": low, "high": high}, "launches": counts, "counters": delta,
+              **log.report(), "decode_tokens_per_s": _decode_rate(delta),
+              "prefill_chain_decision": _decision(engine.prefill_decision),
+              "decode_decision": _decision(engine.decode_decision),
+              "low_streams_equal_uninterrupted": True, "streams_equal_atomic": True,
+              "uninterrupted_counters": ref_delta, "warmup": report,
+              "pool_bytes": engine.pool_bytes()})
+        emit({"engine": f"{name}, bf16 pools, prefix cache, atomic, prefill_chunk "
+                        f"{engine.block_size}, schedule search", "card": card,
+              "counters": atomic_delta, **atomic_log.report(),
+              "hit_vs_miss_prefill_ms": {**_hit_vs_miss(atomic_log, log),
+                                         **_hit_vs_miss(log, atomic_log)},
+              "decode_tokens_per_s": _decode_rate(atomic_delta)})
+        del engine, atomic
+    finally:
+        set_flags({"FLAGS_schedule_search": False, "FLAGS_autotune_cache_dir": ""})
+        shutil.rmtree(cache_dir, ignore_errors=True)
     return paths
 
 

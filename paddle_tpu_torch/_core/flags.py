@@ -84,13 +84,25 @@ define_flag(
 define_flag(
     "FLAGS_prefill_chunk_blocks",
     0,
-    "Interleaved chunked prefill budget in pool blocks; only 0 (atomic "
-    "prefill at admission) is ported",
+    "Per-macro-step prefill budget for interleaved chunked prefill, in pool "
+    "blocks: each GenerationEngine.step() runs at most this many block-sized "
+    "prefill chunks before the decode step (deadline pressure may double it). "
+    "0 = atomic prefill at admission",
+)
+define_flag(
+    "FLAGS_preempt_low_priority",
+    True,
+    "Allow the serving admission scheduler to preempt LOW-priority requests "
+    "when a higher-priority request cannot be admitted: their pool pages are "
+    "parked on the host and the stream resumes bit-identically on "
+    "re-admission (serving.GenerationEngine)",
 )
 define_flag(
     "FLAGS_prefix_cache",
     False,
-    "Radix/prefix KV reuse in GenerationEngine; not ported (must stay False)",
+    "Radix/prefix KV reuse in GenerationEngine: admission references the "
+    "longest cached prompt prefix's pool pages (page granularity) and "
+    "prefills only the suffix",
 )
 define_flag(
     "FLAGS_kv_cache_dtype",

@@ -26,11 +26,15 @@ __all__ = [
     "paged_write",
     "paged_write_chunk",
     "paged_pour_blocks",
+    "paged_pour_block",
     "paged_gather",
     "gathered_attention",
     "paged_decode_attention",
     "paged_chunk_attention",
     "pool_nbytes",
+    "pool_parts",
+    "pool_get_blocks",
+    "pool_set_blocks",
     "rope_rotate_chunk",
     "rope_rotate_by_position",
 ]
@@ -75,6 +79,37 @@ def pool_nbytes(cache):
         return (cache.data.numel() * cache.data.element_size()
                 + cache.scale.numel() * cache.scale.element_size())
     return cache.numel() * cache.element_size()
+
+
+def pool_parts(cache):
+    """``[(part_name, tensor)]`` leaves of a paged pool: ``("payload",
+    data)`` for a plain pool, plus ``("scale", scales)`` for a QuantPool.
+    The one place that knows QuantPool's structure for per-leaf
+    consumers (page shipping, parking)."""
+    if isinstance(cache, QuantPool):
+        return [("payload", cache.data), ("scale", cache.scale)]
+    return [("payload", cache)]
+
+
+def pool_get_blocks(cache, block_ids):
+    """The pool's own leaves at ``block_ids``: ``{"payload": [n, Nkv, bs,
+    H]}``, plus ``{"scale": [n, Nkv]}`` for a QuantPool, on the pool's
+    device.  An int8 pool gives its int8 payload and f32 scales verbatim,
+    and ``pool_set_blocks`` places the same bytes: a round trip is
+    bit-exact by construction, never a re-quantization."""
+    idx = torch.as_tensor(block_ids, dtype=torch.long, device=_payload(cache).device)
+    return {name: t.index_select(0, idx) for name, t in pool_parts(cache)}
+
+
+def pool_set_blocks(cache, block_ids, blocks):
+    """Place pages (a ``pool_get_blocks`` dict, on any device) into the
+    pool at ``block_ids``, in place: each leaf lands verbatim (cast only
+    to the leaf's dtype, an identity for a matched pool kind).  Returns
+    the same pool."""
+    idx = torch.as_tensor(block_ids, dtype=torch.long, device=_payload(cache).device)
+    for name, t in pool_parts(cache):
+        t.index_copy_(0, idx, torch.as_tensor(blocks[name]).to(t.device, t.dtype))
+    return cache
 
 
 def alloc_paged_cache(num_blocks, num_kv_heads, block_size, head_dim,
@@ -217,6 +252,15 @@ def paged_pour_blocks(cache, kv, block_ids):
         return cache
     cache[idx] = kv.to(cache.dtype)
     return cache
+
+
+def paged_pour_block(cache, kv, block_id):
+    """Pour one block ``kv [Nkv, bs, H]`` into the pool at ``block_id``, in
+    place (interleaved chunked prefill pours each prompt block as its
+    chunk completes).  ``paged_pour_blocks`` with n = 1: a QuantPool's
+    per-head scale is the amax of exactly this block's content, the same
+    scale, and so the same int8 bytes, the batched pour computes."""
+    return paged_pour_blocks(cache, kv[None], [int(block_id)])
 
 
 def rope_rotate_chunk(t, cos, sin, positions):

@@ -1,18 +1,34 @@
 """Continuous-batching generation over a shared paged-KV pool
 (counterpart of paddle_tpu/serving/__init__.py ``GenerationEngine``).
 
-Ported: the block allocator with one scratch page per batch lane, request
-admission with a FIFO pending queue under pool pressure, prefill through
-the cached forward (whole, or in ``prefill_chunk``-token chunks) and the
-pour into pool pages, bf16 or int8 pools (``kv_cache_dtype``), the
-macro-step decode of D tokens per ``step()`` with finished lanes masked
-onto their scratch pages, EOS and ``max_len`` stops, per-request
-temperature sampling inside the step (``serving/sampling.py``),
-``warmup()``, and the schedule searcher's serving chains: with
-``FLAGS_schedule_search`` the engine resolves once, at first use, a
-decode-chain and a prefill-chain verdict for its geometry
-(``_resolve_decode_chain`` / ``_resolve_prefill_chain``) and runs the
-accepted kernels; a flag change re-arms both and drops the captured steps.
+Ported: the block allocator with per-block refcounts and one scratch page
+per batch lane; admission (a pending queue retried at macro-step
+boundaries under pool pressure) through the cached forward, whole or in
+``prefill_chunk``-token chunks, and the pour into pool pages; bf16 or int8
+pools (``kv_cache_dtype``); the macro-step decode of D tokens per
+``step()`` with finished lanes masked onto their scratch pages, EOS and
+``max_len`` stops, per-request temperature sampling inside the step
+(``serving/sampling.py``), ``warmup()``; the schedule searcher's serving
+chains (with ``FLAGS_schedule_search`` the engine resolves once, at first
+use, a decode-chain and a prefill-chain verdict for its geometry and runs
+the accepted kernels; a flag change re-arms both and drops the captured
+steps).  And the admission half of the serving features (ROADMAP.md A.2):
+- the radix prefix cache (``prefix_cache`` / ``FLAGS_prefix_cache``,
+  ``RadixPrefixCache``): admission references the longest cached prompt
+  prefix's pages, prefills only the suffix against the gathered prefix
+  (int8 pages dequantized), and inserts the prompt's full blocks;
+  refcount-zero cached pages are evicted LRU under pool pressure;
+- interleaved chunked prefill (``prefill_chunk_blocks`` /
+  ``FLAGS_prefill_chunk_blocks``): admission reserves a lane and pages,
+  and each ``step()`` forwards a budget of one-block chunks before the
+  decode step, pouring each block as it completes;
+- priority classes (``add_request(priority=)``) admitted in (class,
+  submit order), and preemption of a LOW resident when a higher class is
+  blocked (``FLAGS_preempt_low_priority``): its pages park on the host
+  (``serving/snapshot.py``) and its stream resumes bit-identically;
+- ``add_request(nonce=)``, ``adopt_pages`` (base engines, ``ns=None``),
+  ``warmup(adopt=True)``'s page round trip, and the serving counters
+  (``decode_stats`` / ``reset_decode_stats``).
 
 In JAX the D-token macro-step is one ``lax.scan`` inside a jitted program,
 compiled once per D.  Here its body reads fixed device buffers (tokens,
@@ -20,14 +36,18 @@ tables, lens, max_lens, done, temperatures, keys and counters, filled by
 one copy from a pinned host area at every ``step()``), the pools and the
 weights, and is recorded once per D as a CUDA graph (``_core/graphs.py``)
 that every ``step()`` replays, with one device-to-host copy of the
-``[B, D]`` tokens.  On the CPU the same body runs eagerly.  The admission
-prefill stays eager, as in the JAX package (its length varies by prompt).
-Options of the JAX engine that this package does not port yet raise
-``NotImplementedError`` naming their ROADMAP item.
+``[B, D]`` tokens.  On the CPU the same body runs eagerly.  Admission,
+prefill chunks, pours, parking and adoption run eagerly between replays,
+as in the JAX package, and write the pools in place, so the next replay
+reads their bytes.  Options of the JAX engine that this package does not
+port yet raise ``NotImplementedError`` naming their ROADMAP item:
+``mesh=`` (A.6), ``draft_model=``, ``adapters=`` / ``adapter=``,
+``snapshot()`` and ``drain()`` (A.2).
 """
 
 from __future__ import annotations
 
+import heapq
 import time
 import weakref
 from collections import deque
@@ -46,7 +66,8 @@ from paddle_tpu_torch.ops import paged_attention as pa
 
 from . import sampling
 
-__all__ = ["GenerationEngine", "schedule_decode_stats", "reset_schedule_decode_stats"]
+__all__ = ["GenerationEngine", "RadixPrefixCache", "decode_stats", "reset_decode_stats",
+           "schedule_decode_stats", "reset_schedule_decode_stats"]
 
 _SERVING_ITEM = "ROADMAP.md A.2 (serving features)"
 _DIST_ITEM = "ROADMAP.md A.6 (distributed)"
@@ -56,11 +77,68 @@ def _not_ported(what: str, item: str):
     return NotImplementedError(f"{what} is not ported yet ({item})")
 
 
+# Process-wide serving counters (the JAX package's keys): one dispatch = one
+# decode macro-step run; tokens counts emitted decode tokens; step_seconds
+# and sync_seconds the host time of the decode step and of its one
+# device-to-host read.  Prefix cache: admissions that reused at least one
+# cached page / found none, prompt tokens whose prefill was avoided, LRU
+# evictions.  Capacity: the latest engine's pool bytes and the peak of
+# resident requests.  Admission: interleaved prefill chunks, preemptions
+# and their re-admissions, the parked-request gauge (a reset leaves it),
+# and admissions and completions by priority class.
+_DECODE_STATS = {
+    "dispatches": 0,
+    "tokens": 0,
+    "sync_seconds": 0.0,
+    "step_seconds": 0.0,
+    "macro_steps": 0,
+    "last_chunk": 0,
+    "prefix_hits": 0,
+    "prefix_misses": 0,
+    "prefix_hit_tokens": 0,
+    "prefix_evictions": 0,
+    "pool_bytes": 0,
+    "resident_peak": 0,
+    "pool_bytes_per_device": 0,  # one card: the pool bytes
+    "mesh_shape": "",            # no mesh (ROADMAP.md A.6)
+    "prefill_chunks": 0,
+    "preemptions": 0,
+    "preempt_readmits": 0,
+    "parked_requests": 0,
+    "admitted_high": 0,
+    "admitted_normal": 0,
+    "admitted_low": 0,
+    "completed_high": 0,
+    "completed_normal": 0,
+    "completed_low": 0,
+}
+
+
+def decode_stats(reset: bool = False) -> dict:
+    """The serving counters, plus the derived ``tokens_per_sec`` (tokens over
+    step seconds) and ``pool_bytes_per_resident`` (pool bytes over the
+    resident peak)."""
+    out = dict(_DECODE_STATS)
+    out["tokens_per_sec"] = out["tokens"] / out["step_seconds"] if out["step_seconds"] else 0.0
+    out["pool_bytes_per_resident"] = (out["pool_bytes"] / out["resident_peak"]
+                                      if out["resident_peak"] else 0.0)
+    if reset:
+        reset_decode_stats()
+    return out
+
+
+def reset_decode_stats():
+    for k, v in _DECODE_STATS.items():
+        if k == "parked_requests":
+            continue  # a gauge of live engine state, not traffic
+        _DECODE_STATS[k] = "" if isinstance(v, str) else 0.0 if isinstance(v, float) else 0
+
+
 # Serving-chain counters of the schedule search: found = engines that
 # consulted the searcher for their decode (or chunked-prefill) geometry;
 # accepted = engines that adopted a kernel config; disabled = engines that
-# kept the plain ops (a measured loss, a cached loss, or a cached config
-# that failed its parity re-check).
+# kept the plain ops (a measured loss, a cached loss, a geometry with no
+# candidate, or a cached config that failed its parity re-check).
 _SCHED_DECODE_STATS = {
     "decode_chains_found": 0,
     "decode_chains_accepted": 0,
@@ -96,6 +174,34 @@ def _rearm_chain_verdicts(_changed):
         eng._prefill_chain_cfg = _CHAIN_UNSET
 
 
+# Priority classes: admission runs in (class, submit order); the prefill
+# scheduler weights chunk grants by class.  pressure = weight * (1 +
+# boundaries waited); a prefill whose pressure reaches _PRESSURE_ESCALATE
+# doubles the step's chunk budget (HIGH after 3 waited boundaries, NORMAL
+# after 7, LOW after 15).
+_PRIORITY = {"high": 0, "normal": 1, "low": 2}
+_PRI_NAMES = {v: k for k, v in _PRIORITY.items()}
+_PRI_WEIGHT = {0: 4, 1: 2, 2: 1}
+_PRESSURE_ESCALATE = 16
+
+
+@dataclass
+class _PrefillState:
+    """A PREFILLING lane (interleaved chunked prefill): its lane and pages
+    were reserved at admission, and its prompt advances one pool block a
+    granted chunk.  The chunk spans are block-aligned offsets of the
+    prompt, never of the schedule, so the stream equals atomic admission
+    with ``prefill_chunk=block_size``."""
+    req: dict                 # the submission
+    caches: list              # per-layer naive K/V, grown chunk by chunk
+    matched: list             # shared prefix-cache pages (referenced)
+    fresh: list               # pages owned by this request
+    off: int = 0              # prompt tokens forwarded so far
+    poured: int = 0           # full blocks in the pool so far
+    since: int = 0            # the macro-step boundary the prefill began at
+    h: object = None          # the last chunk's hidden states
+
+
 @dataclass
 class _Slot:
     rid: object = None
@@ -107,6 +213,143 @@ class _Slot:
     generated: list = field(default_factory=list)
     temperature: float = 0.0  # 0 = greedy
     key: int = 0              # the sampler's key, _request_seed(seed, nonce)
+    priority: int = 1         # _PRIORITY class (2 = LOW = preemptible)
+    req: object = None        # the submission (preemption keeps it)
+    prefill: object = None    # _PrefillState while PREFILLING, else None
+
+
+class _PoolExhausted(RuntimeError):
+    """Too few free (or reclaimable) pool blocks right now: admission backs
+    out and the request waits for the next macro-step boundary."""
+
+
+class _RadixNode:
+    __slots__ = ("chunk", "block", "children", "parent", "last_used")
+
+    def __init__(self, chunk=None, block=-1, parent=None):
+        self.chunk = chunk          # the key: a tuple of block_size token ids
+        self.block = block          # the pool block holding this chunk's K/V
+        self.children = {}
+        self.parent = parent
+        self.last_used = 0
+
+
+class RadixPrefixCache:
+    """A radix tree over token-id prefixes at page granularity (pure host
+    Python, the JAX package's tree).
+
+    Each node maps one full block's token chunk to the pool block holding
+    its K/V in every layer's pool.  ``match`` walks a prompt chunk by chunk
+    and returns the longest cached run of blocks; ``insert`` adopts full
+    prompt blocks that a prefill wrote.  The tree pins nothing: refcounts
+    live in the engine's allocator, a cached block with refcount zero is
+    reclaimable, and ``evict`` frees such blocks leaf-first in LRU order
+    (an interior node only once its children are gone).  Partial tail
+    blocks are never inserted: shared pages are immutable, a request's
+    mutable tail is its own page.
+
+    ``ns`` namespaces the first level (root children key as ``(ns,
+    chunk)``), for adapter-aware engines; ``drop_subtree`` drops one
+    namespace.  This package's engine passes ``ns=None``."""
+
+    def __init__(self, block_size):
+        self.block_size = int(block_size)
+        self._root = _RadixNode()
+        self._by_block: dict[int, _RadixNode] = {}
+        self._clock = 0
+
+    def __len__(self):
+        return len(self._by_block)
+
+    def holds(self, block) -> bool:
+        """Does a tree node own this pool block?"""
+        return block in self._by_block
+
+    def _tick(self):
+        self._clock += 1
+        return self._clock
+
+    @staticmethod
+    def _key(node_is_root, ns, chunk):
+        return (ns, chunk) if (ns is not None and node_is_root) else chunk
+
+    def match(self, tokens, max_blocks=None, ns=None):
+        """The pool blocks of the longest cached full-block prefix of
+        ``tokens``, each LRU-touched.  ``max_blocks`` caps the walk
+        (admission caps at (len - 1) // block_size, so at least one token
+        prefills and gives the first logits)."""
+        bs = self.block_size
+        limit = len(tokens) // bs
+        if max_blocks is not None:
+            limit = min(limit, max_blocks)
+        t = self._tick()
+        node, out = self._root, []
+        for bi in range(limit):
+            chunk = tuple(tokens[bi * bs:(bi + 1) * bs])
+            child = node.children.get(self._key(node is self._root, ns, chunk))
+            if child is None:
+                break
+            child.last_used = t
+            out.append(child.block)
+            node = child
+        return out
+
+    def insert(self, tokens, blocks, ns=None):
+        """Adopt ``blocks[i]`` as the cached page of the i-th full chunk of
+        ``tokens``.  Existing nodes keep their block (first writer wins:
+        a duplicate page stays private to its request); returns the
+        blocks newly adopted."""
+        bs = self.block_size
+        t = self._tick()
+        node, adopted = self._root, []
+        for bi in range(min(len(blocks), len(tokens) // bs)):
+            chunk = tuple(tokens[bi * bs:(bi + 1) * bs])
+            key = self._key(node is self._root, ns, chunk)
+            child = node.children.get(key)
+            if child is None:
+                child = _RadixNode(key, blocks[bi], node)
+                node.children[key] = child
+                self._by_block[blocks[bi]] = child
+                adopted.append(blocks[bi])
+            child.last_used = t
+            node = child
+        return adopted
+
+    def drop_subtree(self, ns, refcount):
+        """Drop namespace ``ns``'s whole subtree.  Returns its refcount-zero
+        blocks (reclaimable now: the caller frees them); referenced ones
+        stop being cached and recycle when their requests drop them."""
+        freed = []
+        for key in [k for k in self._root.children
+                    if isinstance(k, tuple) and len(k) == 2 and k[0] == ns]:
+            stack = [self._root.children.pop(key)]
+            while stack:
+                nd = stack.pop()
+                stack.extend(nd.children.values())
+                del self._by_block[nd.block]
+                if refcount[nd.block] == 0:
+                    freed.append(nd.block)
+        return freed
+
+    def evict(self, n, refcount):
+        """Free up to ``n`` reclaimable blocks: refcount-zero leaves, least
+        recently used first; a parent joins the heap when its last child
+        goes.  Returns the freed blocks (the caller frees them)."""
+        heap = [(nd.last_used, nd.block) for nd in self._by_block.values()
+                if not nd.children and refcount[nd.block] == 0]
+        heapq.heapify(heap)
+        freed = []
+        while heap and len(freed) < n:
+            _, block = heapq.heappop(heap)
+            victim = self._by_block[block]
+            parent = victim.parent
+            del parent.children[victim.chunk]
+            del self._by_block[victim.block]
+            freed.append(victim.block)
+            if parent is not self._root and not parent.children \
+                    and refcount[parent.block] == 0:
+                heapq.heappush(heap, (parent.last_used, parent.block))
+        return freed
 
 
 # the step's input row of a lane, one int64 each: the last token, the W
@@ -118,6 +361,11 @@ def _request_seed(seed: int, nonce: int) -> int:
     """A 63-bit sampler key from the request's (seed, nonce)."""
     state = np.random.SeedSequence([seed & (2**63 - 1), nonce]).generate_state(1, np.uint64)
     return int(state[0]) & (2**63 - 1)
+
+
+def _tokens(req):
+    """The request's prompt as a list of ints (kept across retries)."""
+    return req.setdefault("toks", [int(t) for t in req["prompt"][0]])
 
 
 class GenerationEngine:
@@ -134,8 +382,11 @@ class GenerationEngine:
     default 8) and returns ``{rid: [tokens...]}``; at D == 1 it returns
     ``{rid: token}``.  On the card each D's step is captured as a CUDA
     graph at its first use, or ahead of traffic by ``warmup()``.
-    ``device=None`` means the CUDA card and raises without one; the model
-    must lie on the engine's device.
+    ``prefix_cache`` (None -> FLAGS_prefix_cache) turns on the radix
+    prefix cache; ``prefill_chunk_blocks`` (None -> the flag, read at each
+    use) > 0 interleaves prefill with decode, that many one-block chunks a
+    step.  ``device=None`` means the CUDA card and raises without one; the
+    model must lie on the engine's device.
     """
 
     def __init__(self, model, max_batch=4, block_size=16, num_blocks=128,
@@ -151,16 +402,8 @@ class GenerationEngine:
             raise _not_ported("multi-tenant LoRA serving (adapters=)", _SERVING_ITEM)
         if prefill_chunk is not None and int(prefill_chunk) < 1:
             raise ValueError("prefill_chunk must be a positive token count")
-        pcb = (prefill_chunk_blocks if prefill_chunk_blocks is not None
-               else _flags.flag("FLAGS_prefill_chunk_blocks"))
-        if int(pcb) < 0:
+        if prefill_chunk_blocks is not None and int(prefill_chunk_blocks) < 0:
             raise ValueError("prefill_chunk_blocks must be >= 0 (0 = atomic prefill)")
-        if int(pcb) > 0:
-            raise _not_ported("interleaved chunked prefill (prefill_chunk_blocks > 0)",
-                              _SERVING_ITEM)
-        pc = prefix_cache if prefix_cache is not None else _flags.flag("FLAGS_prefix_cache")
-        if pc:
-            raise _not_ported("the radix prefix cache (prefix_cache=True)", _SERVING_ITEM)
         kv_dt = kv_cache_dtype if kv_cache_dtype is not None else _flags.flag(
             "FLAGS_kv_cache_dtype")
         if kv_dt not in ("bf16", "int8"):
@@ -182,6 +425,8 @@ class GenerationEngine:
         self._head_dim = cfg.hidden_size // cfg.num_attention_heads
         self._decode_chunk = None if decode_chunk is None else int(decode_chunk)
         self.prefill_chunk = None if prefill_chunk is None else int(prefill_chunk)
+        self.prefill_chunk_blocks = (None if prefill_chunk_blocks is None
+                                     else int(prefill_chunk_blocks))
         self._kv_dtype = kv_dt  # resolved once: the pools are allocated now
 
         # pool pages [num_blocks, Nkv, bs, H] per layer, plus one scratch
@@ -196,7 +441,13 @@ class GenerationEngine:
         self._kpools = [k for k, _ in pools]
         self._vpools = [v for _, v in pools]
         self._free = list(range(self._num_blocks))
+        self._ref = [0] * total  # requests referencing each block
+        pc = prefix_cache if prefix_cache is not None else _flags.flag("FLAGS_prefix_cache")
+        self._prefix = RadixPrefixCache(self.block_size) if pc else None
         self._pending: deque = deque()
+        self._parked: dict = {}   # rid -> parked record (preempted LOW requests)
+        self._submit_seq = 0      # admission order within a class
+        self._macro_steps = 0     # macro-step boundaries passed
         self._scratch = [self._num_blocks + i for i in range(self.max_batch)]
         self._slots = [_Slot() for _ in range(self.max_batch)]
         self._results: dict = {}
@@ -219,6 +470,8 @@ class GenerationEngine:
         self._decode_chain_cfg = _CHAIN_UNSET
         self._prefill_chain_cfg = _CHAIN_UNSET
         _ENGINES.add(self)
+        _DECODE_STATS["pool_bytes"] = _DECODE_STATS["pool_bytes_per_device"] = self.pool_bytes()
+        _DECODE_STATS["mesh_shape"] = ""
 
     def pool_bytes(self) -> int:
         """Resident bytes of every layer's K and V pools (scratch pages and
@@ -227,12 +480,22 @@ class GenerationEngine:
 
     # ------------------------------------------------------------ requests
     def has_work(self):
-        return any(s.active for s in self._slots) or bool(self._pending)
+        return (any(s.active or s.prefill is not None for s in self._slots)
+                or bool(self._pending) or bool(self._parked))
 
     def pending_requests(self):
-        """Request ids queued for admission (pool pressure); they retry at
-        the next macro-step boundary."""
+        """Request ids queued for admission; they retry at the next
+        macro-step boundary."""
         return [req["rid"] for req in self._pending]
+
+    def parked_requests(self):
+        """Request ids preempted to the host (their pages parked there);
+        they re-admit, bit-identically, at a later boundary."""
+        return list(self._parked)
+
+    def prefilling_requests(self):
+        """Request ids whose interleaved prefill is in progress."""
+        return [s.rid for s in self._slots if s.prefill is not None]
 
     def result(self, rid):
         return self._results.get(rid)
@@ -243,114 +506,227 @@ class GenerationEngine:
     def drain(self, *args, **kwargs):
         raise _not_ported("engine drain", _SERVING_ITEM)
 
+    # ----------------------------------------------------------- allocator
     def _alloc(self, n):
-        """n free pool blocks, or None when fewer are free.  Each block has
-        one owner (no prefix sharing yet), so no refcounts."""
+        """n free blocks, refcount 1 each.  Under pressure refcount-zero
+        cached pages are evicted LRU first; a real shortfall raises
+        _PoolExhausted (admission backs out and waits)."""
+        if len(self._free) < n and self._prefix is not None:
+            freed = self._prefix.evict(n - len(self._free), self._ref)
+            self._free.extend(freed)
+            _DECODE_STATS["prefix_evictions"] += len(freed)
         if len(self._free) < n:
-            return None
-        return [self._free.pop() for _ in range(n)]
+            raise _PoolExhausted(f"paged pool exhausted: need {n} blocks, "
+                                 f"{len(self._free)} free")
+        out = [self._free.pop() for _ in range(n)]
+        for b in out:
+            self._ref[b] = 1
+        return out
+
+    def _unref(self, blocks):
+        """Drop one reference a block; a block left with none goes back to
+        the free list unless the prefix tree caches it (then it stays
+        resident and reclaimable)."""
+        for b in blocks:
+            self._ref[b] -= 1
+            if self._ref[b] <= 0 and (self._prefix is None or not self._prefix.holds(b)):
+                self._free.append(b)
+
+    def _free_fresh(self, fresh):
+        """Back out blocks taken by ``_alloc`` that nothing else holds."""
+        for b in fresh:
+            self._ref[b] = 0
+            self._free.append(b)
 
     def _release(self, slot):
-        self._free.extend(slot.blocks)
+        self._unref(slot.blocks)
         slot.blocks = []
         slot.active = False
         slot.rid = None
+        slot.req = None
+        slot.prefill = None
 
     def add_request(self, rid, prompt_ids, max_new_tokens=16, temperature=None, seed=0,
-                    adapter=None, priority="normal"):
+                    adapter=None, nonce=None, priority="normal"):
         """Prefill the prompt, pour its K/V into pool pages, occupy a lane.
 
-        Returns the first generated token, or None when the request was
-        queued (no free lane or pool pages right now, or older requests
-        still waiting); a queued request is admitted at a later ``step()``
-        and its first token surfaces in that step's output.  A request
-        that can never fit the per-sequence block table raises.
+        With the prefix cache on, the longest cached full-block prefix of
+        the prompt is matched first: those pages are referenced, and only
+        the suffix runs through the model.  Returns the first generated
+        token, or None when the request was queued (no free lane or pool
+        pages now, or older requests of its class or a higher one still
+        waiting); a queued request is admitted at a later ``step()`` and
+        its first token surfaces in that step's output.  With interleaved
+        prefill (``prefill_chunk_blocks`` > 0) it always queues and returns
+        None.  A request that can never fit the per-sequence block table
+        raises.
 
         temperature None/0 decodes greedily; > 0 samples with the
         counter-based sampler (``serving/sampling.py``) keyed by ``(seed,
-        nonce)``, where the nonce is reserved at submit time, so a queued
-        request draws the same stream an immediately admitted one
-        would."""
+        nonce)``.  The nonce is reserved at submit time (``nonce=None``
+        takes the engine's counter; an explicit nonce moves the counter
+        past it), so a queued, preempted or re-dispatched request draws the
+        stream it would have drawn at once.  ``priority``: "high",
+        "normal" or "low"; LOW requests may be preempted
+        (``FLAGS_preempt_low_priority``)."""
         if adapter is not None:
             raise _not_ported("LoRA adapters (adapter=)", _SERVING_ITEM)
-        if priority != "normal":
-            raise _not_ported("priority classes and preemption", _SERVING_ITEM)
         prompt = np.asarray(prompt_ids, np.int64).reshape(1, -1)
         max_len = prompt.shape[1] + int(max_new_tokens)
         n_blocks = -(-max_len // self.block_size)
         if n_blocks > self._max_blocks_per_seq:
             raise RuntimeError(f"request needs {n_blocks} blocks > per-seq table width "
                                f"{self._max_blocks_per_seq}")
-        nonce = self._req_counter
-        self._req_counter += 1
+        if priority not in _PRIORITY:
+            raise ValueError(f"priority must be one of {sorted(_PRIORITY)}, got {priority!r}")
+        if nonce is None:
+            nonce = self._req_counter
+            self._req_counter += 1
+        else:
+            nonce = int(nonce)
+            self._req_counter = max(self._req_counter, nonce + 1)
         req = {"rid": rid, "prompt": prompt, "max_len": max_len, "n_blocks": n_blocks,
-               "temperature": float(temperature or 0.0), "seed": int(seed), "nonce": nonce}
+               "temperature": float(temperature or 0.0), "seed": int(seed), "nonce": nonce,
+               "pri": _PRIORITY[priority], "seq": self._submit_seq}
+        self._submit_seq += 1
+        if self._prefill_chunk_blocks() > 0:
+            # interleaved: admission happens at boundaries only
+            self._pending.append(req)
+            return None
         if self._pending or not self._try_admit(req):
             self._pending.append(req)
             return None
         return self._results[rid][0]
 
+    def _prefill_chunk_blocks(self) -> int:
+        """The interleaved prefill budget in blocks a step (0 = atomic)."""
+        if self.prefill_chunk_blocks is not None:
+            return self.prefill_chunk_blocks
+        return max(0, int(_flags.flag("FLAGS_prefill_chunk_blocks")))
+
     def _admit_pending(self):
-        """Retry queued admissions in submit order at a macro-step
-        boundary; returns the admitted request ids."""
+        """Retry queued and parked requests at a macro-step boundary, in
+        (class, submit order), the two kinds in one ordering.  When the head
+        request is above LOW and cannot be admitted, a LOW resident may be
+        preempted (``_preempt_one``) to make room.  Returns the ids admitted
+        atomically (their first token is ready); interleaved reservations
+        surface when their prefill finishes, and re-admitted parked
+        requests delivered their first token long ago."""
         admitted = []
-        while self._pending:
-            req = self._pending[0]
-            if self._try_admit(req):
-                self._pending.popleft()
-                admitted.append(req["rid"])
+        interleaved = self._prefill_chunk_blocks() > 0
+        while True:
+            cands = [((rec["req"]["pri"], rec["req"]["seq"]), None, rid)
+                     for rid, rec in self._parked.items()]
+            cands += [((req["pri"], req["seq"]), req, req["rid"]) for req in self._pending]
+            if not cands:
+                break
+            key, req, rid = min(cands, key=lambda c: c[0])
+            if req is None:
+                ok = self._try_unpark(rid)
+            elif interleaved:
+                ok = self._begin_prefill(req)
+            else:
+                ok = self._try_admit(req)
+                if ok:
+                    admitted.append(rid)
+            if ok:
+                if req is not None:
+                    self._drop_pending(req)
                 continue
-            if not any(s.active for s in self._slots):
-                raise RuntimeError(f"queued request {req['rid']!r} cannot be admitted "
-                                   "with an idle engine (pool too small?)")
+            if key[0] < _PRIORITY["low"] and self._preempt_one():
+                continue
+            if not any(s.active or s.prefill is not None for s in self._slots):
+                raise RuntimeError(f"queued request {rid!r} cannot be admitted with an idle "
+                                   "engine (pool too small?)")
             break
         return admitted
 
+    def _drop_pending(self, req):
+        # by identity: a request holds a numpy prompt, which == cannot compare
+        for i, r in enumerate(self._pending):
+            if r is req:
+                del self._pending[i]
+                return
+
+    def _free_slot(self):
+        return next((s for s in self._slots if not s.active and s.prefill is None), None)
+
+    def _reserve(self, req):
+        """Match the prompt in the prefix cache (referencing the matched
+        pages) and take fresh blocks for the rest.  Returns (matched,
+        fresh), or None with nothing held when the pool is short."""
+        matched = []
+        if self._prefix is not None:
+            s0 = req["prompt"].shape[1]
+            matched = self._prefix.match(_tokens(req), max_blocks=(s0 - 1) // self.block_size)
+            for b in matched:
+                self._ref[b] += 1
+        try:
+            fresh = self._alloc(req["n_blocks"] - len(matched))
+        except _PoolExhausted:
+            self._unref(matched)
+            return None
+        return matched, fresh
+
     @torch.no_grad()
     def _try_admit(self, req):
-        """One admission attempt: allocate, prefill, pour, occupy a lane.
-        Returns False, with nothing allocated, when no lane or too few
-        pool pages are free."""
-        slot = next((s for s in self._slots if not s.active), None)
+        """One atomic admission: prefix match, allocate, prefill the suffix
+        (whole or in ``prefill_chunk`` chunks), pour it, occupy a lane.
+        Returns False, with nothing held, when no lane or too few pool
+        pages are free; an error backs out the same way and re-raises."""
+        slot = self._free_slot()
         if slot is None:
             return False
-        blocks = self._alloc(req["n_blocks"])
-        if blocks is None:
+        got = self._reserve(req)
+        if got is None:
             return False
-        model = self.model
+        matched, fresh = got
+        blocks = matched + fresh
+        m_len = len(matched) * self.block_size
+        mm = self.model.model
         prompt = req["prompt"]
         s0 = prompt.shape[1]
         try:
-            caches = [(torch.zeros((1, 0, self._nkv, self._head_dim),
-                                   dtype=model.config.torch_dtype, device=self.device),) * 2
-                      for _ in range(self._n_layers)]
+            caches = self._prefix_or_empty(matched, m_len)
             ids = torch.as_tensor(prompt, device=self.device)
-            if self.prefill_chunk is None or s0 <= self.prefill_chunk:
-                h, caches = _model_forward_cached(model.model, ids, caches, 0)
+            if self.prefill_chunk is None or s0 - m_len <= self.prefill_chunk:
+                h, caches = _model_forward_cached(mm, ids[:, m_len:], caches, m_len)
             else:
                 # fixed-size chunks through the cached forward (bottom-right
                 # causal against the cache so far) cap the activations of a
                 # long prompt; an accepted prefill-chain config runs each
-                # divisible chunk's attention core as its kernel
+                # chunk it tiles as its kernel
                 with prefill_chain_scope(self._resolve_prefill_chain()):
-                    for off in range(0, s0, self.prefill_chunk):
+                    for off in range(m_len, s0, self.prefill_chunk):
                         h, caches = _model_forward_cached(
-                            model.model, ids[:, off:off + self.prefill_chunk], caches, off)
-            logits_last = model._logits(h[:, -1:, :])[0, -1, :]
-            self._pour(caches, blocks, s0)
+                            mm, ids[:, off:off + self.prefill_chunk], caches, off)
+            logits_last = self.model._logits(h[:, -1:, :])[0, -1, :]
+            # the suffix's K/V into this request's own pages: the matched
+            # pages are shared and never written
+            self._pour(caches, blocks, s0, start_tok=m_len)
         except BaseException:
-            self._free.extend(blocks)
+            self._free_fresh(fresh)
+            self._unref(matched)
             raise
+        slot.blocks = blocks
+        self._commit(slot, req, logits_last, len(matched))
+        return True
 
+    def _commit(self, slot, req, logits_last, n_matched):
+        """The lane becomes active: its first token (argmax, or sampled at
+        counter 0), the prompt's full blocks into the prefix tree, the
+        counters; a request that stops at its first token finishes."""
+        s0 = req["prompt"].shape[1]
         slot.rid = req["rid"]
         slot.active = True
+        slot.prefill = None
         slot.seq_len = s0
         slot.max_len = req["max_len"]
-        slot.blocks = blocks
+        slot.priority = req["pri"]
+        slot.req = req
         slot.temperature = req["temperature"]
         slot.key = _request_seed(req["seed"], req["nonce"])
         if slot.temperature > 0.0:
-            # counter 0: this request's first generated token
             dev = self.device
             first = int(sampling.sample(
                 logits_last[None], torch.tensor([slot.temperature], device=dev),
@@ -361,30 +737,293 @@ class GenerationEngine:
         slot.last_token = first
         slot.generated = [first]
         self._results[slot.rid] = slot.generated
+        if self._prefix is not None:
+            # full prompt blocks become shared pages; the partial tail block
+            # stays private (copy on write)
+            self._prefix.insert(_tokens(req), slot.blocks[:s0 // self.block_size])
+            if n_matched:
+                _DECODE_STATS["prefix_hits"] += 1
+                _DECODE_STATS["prefix_hit_tokens"] += n_matched * self.block_size
+            else:
+                _DECODE_STATS["prefix_misses"] += 1
+        _DECODE_STATS["resident_peak"] = max(_DECODE_STATS["resident_peak"],
+                                             sum(1 for s in self._slots if s.active))
+        _DECODE_STATS["admitted_" + _PRI_NAMES[slot.priority]] += 1
         if self.eos_token_id is not None and first == self.eos_token_id:
             self._finish(slot)
         elif slot.seq_len + 1 >= slot.max_len:
             self._finish(slot)
+
+    # ------------------------------------------- interleaved prefill (PREFILLING)
+    def _begin_prefill(self, req):
+        """Interleaved admission, the reservation: a lane, the prefix
+        match and fresh blocks now; the prompt then advances one block a
+        granted chunk (``_advance_prefills``).  The lane is PREFILLING:
+        inactive to the decode step, which parks it on its scratch page.
+        Returns False, with nothing held, on a shortage."""
+        slot = self._free_slot()
+        if slot is None:
+            return False
+        got = self._reserve(req)
+        if got is None:
+            return False
+        matched, fresh = got
+        m_len = len(matched) * self.block_size
+        try:
+            caches = self._prefix_or_empty(matched, m_len)
+        except BaseException:
+            self._free_fresh(fresh)
+            self._unref(matched)
+            raise
+        slot.rid = req["rid"]
+        slot.blocks = matched + fresh
+        slot.priority = req["pri"]
+        slot.req = req
+        slot.prefill = _PrefillState(req=req, caches=caches, matched=list(matched),
+                                     fresh=list(fresh), off=m_len, poured=len(matched),
+                                     since=self._macro_steps)
         return True
 
-    def _pour(self, caches, blocks, s0):
-        """Scatter the naive prefill caches ``[1, S, Nkv, H]`` into the
-        request's pool pages (the tail of the last page zero-padded)."""
+    def _pressure(self, slot) -> int:
+        """A PREFILLING lane's pressure: its class weight times the
+        boundaries it has waited (macro-steps, never wall time, so the
+        schedule reproduces)."""
+        return _PRI_WEIGHT[slot.priority] * (1 + self._macro_steps - slot.prefill.since)
+
+    def _prefill_budget(self) -> int:
+        """This boundary's chunk grants: N = prefill_chunk_blocks while
+        requests decode, 2N once the most pressed prefill reaches
+        _PRESSURE_ESCALATE, unbounded (-1) when nothing decodes."""
+        n = self._prefill_chunk_blocks()
+        if not any(s.active for s in self._slots):
+            return -1
+        peak = max(self._pressure(s) for s in self._slots if s.prefill is not None)
+        return 2 * n if peak >= _PRESSURE_ESCALATE else n
+
+    def _advance_prefills(self):
+        """Run this boundary's chunk budget, each grant to the most pressed
+        PREFILLING lane (ranked again per grant).  Returns the ids whose
+        prefill finished: their first token surfaces in this step."""
+        finished = []
+        if not any(s.prefill is not None for s in self._slots):
+            return finished
+        budget = self._prefill_budget()
+        while budget != 0:
+            work = [s for s in self._slots if s.prefill is not None]
+            if not work:
+                break
+            slot = max(work, key=self._pressure)
+            rid = slot.rid
+            if self._prefill_chunk_step(slot):
+                finished.append(rid)
+            budget -= 1
+        return finished
+
+    @torch.no_grad()
+    def _prefill_chunk_step(self, slot):
+        """One granted chunk: forward the prompt's next block-sized span
+        through the cached forward, pour each block it completed, and put
+        the poured full blocks into the prefix tree (a later admission can
+        hit them while this prefill is still running).  Returns True when
+        the prompt is done and the lane active."""
+        st = slot.prefill
+        prompt = st.req["prompt"]
+        s0 = prompt.shape[1]
         bs = self.block_size
-        n_t = len(blocks)
-        pad = n_t * bs - s0
-        idx = torch.as_tensor(blocks, dtype=torch.long, device=self.device)
+        try:
+            with prefill_chain_scope(self._resolve_prefill_chain()):
+                ids = torch.as_tensor(prompt[:, st.off:st.off + bs], device=self.device)
+                st.h, st.caches = _model_forward_cached(self.model.model, ids, st.caches,
+                                                        st.off)
+                st.off += ids.shape[1]
+            _DECODE_STATS["prefill_chunks"] += 1
+            while st.poured < st.off // bs:
+                self._pour_block(slot, st.poured)
+                st.poured += 1
+            if self._prefix is not None and st.poured > len(st.matched):
+                self._prefix.insert(_tokens(st.req)[:st.poured * bs], slot.blocks[:st.poured])
+            if st.off < s0:
+                return False
+            self._finish_prefill(slot)
+            return True
+        except BaseException:
+            # the request is forfeit; poured pages the tree holds stay cached
+            self._cancel_prefill(slot)
+            raise
+
+    def _pour_block(self, slot, j):
+        """Pour prompt block j (tokens [j*bs, (j+1)*bs)) from the lane's
+        naive caches into its j-th page, in place."""
+        bs = self.block_size
+        lo, b = j * bs, slot.blocks[j]
+        for li, (k, v) in enumerate(slot.prefill.caches):
+            pa.paged_pour_block(self._kpools[li], k[0, lo:lo + bs].transpose(0, 1), b)
+            pa.paged_pour_block(self._vpools[li], v[0, lo:lo + bs].transpose(0, 1), b)
+
+    def _finish_prefill(self, slot):
+        """The last chunk landed: pour the rest from the first unpoured
+        block (the partial tail and the zero-padded decode pages, the
+        atomic pour's coverage), and commit the lane from the last chunk's
+        logits."""
+        st = slot.prefill
+        logits_last = self.model._logits(st.h[:, -1:, :])[0, -1, :]
+        self._pour(st.caches, slot.blocks, st.req["prompt"].shape[1],
+                   start_tok=st.poured * self.block_size)
+        self._commit(slot, st.req, logits_last, len(st.matched))
+
+    def _cancel_prefill(self, slot, requeue=False):
+        """Back a PREFILLING lane out: its references dropped (pages the
+        tree took stay cached), the lane cleared; with ``requeue`` the
+        submission goes back to the queue (prefill is deterministic, so a
+        demotion costs work, never a different stream)."""
+        st = slot.prefill
+        self._unref(st.fresh)
+        self._unref(st.matched)
+        slot.blocks = []
+        slot.rid = None
+        slot.req = None
+        slot.prefill = None
+        if requeue:
+            self._pending.append(st.req)
+
+    # ------------------------------------------- preemption (parking lot)
+    def _preempt_one(self):
+        """Preempt one LOW-priority request for a blocked higher class: an
+        active one parks (least progress first, then lane order); else a
+        PREFILLING one goes back to the queue.  Returns True when one
+        was."""
+        if not _flags.flag("FLAGS_preempt_low_priority"):
+            return False
+        victims = [s for s in self._slots
+                   if s.active and s.priority >= _PRIORITY["low"] and s.req is not None]
+        if victims:
+            self._park_request(min(victims,
+                                   key=lambda s: (len(s.generated), self._slots.index(s))))
+            return True
+        pf = [s for s in self._slots if s.prefill is not None and s.priority >= _PRIORITY["low"]]
+        if pf:
+            self._cancel_prefill(pf[0], requeue=True)
+            _DECODE_STATS["preemptions"] += 1
+            return True
+        return False
+
+    def _park_request(self, slot):
+        """Park an active request: its state and its pages (verbatim, to
+        the host) into the parking lot; its blocks free now."""
+        from .snapshot import park_request_state
+
+        self._parked[slot.rid] = park_request_state(self, slot)
+        self._release(slot)
+        _DECODE_STATS["preemptions"] += 1
+        _DECODE_STATS["parked_requests"] = len(self._parked)
+
+    def _try_unpark(self, rid):
+        """Re-admit a parked request into a free lane and fresh blocks, its
+        pages placed verbatim; the stream goes on where it stopped.
+        Returns False, leaving it parked, on a shortage."""
+        from .snapshot import unpark_request_state
+
+        slot = self._free_slot()
+        if slot is None or not unpark_request_state(self, slot, self._parked[rid]):
+            return False
+        del self._parked[rid]
+        self._results[rid] = slot.generated  # a live stream aliases its lane's list
+        _DECODE_STATS["preempt_readmits"] += 1
+        _DECODE_STATS["parked_requests"] = len(self._parked)
+        _DECODE_STATS["resident_peak"] = max(_DECODE_STATS["resident_peak"],
+                                             sum(1 for s in self._slots if s.active))
+        return True
+
+    # ----------------------------------------------------------- page moves
+    def _prefix_or_empty(self, matched, m_len):
+        """The naive caches a suffix prefill starts from: the matched
+        prefix gathered from the pools (``[1, L, Nkv, H]`` a layer, in the
+        model's dtype; int8 pages dequantized), or empty ones."""
+        dt = self.model.config.torch_dtype
+        if not m_len:
+            return [(torch.zeros((1, 0, self._nkv, self._head_dim), dtype=dt,
+                                 device=self.device),) * 2 for _ in range(self._n_layers)]
+        tables = torch.as_tensor([matched], dtype=torch.long, device=self.device)
+        return [tuple(pa.paged_gather(pool, tables)[:, :, :m_len].transpose(1, 2).to(dt)
+                      for pool in (kc, vc))
+                for kc, vc in zip(self._kpools, self._vpools)]
+
+    def _pour(self, caches, blocks, s0, start_tok=0):
+        """Scatter the naive caches ``[1, S, Nkv, H]`` into the request's
+        pages from the block-aligned ``start_tok`` on (the pages before it
+        are matched or already poured); the tail of the last page is
+        zero-padded."""
+        bs = self.block_size
+        tgt = blocks[start_tok // bs:]
+        n_t = len(tgt)
+        pad = start_tok + n_t * bs - s0
+        idx = torch.as_tensor(tgt, dtype=torch.long, device=self.device)
         for li, (k, v) in enumerate(caches):
             for pool, kv in ((self._kpools[li], k), (self._vpools[li], v)):
-                kv = kv.transpose(1, 2)  # [1, Nkv, S, H]
+                kv = kv.transpose(1, 2)[:, :, start_tok:]  # [1, Nkv, S', H]
                 if pad:
                     kv = torch.nn.functional.pad(kv, (0, 0, 0, pad))
                 kv = kv.reshape(self._nkv, n_t, bs, self._head_dim).transpose(0, 1)
                 pa.paged_pour_blocks(pool, kv, idx)
 
     def _finish(self, slot):
+        _DECODE_STATS["completed_" + _PRI_NAMES[slot.priority]] += 1
         self._results[slot.rid] = list(slot.generated)
         self._release(slot)
+
+    def adopt_pages(self, prompt_ids, k_blocks, v_blocks, ns=None):
+        """Adopt pages prefilled elsewhere as cached prefix pages: per layer
+        a ``pool_get_blocks`` dict for K and one for V, covering the
+        prompt's first full blocks.  The pages land verbatim, in place, in
+        fresh blocks, and the prompt's full-block chunks enter the prefix
+        tree with refcount zero (resident, reclaimable, matched by the next
+        ``add_request`` of this prompt).  Chunks the tree already holds
+        keep their pages.  Best effort: under pool pressure, or with the
+        prefix already cached, fewer (maybe no) blocks are adopted;
+        returns how many.  Needs the prefix cache (RuntimeError); a page
+        kind or geometry other than the pool's raises ValueError, as does
+        an adapter namespace ``ns`` (no adapters here)."""
+        if self._prefix is None:
+            raise RuntimeError("adopt_pages needs the prefix cache: adopted pages are "
+                               "delivered as cached prefixes (prefix_cache=True)")
+        if ns is not None:
+            raise ValueError(f"adopt_pages got adapter namespace ns={tuple(ns)} but this "
+                             "engine serves no adapters: adapter-poured K/V must never "
+                             "enter a base engine's prefix cache")
+        if len(k_blocks) != self._n_layers or len(v_blocks) != self._n_layers:
+            raise ValueError(f"adopted pages cover {len(k_blocks)}/{len(v_blocks)} layers; "
+                             f"this engine has {self._n_layers}")
+        bs = self.block_size
+        want_leaves = {name for name, _ in pa.pool_parts(self._kpools[0])}
+        for li in range(self._n_layers):
+            for leaves in (k_blocks[li], v_blocks[li]):
+                if set(leaves) != want_leaves:
+                    raise ValueError(f"adopted page leaves {sorted(leaves)} != pool kind "
+                                     f"{sorted(want_leaves)} (layer {li}; kv_cache_dtype "
+                                     "mismatch between sender and this engine?)")
+                got = tuple(leaves["payload"].shape[1:])
+                if got != (self._nkv, bs, self._head_dim):
+                    raise ValueError(f"adopted page geometry {got} != pool "
+                                     f"{(self._nkv, bs, self._head_dim)} (layer {li})")
+        n_wire = int(k_blocks[0]["payload"].shape[0])
+        toks = [int(t) for t in np.asarray(prompt_ids).reshape(-1)]
+        n = min(n_wire, len(toks) // bs)
+        matched = self._prefix.match(toks[:n * bs])
+        start = len(matched)
+        if start >= n:
+            return 0
+        try:
+            fresh = self._alloc(n - start)
+        except _PoolExhausted:
+            return 0
+        for b in fresh:
+            self._ref[b] = 0  # cached, unreferenced: reclaimable
+        for li in range(self._n_layers):
+            for pool, pages in ((self._kpools[li], k_blocks[li]),
+                                (self._vpools[li], v_blocks[li])):
+                pa.pool_set_blocks(pool, fresh, {k: t[start:n] for k, t in pages.items()})
+        self._prefix.insert(toks[:n * bs], matched + fresh)
+        return len(fresh)
 
     # -------------------------------------------------------------- decode
     def _effective_chunk(self) -> int:
@@ -421,14 +1060,15 @@ class GenerationEngine:
 
     def _resolve_prefill_chain(self):
         """The chunked-prefill twin of ``_resolve_decode_chain``: engines
-        with a ``prefill_chunk`` search the canonical mid-prompt geometry,
-        a chunk of ``prefill_chunk`` tokens against twice as many cached
-        positions; an accepted config runs every chunk it tiles as the
-        prefill-chain kernel."""
+        that prefill in chunks search the canonical mid-prompt geometry, a
+        chunk against twice as many cached positions; the chunk is
+        ``prefill_chunk``, or one block for interleaved engines (every
+        granted chunk is one block).  An accepted config runs every chunk
+        it tiles as the prefill-chain kernel."""
         if self._prefill_chain_cfg is not _CHAIN_UNSET:
             return self._prefill_chain_cfg
         cfg = None
-        eff = self.prefill_chunk
+        eff = self.block_size if self._prefill_chunk_blocks() > 0 else self.prefill_chunk
         if (eff is not None and eff >= 2 and _flags.flag("FLAGS_schedule_search")
                 and _flags.flag("FLAGS_schedule_search_decode")):
             _SCHED_DECODE_STATS["prefill_chains_found"] += 1
@@ -494,8 +1134,8 @@ class GenerationEngine:
 
     def _fill_inputs(self, idle=False):
         """Stage every lane's step inputs and copy them to the device
-        buffer.  Inactive lanes (every lane when ``idle``) park on their
-        scratch page with lens 1 and done set."""
+        buffer.  Inactive lanes (PREFILLING ones too; every lane when
+        ``idle``) park on their scratch page with lens 1 and done set."""
         w, c = self._max_blocks_per_seq, 1 + self._max_blocks_per_seq
         st = self._stage.numpy()
         st[:] = 0
@@ -535,10 +1175,12 @@ class GenerationEngine:
         admission prefill of a single-block prompt over empty caches,
         which builds the prefill's kernels, cuBLAS's handles and the
         Triton JIT (longer prompts still meet new shapes lazily).
-        ``adopt`` is accepted and does nothing: it warms the prefix
-        cache's page adoption, which the port does not have yet.  Returns
-        ``{"chunks": [warmed widths], "seconds": wall}``, capture and
-        instantiation included."""
+        ``adopt=True``, with the prefix cache on, round-trips the first
+        scratch page of layer 0 through ``pool_get_blocks`` /
+        ``pool_set_blocks``, the page moves of adoption and parking
+        (scratch contents are garbage by design).  Returns ``{"chunks":
+        [warmed widths], "seconds": wall}``, capture and instantiation
+        included."""
         t0 = time.perf_counter()
         todo = sorted({int(c) for c in (
             chunks if chunks is not None else [self._effective_chunk()])})
@@ -555,16 +1197,24 @@ class GenerationEngine:
             with torch.no_grad():
                 h, _ = _model_forward_cached(self.model.model, dummy, caches, 0)
                 self.model._logits(h[:, -1:, :])
+        if adopt and self._prefix is not None:
+            idx = [self._scratch[0]]
+            for pool in (self._kpools[0], self._vpools[0]):
+                pa.pool_set_blocks(pool, idx, pa.pool_get_blocks(pool, idx))
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         return {"chunks": todo, "seconds": time.perf_counter() - t0}
 
     def step(self):
-        """One macro-step for every live request: D = decode_chunk tokens
-        advance; requests are admitted and retired only here.  Returns
-        ``{rid: [tok, ...]}`` (``{rid: tok}`` at D == 1); a request admitted
-        from the pending queue in this step always maps to a list led by
-        its prefill-produced first token."""
+        """One macro-step boundary and decode step: queued and parked
+        requests are admitted (in class order, preempting LOW ones where
+        a higher class is blocked), interleaved prefills advance by this
+        step's chunk budget, then D = decode_chunk tokens advance for every
+        active lane.  Requests are admitted and retired only here.  Returns
+        ``{rid: [tok, ...]}`` (``{rid: tok}`` at D == 1); a request
+        admitted from the queue in this step (or whose interleaved prefill
+        finished in it) always maps to a list led by its prefill-produced
+        first token."""
         return self._macro_step(eager=False)
 
     def _step_eager(self):
@@ -577,9 +1227,12 @@ class GenerationEngine:
         if not self.has_work():
             return {}
         admitted = self._admit_pending()
+        admitted.extend(self._advance_prefills())
         if not any(s.active for s in self._slots):
             # admitted requests may have finished at admission
+            self._macro_steps += 1
             return {rid: list(self._results[rid]) for rid in admitted}
+        t_start = time.perf_counter()
         D = self._effective_chunk()
         if eager:
             run = self._decode_body(D)
@@ -589,7 +1242,13 @@ class GenerationEngine:
                 step_fn = self._step_fns[D] = self._build_step(D)
             run = step_fn.replay
         self._fill_inputs()
-        nxt = run().cpu().numpy()  # [B, D]: the one device sync per step
+        dev = run()
+        t_sync = time.perf_counter()
+        nxt = dev.cpu().numpy()  # [B, D]: the one device sync per step
+        _DECODE_STATS["sync_seconds"] += time.perf_counter() - t_sync
+        _DECODE_STATS["dispatches"] += 1
+        _DECODE_STATS["macro_steps"] += 1
+        _DECODE_STATS["last_chunk"] = D
 
         out = {}
         for i, s in enumerate(self._slots):
@@ -608,6 +1267,15 @@ class GenerationEngine:
                     self._finish(s)
                     break
             out[rid] = emitted if D > 1 else emitted[0]
+            _DECODE_STATS["tokens"] += len(emitted)
+        _DECODE_STATS["step_seconds"] += time.perf_counter() - t_start
+        self._merge_admitted(out, admitted)
+        self._macro_steps += 1
+        return out
+
+    def _merge_admitted(self, out, admitted):
+        """Lead each newly admitted request's entry with its prefill first
+        token (always a list, even at D == 1)."""
         for rid in admitted:
             first = self._results[rid][0]
             got = out.get(rid)
@@ -617,4 +1285,3 @@ class GenerationEngine:
                 out[rid] = [first] + got
             else:
                 out[rid] = [first, got]
-        return out

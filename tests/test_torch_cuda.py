@@ -1726,3 +1726,130 @@ def test_static_replay_equals_the_eager_run(cuda, tmp_path, codegen):
         if codegen:
             set_flags({"FLAGS_autotune_cache_dir": "", "FLAGS_schedule_search": False})
             at._CACHES.clear()
+
+
+# ------------------------------------------------------- serving admission
+# The prefix cache, parking and adoption write the pools between replays,
+# in place: a captured step reads the bytes they wrote.  Page bytes are
+# compared exactly (count of differing elements 0), streams token for
+# token.
+
+_SHARED = [int(t) for t in torch.randint(1, 1000, (48,), generator=torch.Generator().manual_seed(48))]
+
+
+def _prefix_engine(model, cuda, kv, **kw):
+    from paddle_tpu_torch.serving import GenerationEngine
+
+    eng = GenerationEngine(model, max_batch=4, block_size=16, num_blocks=64, device=cuda,
+                           decode_chunk=8, kv_cache_dtype=kv, prefix_cache=True, **kw)
+    eng._decode_chain_cfg, eng._prefill_chain_cfg = GRAPH_ENGINES[
+        "int8_batch" if kv == "int8" else "default"][1], None
+    return eng
+
+
+def _page_bytes(eng, blocks):
+    from paddle_tpu_torch.ops import paged_attention as pa
+
+    return [t[blocks].clone() for pool in eng._kpools + eng._vpools
+            for _, t in pa.pool_parts(pool)]
+
+
+def _equal_pages(a, b):
+    return sum(int((x != y).sum()) for x, y in zip(a, b, strict=True)) == 0
+
+
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+def test_prefix_engine_replays_equal_the_eager_body(cuda, tiny_bf16_llama, kv):
+    """Four requests sharing a 48-token prefix (3 pages): the graphed
+    engine's streams and launches equal the eager body's, three admissions
+    hit the shared pages, and decoding (lanes finishing mid-chunk at D = 8)
+    leaves the shared pages' bytes as they were."""
+    from paddle_tpu_torch import serving
+
+    def serve(eng, step):
+        eng.add_request("r0", _SHARED + [7, 8, 9], max_new_tokens=11)
+        blocks = eng._prefix.match(_SHARED)
+        before = _page_bytes(eng, blocks)
+        for i, extra in enumerate(([10, 11], [12], [13, 14, 15, 16, 17]), 1):
+            eng.add_request(f"r{i}", _SHARED + extra, max_new_tokens=5 + 3 * i)
+        ops.reset_launch_counts()
+        while eng.has_work():
+            step()
+        torch.cuda.synchronize()
+        assert len(blocks) == 3 and _equal_pages(before, _page_bytes(eng, blocks))
+        return {f"r{i}": eng.result(f"r{i}") for i in range(4)}, ops.launch_counts()
+
+    eager = _prefix_engine(tiny_bf16_llama, cuda, kv)
+    want, want_counts = serve(eager, eager._step_eager)
+    eng = _prefix_engine(tiny_bf16_llama, cuda, kv)
+    eng.warmup()
+    h0 = serving.decode_stats()["prefix_hits"]
+    got, counts = serve(eng, eng.step)
+    assert got == want and counts == want_counts
+    assert serving.decode_stats()["prefix_hits"] - h0 == 3
+
+
+def test_park_unpark_round_trip_is_bit_exact(cuda, tiny_bf16_llama):
+    """A parked request's pages come back into fresh blocks byte for byte
+    (payload and int8 scales), and its graphed stream goes on as if never
+    parked; so does a LOW request a HIGH arrival preempts."""
+    for kv in ("bf16", "int8"):
+        ref = _prefix_engine(tiny_bf16_llama, cuda, kv)
+        ref.warmup()
+        ref.add_request("lo", _SHARED + [3], max_new_tokens=20)
+        while ref.has_work():
+            ref.step()
+
+        eng = _prefix_engine(tiny_bf16_llama, cuda, kv)
+        eng.warmup()
+        eng.add_request("lo", _SHARED + [3], max_new_tokens=20, priority="low")
+        eng.step()
+        slot = next(s for s in eng._slots if s.rid == "lo")
+        pages = _page_bytes(eng, list(slot.blocks))
+        eng._park_request(slot)
+        eng.add_request("filler", [5, 6, 7], max_new_tokens=2)  # takes blocks first
+        assert eng._try_unpark("lo")
+        slot = next(s for s in eng._slots if s.rid == "lo")
+        assert _equal_pages(pages, _page_bytes(eng, list(slot.blocks)))
+        while eng.has_work():
+            eng.step()
+        assert eng.result("lo") == ref.result("lo")
+
+        eng = _prefix_engine(tiny_bf16_llama, cuda, kv)
+        eng.warmup()
+        for i in range(4):  # every lane LOW: the HIGH arrival parks lo0 (lane 0)
+            eng.add_request(f"lo{i}", _SHARED + [3 + i], max_new_tokens=20, priority="low")
+        eng.step()
+        eng.add_request("hi", [9, 8, 7, 6], max_new_tokens=4, priority="high")
+        eng.step()
+        assert eng.parked_requests() == ["lo0"]
+        while eng.has_work():
+            eng.step()
+        assert eng.result("lo0") == ref.result("lo")
+
+
+def test_adopted_pages_are_read_through_the_captured_step(cuda, tiny_bf16_llama):
+    """Pages a donor engine cached, adopted by an engine whose decode step
+    was captured before the adoption, are hit by its next admission, and
+    the replayed stream equals the donor's own hit stream."""
+    from paddle_tpu_torch.ops import paged_attention as pa
+
+    for kv in ("bf16", "int8"):
+        donor = _prefix_engine(tiny_bf16_llama, cuda, kv)
+        donor.warmup()
+        for rid in ("miss", "hit"):
+            donor.add_request(rid, _SHARED + [3, 4], max_new_tokens=12)
+            while donor.has_work():
+                donor.step()
+        cached = donor._prefix.match(_SHARED)
+        kb = [pa.pool_get_blocks(p, cached) for p in donor._kpools]
+        vb = [pa.pool_get_blocks(p, cached) for p in donor._vpools]
+        eng = _prefix_engine(tiny_bf16_llama, cuda, kv)
+        eng.warmup()
+        captured = dict(eng._step_fns)
+        assert eng.adopt_pages(_SHARED, kb, vb) == 3
+        eng.add_request("hit", _SHARED + [3, 4], max_new_tokens=12)
+        while eng.has_work():
+            eng.step()
+        assert eng._step_fns == captured
+        assert eng.result("hit") == donor.result("hit")

@@ -42,7 +42,7 @@ def test_import_loads_no_jax_and_no_paddle_tpu():
             " paddle_tpu_torch.static.schedule_search, paddle_tpu_torch.cost_model,"
             " paddle_tpu_torch.static, paddle_tpu_torch.models.bert,"
             " paddle_tpu_torch.ops.matmul_epilogue, paddle_tpu_torch.static.codegen,"
-            " paddle_tpu_torch.static.rewrite;"
+            " paddle_tpu_torch.static.rewrite, paddle_tpu_torch.serving.snapshot;"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'paddle_tpu'));"
             "print(bad); sys.exit(1 if bad else 0)")
@@ -145,6 +145,16 @@ def test_cpu_run_never_reaches_library_kernels(monkeypatch):
     while eng.has_work():
         eng.step()
     assert len(eng.result("a")) == 4
+    # the admission paths: prefix hits, interleaved chunks, parking
+    eng = GenerationEngine(model, max_batch=1, block_size=8, num_blocks=16, device="cpu",
+                           decode_chunk=2, prefix_cache=True, prefill_chunk_blocks=1)
+    shared = list(range(1, 17))
+    eng.add_request("lo", shared + [3], max_new_tokens=6, priority="low")
+    eng.step()
+    eng.add_request("hi", shared + [4], max_new_tokens=3, priority="high")
+    while eng.has_work():
+        eng.step()
+    assert len(eng.result("lo")) == 6 and len(eng.result("hi")) == 3
 
 
 def test_entry_points_default_to_cuda():

@@ -161,8 +161,7 @@ def test_sampled_streams_deterministic_port_against_port(models):
 def test_unported_options_raise(models):
     _, tm = models
     kw = dict(max_batch=1, block_size=8, num_blocks=8, device="cpu")
-    for bad in (dict(mesh=object()), dict(draft_model=tm), dict(adapters=4),
-                dict(prefix_cache=True), dict(prefill_chunk_blocks=1)):
+    for bad in (dict(mesh=object()), dict(draft_model=tm), dict(adapters=4)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             GenerationEngine(tm, **kw, **bad)
     eng = GenerationEngine(tm, **kw)
@@ -170,6 +169,11 @@ def test_unported_options_raise(models):
         eng.add_request("x", [1, 2], adapter="a")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         eng.snapshot("dir")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        eng.drain("dir")
+    # adapter namespaces need adapters=, which raises above
+    with pytest.raises(ValueError, match="namespace"):
+        GenerationEngine(tm, **kw, prefix_cache=True).adopt_pages([1] * 8, [], [], ns=(1, 0))
     with pytest.raises(ValueError, match="lies on"):
         GenerationEngine(tm, device="meta", **{k: v for k, v in kw.items() if k != "device"})
 

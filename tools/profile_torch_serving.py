@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the port's serving time goes on the card.
 
-    python3 tools/profile_torch_serving.py [--chained int8|bf16]
+    python3 tools/profile_torch_serving.py [--chained int8|bf16 | --admission]
 
 Builds the ``chip_smoke.py`` phase-3 configuration (LLaMA-7B width, bf16,
 32 layers, batch 4): the default engine, or with ``--chained`` the engine
@@ -19,7 +19,14 @@ time with and without the profiler, the time the card was busy (kernel,
 copy and memset events only, overlaps counted once) and its share of the
 profiled wall time (the rest is the card waiting on the host), the device
 events (also per decode token iteration), and the kernels with the most
-device time.  Needs one CUDA card.
+device time.  With ``--admission`` it profiles ``chip_smoke.py`` phase
+3b's admission work instead: on the chained int8 engine with the prefix
+cache, the admission of a 612-token prompt that hits the 512-token system
+prompt's 32 pages, beside the same prompt's admission on the same engine
+without the prefix cache (a miss); on the bf16 engine with interleaved
+prefill, one 16-token prefill chunk in the middle of a 612-token prompt;
+and the parking and unparking of a resident request (its pages to the
+host and back).  Needs one CUDA card.
 """
 
 from __future__ import annotations
@@ -110,6 +117,8 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--chained", choices=("int8", "bf16"), default=None,
                         help="profile the engine that runs the searched serving chains")
+    parser.add_argument("--admission", action="store_true",
+                        help="profile phase 3b's prefix hits, prefill chunks and parking")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_serving: no CUDA device", file=sys.stderr)
@@ -121,9 +130,11 @@ def main() -> int:
 
     print(card_line(), flush=True)
     cache_dir = tempfile.mkdtemp(prefix="autotune-")
-    if args.chained:
+    if args.chained or args.admission:
         set_flags({"FLAGS_schedule_search": True, "FLAGS_autotune_cache_dir": cache_dir})
     try:
+        if args.admission:
+            return _run_admission(chip_smoke)
         return _run(chip_smoke, chip_smoke.CHAINED[args.chained] if args.chained else {})
     finally:
         set_flags({"FLAGS_schedule_search": False, "FLAGS_autotune_cache_dir": ""})
@@ -166,6 +177,61 @@ def _run(chip_smoke, engine_kw) -> int:
         profile(f"decode step D={d} batch 4{label}, graphed", engine.step, plain_step, per=d)
         profile(f"decode step D={d} batch 4{label}, eager", engine._step_eager,
                 plain_eager_step, per=d)
+    return 0
+
+
+def _run_admission(chip_smoke) -> int:
+    with torch.no_grad():
+        model = chip_smoke.build_model()
+        system, prompts = chip_smoke.admission_prompts(model.config)
+        suffix = prompts["s100"][len(system):]
+        variant = iter(range(1000, 2000))
+
+        def fresh():
+            """The s100 request with a first suffix token no earlier
+            admission used: it hits exactly the system prompt's pages."""
+            return system + [next(variant)] + suffix[1:]
+
+        hit_eng = chip_smoke.admission_engine(model, **chip_smoke.CHAINED["int8"],
+                                              prefix_cache=True)
+        miss_eng = chip_smoke.admission_engine(model, **chip_smoke.CHAINED["int8"])
+        hit_eng.add_request("system", prompts["s17"], max_new_tokens=1)  # pours the prompt
+        for eng in (hit_eng, miss_eng):  # max_new_tokens=1: done at admission
+            for i in range(2):
+                eng.add_request(f"warm{i}", fresh(), max_new_tokens=1)
+        for tag, eng in (("hit", hit_eng), ("miss", miss_eng)):
+            plain = _wall(lambda: eng.add_request(f"{tag}-plain", fresh(), max_new_tokens=1))
+            profile(f"admission of {len(fresh())} tokens, int8 chained, prefix {tag}",
+                    lambda: eng.add_request(f"{tag}-prof", fresh(), max_new_tokens=1), plain)
+        del hit_eng, miss_eng
+
+        eng = chip_smoke.admission_engine(model, prefix_cache=True,
+                                          prefill_chunk_blocks=chip_smoke.INTERLEAVED_BLOCKS)
+        eng.warmup()
+        eng.add_request("long", prompts["s100"], max_new_tokens=chip_smoke.SERVE_NEW)
+        eng._admit_pending()
+        slot = next(s for s in eng._slots if s.rid == "long")
+        for _ in range(20):
+            eng._prefill_chunk_step(slot)
+        plain = _wall(lambda: eng._prefill_chunk_step(slot))
+        profile(f"interleaved prefill chunk of {eng.block_size} tokens at "
+                f"{slot.prefill.off} cached, bf16", lambda: eng._prefill_chunk_step(slot), plain)
+        while slot.prefill is not None:
+            eng._prefill_chunk_step(slot)
+
+        def lane():
+            return next(s for s in eng._slots if s.rid == "long")
+
+        def unpark():
+            if not eng._try_unpark("long"):
+                raise RuntimeError("the parked request did not come back")
+
+        pages = len(lane().blocks)
+        plain_park = _wall(lambda: eng._park_request(lane()))
+        plain_unpark = _wall(unpark)
+        profile(f"park of {pages} pages x {2 * len(eng._kpools)} pools, bf16",
+                lambda: eng._park_request(lane()), plain_park)
+        profile("unpark of the same", unpark, plain_unpark)
     return 0
 
 
