@@ -125,15 +125,40 @@ Phases, each of which raises (exit code != 0) on failure:
    chain launch on its sm90 route.  Prints each request's prefill ms (hit
    against miss of the same request), park and unpark ms and bytes, the
    serving counters and decode tokens/s.
+3c. Speculative decoding on phase 3's model, K = 4, phase 3's prompts
+   and 32 new tokens each: (a) the model as its own draft (every proposal
+   accepted), (b) a 2-layer draft of the 7B width whose embedding, first
+   two layers, final norm and head are the model's own (early exit),
+   each served through the eager tick (``_step_eager``) and then through
+   the captured one (``step()``, the tick recorded at the first): streams,
+   spec_stats and both pool sets equal, every pass's launches as its
+   admissions (a target and a draft prefill each) and ticks imply (the
+   capture's warm-up tick included), K + 2 dispatches a tick, and the
+   streams against phase 3's plain greedy engine (equal, or parting at a
+   token the plain engine chose by a top-2 margin below twice phase 3's
+   first-token logit error against the plain versions); then (c) (b) with
+   int8 pools and the prefix cache over two requests sharing phase 3b's
+   512-token system prompt: the second hits its 32 pages, whose bytes in
+   both pool sets decoding leaves unchanged, and the streams against a
+   plain int8 prefix engine's (the margin twice the hit's first-token
+   logit error against a forward of the model).  Prints acceptance,
+   tokens a lane a tick, decode tokens/s, ms a tick, capture seconds and
+   graph bytes.
 4. Train the flagship configuration of bench.py (vocab 32000, hidden
    2048, FFN 5632, 8 layers, 16 heads, bf16) at full width and depth with
    TrainStep and AdamW on one seeded batch of 4 x 1024 tokens: check that
    the first step's loss and gradients match a backward through a forward
    built only from the plain versions, then run 3 warm-up and 10 timed
-   steps, checking every step's launch counts (every flash forward and
-   backward on the sm90 route, the Triton yardsticks 0) and that the
-   loss falls.
-   Print ms a step, tokens/s, the model-FLOP share and peak memory
+   eager steps (TrainStep's body, ``_eager_step``), checking every step's
+   launch counts (every flash forward and backward on the sm90 route, the
+   Triton yardsticks 0) and that the loss falls.  Then ``warmup()``
+   records the step for the batch's signature, and every parameter, f32
+   master, moment, beta power, the rate, the step count and every grad
+   must be as they were; 10 graphed steps (replays, each crediting the
+   eager step's launches) run from that state, then 10 eager steps from a
+   copy of it: losses and every state tensor bit for bit.  Print graphed
+   and eager ms a step, tokens/s, the model-FLOP share, warmup and
+   capture seconds, the graph's bytes and peak memory
    (tools/profile_torch_training.py says where the step's time goes).
 5. Run BERT-base (12 layers, hidden 768, bf16, seeded random weights)
    through the static Program tier: capture
@@ -162,8 +187,10 @@ Phases, each of which raises (exit code != 0) on failure:
    captures of all four, whose verdicts must come from the cache with no
    new search.
 7. Print the ``kernels`` JSON line (all thirteen kernels, launches by main
-   path, phase 3b's two checked engines among them; the flash forward, the two backward kernels, the prefill chain and
-   the matmul epilogue with their launches by route), then the result line.
+   path, phase 3b's two checked engines, phase 3c's three spec engines
+   and phase 4's graphed and eager steps among them; the flash forward,
+   the two backward kernels, the prefill chain and the matmul epilogue
+   with their launches by route), then the result line.
 
 The script needs the card: without CUDA, or run from a directory that
 holds nothing else of the repository, it exits with a non-zero code
@@ -172,6 +199,7 @@ before printing any result.  It imports nothing of JAX or paddle_tpu.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import ctypes
 import gc
@@ -179,6 +207,7 @@ import importlib
 import json
 import math
 import shutil
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -1592,7 +1621,8 @@ def serve_engine(engine, prompts, new):
     here), a measured pass through the eager body, then ``warmup()``,
     which captures the D-token step as a CUDA graph, and the measured pass
     of replays.  Checks both passes' launch counts and that the graphed
-    streams equal the eager ones."""
+    streams equal the eager ones; the streams are the result's
+    ``streams``."""
     from paddle_tpu_torch import ops
 
     for rid, p in prompts.items():
@@ -1618,7 +1648,7 @@ def serve_engine(engine, prompts, new):
                     "warmup": report, "capture_s": captured.capture_s,
                     "graph_bytes": captured.graph_bytes,
                     "decode_speedup": graphed["decode_tokens_per_s"] / eager["decode_tokens_per_s"],
-                    "pool_bytes": engine.pool_bytes()}
+                    "pool_bytes": engine.pool_bytes(), "streams": streams}
 
 
 def _stream_diff(a, b):
@@ -1722,6 +1752,8 @@ def serve(card):
           "the engine's first token is not the argmax of its prefill logits")
     paths = {"serving": counts}
     default_pool_bytes = result["pool_bytes"]
+    plain = {"streams": result.pop("streams"),
+             "logits_err": first["first_token_logits_max_abs_err"]}
     emit({"engine": engine_name, "card": card, **result, **first})
     del engine
     for kv, kw in CHAINED.items():
@@ -1748,6 +1780,7 @@ def serve(card):
             set_flags({"FLAGS_schedule_search": False, "FLAGS_autotune_cache_dir": ""})
             shutil.rmtree(cache_dir, ignore_errors=True)
         paths[f"serving_{kv}_chained"] = counts
+        result.pop("streams")
         emit({"engine": f"{engine_name}, {kv} pools, prefill_chunk 128, schedule search",
               "card": card, **result, **first, **step,
               "decode_decision": _decision(engine.decode_decision),
@@ -1757,6 +1790,8 @@ def serve(card):
         del engine
     gc.collect()
     paths.update(serve_admission(card, model))
+    gc.collect()
+    paths.update(serve_spec(card, model, plain))
     return paths
 
 
@@ -2089,6 +2124,315 @@ def serve_admission(card, model):
     return paths
 
 
+SPEC_K = 4  # phase 3c: num_speculative_tokens
+SPEC_DRAFT_LAYERS = 2  # phase 3c (b): the early-exit draft's depth
+
+
+def early_exit_draft(model, layers):
+    """A draft of ``model``'s width whose embedding, first ``layers``
+    layers, final norm and head are the model's own (built on the meta
+    device, then given the model's modules: no weight is copied)."""
+    import dataclasses
+
+    from paddle_tpu_torch.models import LlamaForCausalLM
+
+    cfg = dataclasses.replace(model.config, num_hidden_layers=layers)
+    draft = LlamaForCausalLM(cfg, device="meta")
+    draft.model.embed_tokens = model.model.embed_tokens
+    draft.model.layers = torch.nn.ModuleList(list(model.model.layers[:layers]))
+    draft.model.norm = model.model.norm
+    draft.model.rope_cos, draft.model.rope_sin = model.model.rope_cos, model.model.rope_sin
+    draft.lm_head = model.lm_head
+    return draft
+
+
+def spec_expected_counts(engine, admissions, ticks):
+    """Every kernel's launches implied by a speculative run: ``admissions``
+    atomic admissions, each one whole-suffix forward of the target and one
+    of the draft (flash attention in both), then ``ticks`` ticks: K + 1
+    draft steps (the final norm and head on the first K only) and one
+    verify of K + 1 tokens, 2L + 1 RMSNorms and L SwiGLUs a forward."""
+    from paddle_tpu_torch import ops
+
+    t_layers = engine.model.config.num_hidden_layers
+    d_layers = engine.draft_model.config.num_hidden_layers
+    k = engine.num_speculative
+    want = dict.fromkeys(ops.launch_counts(), 0)
+    flash = (t_layers + d_layers) * admissions
+    want.update({
+        "fused_rms_norm": (2 * t_layers + 1 + 2 * d_layers + 1) * admissions
+        + ticks * ((k + 1) * 2 * d_layers + k + 2 * t_layers + 1),
+        "swiglu": (t_layers + d_layers) * admissions + ticks * ((k + 1) * d_layers + t_layers),
+        "flash_attention_fwd": flash, "flash_attention_fwd_sm90": flash})
+    return want
+
+
+def spec_pass(engine, prompts, step, on_admitted=None):
+    """Admit every prompt (SERVE_NEW new tokens each; ``on_admitted()``
+    runs after the admissions, before any tick), then tick with ``step``
+    (the captured ``step`` or the eager body) until idle, every launch
+    count set to 0 just before.  Checks the launch counts against what the
+    admissions and ticks imply (and the capture's warm-up tick, where the
+    tick is captured in this pass) and the serving counters' K + 2
+    dispatches a tick.  Returns the counts, the streams, the pass's numbers and its
+    AdmissionLog (each admission's first-token logits)."""
+    from paddle_tpu_torch import ops, serving
+
+    cfg = engine.model.config
+    log = AdmissionLog(engine)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before, spec0 = serving.decode_stats(), engine.spec_stats()
+    uncaptured = engine._spec_fn is None
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    for rid, p in prompts.items():
+        check(engine.add_request(rid, p, max_new_tokens=SERVE_NEW) is not None,
+              f"{rid} was queued, not admitted")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    if on_admitted is not None:
+        on_admitted()
+    tick_ms = []
+    while engine.has_work():
+        t = time.perf_counter()
+        step()  # ends in the tick's device-to-host copy
+        tick_ms.append((time.perf_counter() - t) * 1e3)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    counts = ops.launch_counts()
+    after, spec1 = serving.decode_stats(), engine.spec_stats()
+    check(not any(ops.yardstick_counts().values()),
+          f"speculative: a Triton yardstick launched: {ops.yardstick_counts()}")
+    streams = {rid: engine.result(rid) for rid in prompts}
+    for rid, stream in streams.items():
+        check(len(stream) == SERVE_NEW, f"{rid}: {len(stream)} tokens, expected {SERVE_NEW}")
+        check(all(0 <= t < cfg.vocab_size for t in stream), f"{rid}: token id out of range")
+    stats = {k: spec1[k] - spec0[k] for k in spec1}
+    ticks = stats["ticks"]
+    # a tick captured in this pass ran its body once more, for real: the
+    # recording's warm-up (every lane idle, on scratch pages)
+    warm = int(uncaptured and engine._spec_fn is not None and engine._spec_fn._graph is not None)
+    want = spec_expected_counts(engine, len(prompts), ticks + warm)
+    check(counts == want, f"speculative launch counts {counts} != expected {want}")
+    dispatches = after["dispatches"] - before["dispatches"]
+    check(dispatches == ticks * (engine.num_speculative + 2),
+          f"speculative: {dispatches} dispatches for {ticks} ticks")
+    decode_tokens = len(prompts) * (SERVE_NEW - 1)
+    return counts, streams, {
+        "ticks": ticks, "spec_stats": stats,
+        "acceptance": stats["accepted"] / stats["proposed"],
+        "tokens_per_lane_tick": stats["emitted"] / max(1, ticks * len(prompts)),
+        "prefill_s": t1 - t0, "decode_s": t2 - t1,
+        "decode_tokens_per_s": decode_tokens / (t2 - t1),
+        "ms_per_tick": (t2 - t1) * 1e3 / max(1, ticks),
+        # the first tick of a pass that captures also records the graph
+        "tick_ms_median": statistics.median(tick_ms[warm:] or tick_ms),
+        "tick_ms": tick_ms, "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}, log
+
+
+class SelfDraftTies:
+    """While entered, records an engine's eager ticks (``_step_eager``) of a
+    self-draft: the K draft steps' logits and the verify's, through the
+    model's ``_logits``.  For every rejected proposal, ``gaps`` gets how
+    far the verify's own pick trails the draft's pick in the draft's
+    logits of that position: the same weights on the same tokens, computed
+    as one row and as a row of a K + 1-token chunk, so a rejection must be
+    a tie the two bf16 computations break apart; ``rejected`` counts the
+    proposals the rejections dropped (a rejection at proposal j drops K -
+    j of them), as ``spec_stats`` counts them.  Enter it after the
+    admissions (``spec_pass``'s ``on_admitted``): ``AdmissionLog`` takes
+    ``_logits`` over during each admission."""
+
+    def __init__(self, engine):
+        self.engine, self.gaps, self.rejected = engine, [], 0
+
+    def __enter__(self):
+        eng, model, seen = self.engine, self.engine.model, []
+        logits, spec, k = model._logits, self.engine._spec_step, self.engine.num_speculative
+
+        def spy(h):
+            out = logits(h)
+            seen.append(out)
+            return out
+
+        def spec_step(eager):
+            seen.clear()
+            lanes = [s.active for s in eng._slots]
+            out = spec(eager)
+            # the body's own argmax calls, on the same tensors: bf16 logits
+            # tie exactly now and then, and a tie goes to whichever index
+            # the reduction meets first
+            props = torch.stack([lg[:, -1, :].argmax(-1) for lg in seen[:k]], dim=1)
+            preds = seen[k].argmax(-1)
+            for i in (i for i, active in enumerate(lanes) if active):
+                bad = (props[i] != preds[i, :k]).nonzero()
+                if len(bad):
+                    j = int(bad[0])
+                    lg = seen[j][i, -1].float()
+                    self.gaps.append(float(lg.max() - lg[preds[i, j]]))
+                    self.rejected += k - j
+            return out
+
+        model._logits, eng._spec_step = spy, spec_step
+        return self
+
+    def __exit__(self, *exc):
+        del self.engine.model._logits, self.engine._spec_step
+
+
+def check_against_plain(model, prompts, got, want, margin, what):
+    """Spec streams against a plain greedy engine's: equal, or the first
+    differing token is one the plain engine chose by a top-2 margin below
+    ``margin`` (on a forward of the model over the prompt and the plain
+    stream up to that token): a tie the two computations may break
+    either way, after which the streams may part.  Returns each stream's
+    first difference (None when equal)."""
+    out = {}
+    for rid, p in prompts.items():
+        g, w = got[rid], want[rid]
+        pos = next((i for i, (a, b) in enumerate(zip(g, w)) if a != b), None)
+        if pos is None:
+            out[rid] = None
+            continue
+        with torch.no_grad():
+            top2 = model(torch.tensor([p + w[:pos]], device=DEVICE))[0, -1].float().topk(2)
+        m = float(top2.values[0] - top2.values[1])
+        check(m < margin, f"{what}: {rid} parts from the plain engine at token {pos} "
+                          f"({g[pos]} vs {w[pos]}), where the plain margin {m} >= {margin}")
+        out[rid] = {"token": pos, "plain_margin": m}
+    return out
+
+
+def _spec_engine(model, draft, **engine_kw):
+    from paddle_tpu_torch.serving import GenerationEngine
+
+    return GenerationEngine(model, draft_model=draft, num_speculative_tokens=SPEC_K,
+                            **ENGINE_KW, **engine_kw, device=DEVICE)
+
+
+def _equal_pools(a, b):
+    """Elements of the shared blocks (payload and int8 scales) that differ
+    between two engines' pools, the draft's included."""
+    from paddle_tpu_torch.ops import paged_attention as pa
+
+    n = a._num_blocks
+    return sum(int((x[:n] != y[:n]).sum())
+               for pa_, pb_ in zip(a._all_pools(), b._all_pools())
+               for (_, x), (_, y) in zip(pa.pool_parts(pa_), pa.pool_parts(pb_)))
+
+
+def serve_spec(card, model, plain):
+    """Phase 3c: speculative decoding on phase 3's model, K = SPEC_K, over
+    phase 3's prompts and SERVE_NEW new tokens: (a) the model as its own
+    draft, (b) a SPEC_DRAFT_LAYERS-layer early-exit draft, each through
+    the eager tick and then the captured one (streams, spec_stats and both
+    pool sets equal; each pass's launches as its ticks imply; a self-draft
+    rejection only at a bf16 tie, ``SelfDraftTies``), the streams against
+    phase 3's plain engine (``plain``: its streams and its first-token logit error
+    against the plain versions, whose double is the bf16 margin); then
+    (c) the early-exit draft with int8 pools and the prefix cache over
+    two requests sharing phase 3b's 512-token system prompt: the shared
+    pages of both pool sets unchanged by decoding, the streams against a
+    plain int8 prefix engine's (margin: twice the hit's first-token logit
+    error against a forward of the model).  Returns each run's launches."""
+    from paddle_tpu_torch.serving import GenerationEngine
+
+    cfg = model.config
+    prompts = serving_prompts(cfg)
+    name = f"llama_7b {cfg.dtype} {cfg.num_hidden_layers} layers, speculative K {SPEC_K}"
+    bf16_margin = 2 * plain["logits_err"]
+    paths = {}
+    drafts = {"self": model, "early_exit": early_exit_draft(model, SPEC_DRAFT_LAYERS)}
+    for tag, draft in drafts.items():
+        eager = _spec_engine(model, draft)
+        ties = SelfDraftTies(eager)
+        with contextlib.ExitStack() as stack:
+            hook = (lambda: stack.enter_context(ties)) if tag == "self" else None
+            e_counts, e_streams, e_nums, _ = spec_pass(eager, prompts, eager._step_eager, hook)
+        engine = _spec_engine(model, draft)
+        counts, streams, nums, _ = spec_pass(engine, prompts, engine.step)
+        check(streams == e_streams,
+              f"{tag}: graphed streams differ from the eager tick's: "
+              f"{_stream_diff(streams, e_streams)}")
+        check(nums["spec_stats"] == e_nums["spec_stats"],
+              f"{tag}: graphed spec_stats {nums['spec_stats']} differ from the eager tick's "
+              f"{e_nums['spec_stats']}")
+        differing = _equal_pools(engine, eager)
+        check(differing == 0, f"{tag}: {differing} pool elements differ from the eager tick's")
+        if tag == "self":
+            rejected = nums["spec_stats"]["proposed"] - nums["spec_stats"]["accepted"]
+            check(ties.rejected == rejected and all(g < bf16_margin for g in ties.gaps),
+                  f"self-draft: {rejected} proposals rejected ({ties.rejected} seen), gaps "
+                  f"{ties.gaps}: not all bf16 ties (margin {bf16_margin})")
+        parted = check_against_plain(model, prompts, streams, plain["streams"], bf16_margin, tag)
+        captured = engine._spec_fn
+        paths[f"serving_spec_{tag}"] = counts
+        emit({"engine": f"{name}, draft {tag}"
+                        + (f" ({SPEC_DRAFT_LAYERS} layers)" if tag != "self" else ""),
+              "card": card, "prompt_lengths": [len(p) for p in prompts.values()],
+              "new_tokens_each": SERVE_NEW, "launches": counts, **nums, "eager": e_nums,
+              "streams_equal_eager": True, "pool_elements_differing_eager": differing,
+              "decode_speedup": nums["decode_tokens_per_s"] / e_nums["decode_tokens_per_s"],
+              "plain_margin_rule": bf16_margin, "parted_from_plain": parted,
+              "self_draft_rejection_gaps": ties.gaps, "capture_s": captured.capture_s,
+              "graph_bytes": captured.graph_bytes,
+              "launches_per_tick": captured.launches[0], "pool_bytes": engine.pool_bytes()})
+        del eager, engine
+        gc.collect()
+
+    # (c) int8 pools and the prefix cache: the second request hits the
+    # system prompt's 32 pages in both pool sets
+    system, adm = admission_prompts(cfg)
+    pair = dict(list(adm.items())[:2])
+    kw = dict(kv_cache_dtype="int8", prefix_cache=True)
+    shared = {}
+    engine = _spec_engine(model, drafts["early_exit"], **kw)
+
+    def snapshot_shared():
+        from paddle_tpu_torch.ops import paged_attention as pa
+
+        shared["blocks"] = blocks = engine._prefix.match(system)
+        shared["bytes"] = [t[blocks].clone() for pool in engine._all_pools()
+                           for _, t in pa.pool_parts(pool)]
+
+    counts, streams, nums, log = spec_pass(engine, pair, engine.step, snapshot_shared)
+    from paddle_tpu_torch.ops import paged_attention as pa
+
+    after = [t[shared["blocks"]] for pool in engine._all_pools() for _, t in pa.pool_parts(pool)]
+    differing = sum(int((a != b).sum()) for a, b in zip(shared["bytes"], after))
+    check(len(shared["blocks"]) == SYSTEM_TOKENS // engine.block_size,
+          f"the system prompt is cached in {len(shared['blocks'])} pages")
+    check(differing == 0, f"decoding changed {differing} bytes of the shared pages "
+                          "(target and draft pools)")
+    hit = list(pair)[1]
+    check(log.prefill[hit]["hit"] and not log.prefill[list(pair)[0]]["hit"],
+          f"prefix hits {log.report()['prefill_hit']}")
+    with torch.no_grad():
+        full = model(torch.tensor([pair[hit]], device=DEVICE))[0, -1].float()
+    int8_err = float((log.logits[hit] - full).abs().max())
+    ref = GenerationEngine(model, **ENGINE_KW, **kw, device=DEVICE)
+    ref.warmup()
+    for rid, p in pair.items():
+        ref.add_request(rid, p, max_new_tokens=SERVE_NEW)
+    while ref.has_work():
+        ref.step()
+    parted = check_against_plain(model, pair, streams, {rid: ref.result(rid) for rid in pair},
+                                 2 * int8_err, "int8 prefix")
+    paths["serving_spec_int8_prefix"] = counts
+    emit({"engine": f"{name}, draft early_exit ({SPEC_DRAFT_LAYERS} layers), int8 pools, "
+                    "prefix cache", "card": card, "system_tokens": SYSTEM_TOKENS,
+          "prompt_lengths": [len(p) for p in pair.values()], "new_tokens_each": SERVE_NEW,
+          "launches": counts, **nums, **log.report(), "shared_pages": len(shared["blocks"]),
+          "shared_page_bytes_differing": differing, "hit_first_token_logits_max_abs_err":
+          int8_err, "plain_margin_rule": 2 * int8_err, "parted_from_plain": parted,
+          "capture_s": engine._spec_fn.capture_s, "graph_bytes": engine._spec_fn.graph_bytes,
+          "pool_bytes": engine.pool_bytes()})
+    del engine, ref, drafts
+    gc.collect()
+    return paths
+
+
 def train_config():
     """The flagship training configuration of bench.py (its on-accelerator
     branch): full width and depth."""
@@ -2141,7 +2485,56 @@ def check_first_step(model, ids, labels):
             "grad_rel_l2": rels}
 
 
+def _train_state(step):
+    """Copies of every tensor the step reads and writes (parameters, f32
+    masters, moments, beta powers, the rate), then the step count."""
+    opt = step.optimizer
+    return ([p.detach().clone() for p in opt._parameter_list]
+            + [t.clone() for t in opt.opt_state_tensors()], opt._step_count)
+
+
+@torch.no_grad()
+def _set_train_state(step, state):
+    opt = step.optimizer
+    tensors, count = state
+    for t, v in zip(list(opt._parameter_list) + opt.opt_state_tensors(), tensors, strict=True):
+        t.copy_(v)
+    opt._step_count = count
+
+
+def _state_differing(a, b):
+    """Elements that differ between two ``_train_state`` copies, and the
+    largest absolute difference."""
+    pairs = list(zip(a[0], b[0], strict=True))
+    n = sum(int((x != y).sum()) for x, y in pairs)
+    err = max(float((x.float() - y.float()).abs().max()) for x, y in pairs)
+    return n + (a[1] != b[1]), err
+
+
+def _train_steps(step, run, ids, labels, n, per_step, what):
+    """``n`` steps through ``run`` (the TrainStep, or its eager body), each
+    one's launch counts checked against ``per_step``; returns the losses,
+    the ms a step (host clock, the card synced at both ends) and the
+    launches of all ``n``."""
+    from paddle_tpu_torch import ops
+
+    losses, totals = [], dict.fromkeys(per_step, 0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(n):
+        ops.reset_launch_counts()
+        losses.append(run(ids, labels))
+        counts = ops.launch_counts()
+        check(counts == per_step, f"{what} step {i}: launch counts {counts} != {per_step}")
+        check(not any(ops.yardstick_counts().values()),
+              f"{what} step {i}: a Triton yardstick launched: {ops.yardstick_counts()}")
+        totals = {k: totals[k] + counts[k] for k in totals}
+    torch.cuda.synchronize()
+    return [float(x) for x in losses], (time.perf_counter() - t0) * 1e3 / n, totals
+
+
 def train(card):
+    """Phase 4; returns the launches of the graphed and of the eager steps."""
     from paddle_tpu_torch import ops
     from paddle_tpu_torch.jit import TrainStep
     from paddle_tpu_torch.models import LlamaForCausalLM
@@ -2170,39 +2563,68 @@ def train(card):
                 "prefill_chain": 0, "prefill_chain_sm90": 0,
                 "fused_layer_norm": 0, "matmul_epilogue": 0, "matmul_epilogue_sm90": 0,
                 "vpu_chain": 0, "sched_chain": 0, "sched_chain_ktiled": 0}
-    losses, totals = [], dict.fromkeys(per_step, 0)
-    for i in range(warmup + timed):
-        if i == warmup:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-        ops.reset_launch_counts()
-        losses.append(step(ids, labels))
-        counts = ops.launch_counts()
-        check(counts == per_step, f"training step {i}: launch counts {counts} != {per_step}")
-        check(not any(ops.yardstick_counts().values()),
-              f"training step {i}: a Triton yardstick launched: {ops.yardstick_counts()}")
-        if i >= warmup:
-            totals = {k: totals[k] + counts[k] for k in totals}
-    torch.cuda.synchronize()
-    step_ms = (time.perf_counter() - t0) * 1e3 / timed
-    losses = [float(x) for x in losses]
+    # the eager steps: TrainStep's body, op by op
+    warm_losses, _, _ = _train_steps(step, step._eager_step, ids, labels, warmup, per_step,
+                                     "eager warm-up")
+    losses, eager_ms, eager_totals = _train_steps(step, step._eager_step, ids, labels, timed,
+                                                  per_step, "eager")
+    losses = warm_losses + losses
     check(all(math.isfinite(x) for x in losses), f"non-finite training loss: {losses}")
     check(losses[-1] < losses[0], f"the training loss did not fall: {losses}")
+    eager_peak = torch.cuda.max_memory_allocated() / 1e9
+
+    # warmup(): the step recorded for the batch's signature, no state moved
+    saved = _train_state(step)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    check(step.warmup(ids, labels) is step, "TrainStep.warmup did not return the step")
+    torch.cuda.synchronize()
+    warmup_s = time.perf_counter() - t0
+    moved, _ = _state_differing(_train_state(step), saved)
+    check(moved == 0 and all(p.grad is None for p in model.parameters()),
+          f"warmup() changed {moved} state elements or left a grad")
+    captured = step._steps[((tuple(ids.shape), ids.dtype), (tuple(labels.shape), labels.dtype))]
+    check(captured.step.launches[0] == {k: v for k, v in per_step.items() if v},
+          f"the recorded step credits {captured.step.launches[0]} a replay")
+
+    # TIMED graphed steps from the saved state, then TIMED eager steps
+    # from the same state: losses and every state tensor bit for bit
+    torch.cuda.reset_peak_memory_stats()
+    g_losses, graphed_ms, totals = _train_steps(step, step, ids, labels, timed, per_step,
+                                                "graphed")
+    graphed_peak = torch.cuda.max_memory_allocated() / 1e9
+    check(step.captures == 1 and step.optimizer._step_count == saved[1] + timed,
+          f"graphed steps: {step.captures} recordings, step count {step.optimizer._step_count}")
+    graphed_state = _train_state(step)
+    _set_train_state(step, saved)
+    e_losses, eager_again_ms, _ = _train_steps(step, step._eager_step, ids, labels, timed,
+                                               per_step, "eager (from the saved state)")
+    differing, max_err = _state_differing(graphed_state, _train_state(step))
+    check(g_losses == e_losses and differing == 0,
+          f"graphed steps differ from eager steps from the same state: losses {g_losses} vs "
+          f"{e_losses}, {differing} state elements (max abs {max_err})")
 
     tokens = batch * seq
     flops = (6 * n_params + 12 * layers * cfg.hidden_size * seq) * tokens
     result = {"trainer": f"bench.py flagship {cfg.dtype} {layers} layers, hidden "
                          f"{cfg.hidden_size}, batch {batch} x {seq}", "card": card,
               "parameters": n_params, "first_step": first, "losses": losses,
+              "graphed_losses": g_losses, "graphed_equal_eager": True,
               "warmup_steps": warmup, "timed_steps": timed,
-              "launches_per_step": per_step,
-              "triton_yardstick_launches": ops.yardstick_counts(), "step_ms": step_ms,
-              "tokens_per_s": tokens / (step_ms / 1e3),
+              "launches_per_step": per_step, "launches_per_replay": captured.step.launches[0],
+              "triton_yardstick_launches": ops.yardstick_counts(), "step_ms": graphed_ms,
+              "eager_step_ms": eager_ms, "eager_again_step_ms": eager_again_ms,
+              "tokens_per_s": tokens / (graphed_ms / 1e3),
+              "eager_tokens_per_s": tokens / (eager_ms / 1e3),
+              "warmup_s": warmup_s, "capture_s": captured.step.capture_s,
+              "graph_bytes": captured.step.graph_bytes,
               "model_flops_per_step": flops,
-              "model_flop_share": flops / (step_ms / 1e3) / BF16_TC_FLOPS,
-              "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+              "model_flop_share": flops / (graphed_ms / 1e3) / BF16_TC_FLOPS,
+              "eager_model_flop_share": flops / (eager_ms / 1e3) / BF16_TC_FLOPS,
+              "peak_memory_gb": graphed_peak, "eager_peak_memory_gb": eager_peak}
     emit(result)
-    return totals
+    return totals, eager_totals
 
 
 BERT_BATCH, BERT_SEQ = 32, 128   # benchmarks/bench_bert.py's batch for BERT-base
@@ -2647,7 +3069,7 @@ def main() -> int:
     del timer
     gc.collect()  # the 7B engines are gone with serve(); return their memory
     torch.cuda.empty_cache()
-    paths["training"] = train(card)
+    paths["training"], paths["training_eager"] = train(card)
     gc.collect()
     torch.cuda.empty_cache()
     paths["static_bert"], bert = static_bert(card)

@@ -2,10 +2,11 @@
 
 Ported: the config and its presets, the rope tables, the unrolled
 ``layers`` stack (``LayerList`` layout), the full forward with its
-training loss (``forward(ids, labels=)``) and the two
+training loss (``forward(ids, labels=)``) and the
 serving paths the engine runs — the cached prefill
-(``_model_forward_cached``) and the paged decode step
-(``_decode_layers_paged``).  Parameter names match the JAX model's
+(``_model_forward_cached``), the paged decode step and the T-token
+paged chunk of the speculative verify (``_decode_layers_paged``,
+``chunk=True``).  Parameter names match the JAX model's
 ``state_dict`` keys, so ``paddle_tpu_torch.convert.load_jax_state_dict``
 carries weights across.
 
@@ -323,13 +324,50 @@ def _decode_layer_paged(layer, h, cos, sin, kc, vc, tables, lens, chain_cfg=None
     return h + layer.mlp(x), kc, vc
 
 
-def _decode_layers_paged(layers, h, cos, sin, kpools, vpools, tables, lens, chain_cfg=None):
+def _decode_layer_paged_chunk(layer, h, cos, sin, kc, vc, tables, lens):
+    """One decoder layer on a T-token chunk against the paged KV pools (the
+    speculative verify).  h ``[B, T, D]``; lens ``[B]`` lengths including
+    all T chunk tokens: chunk token j sits at position ``lens - T + j``.
+    The chunk's K/V are written in place (int8 pools through the chunk
+    write's running-max scales), then every token attends the cache up to
+    its own position.  Returns ``(h', kc, vc)``."""
+    attn = layer.self_attn
+    residual = h
+    x = layer.input_layernorm(h)
+    b, t = x.shape[0], x.shape[1]
+    n, nkv, hd = attn.num_heads, attn.num_kv_heads, attn.head_dim
+    qv = attn.q_proj(x).reshape(b, t, n, hd)
+    kv_ = attn.k_proj(x).reshape(b, t, nkv, hd)
+    vv = attn.v_proj(x).reshape(b, t, nkv, hd)
+    pos = lens[:, None] - t + torch.arange(t, dtype=lens.dtype, device=lens.device)[None, :]
+    qv = pa.rope_rotate_chunk(qv, cos, sin, pos)
+    kv_ = pa.rope_rotate_chunk(kv_, cos, sin, pos)
+    kc = pa.paged_write_chunk(kc, kv_, tables, pos)
+    vc = pa.paged_write_chunk(vc, vv, tables, pos)
+    o = pa.paged_chunk_attention(qv, kc, vc, tables, lens)
+    x, h = layer.post_attention_layernorm.add_norm(attn.o_proj(o.reshape(b, t, n * hd)),
+                                                   residual)
+    return h + layer.mlp(x), kc, vc
+
+
+def _decode_layers_paged(layers, h, cos, sin, kpools, vpools, tables, lens, chain_cfg=None,
+                         chunk=False):
     """Every decoder layer's paged decode step over per-layer pool lists,
     each through the accepted decode-chain config when one is given.
-    Returns ``(h, kpools, vpools)``."""
+    ``chunk=True`` runs the T-token layer (``_decode_layer_paged_chunk``);
+    the decode chain covers the single-token step only, so a
+    ``chain_cfg`` with it raises ``ValueError``.  Returns ``(h, kpools,
+    vpools)``."""
+    if chunk and chain_cfg is not None:
+        raise ValueError("decode-chain fusion covers the single-token step only; "
+                         "chunked/verify paths must not pass chain_cfg")
     new_k, new_v = [], []
     for layer, kc, vc in zip(layers, kpools, vpools):
-        h, kc, vc = _decode_layer_paged(layer, h, cos, sin, kc, vc, tables, lens, chain_cfg)
+        if chunk:
+            h, kc, vc = _decode_layer_paged_chunk(layer, h, cos, sin, kc, vc, tables, lens)
+        else:
+            h, kc, vc = _decode_layer_paged(layer, h, cos, sin, kc, vc, tables, lens,
+                                            chain_cfg)
         new_k.append(kc)
         new_v.append(vc)
     return h, new_k, new_v

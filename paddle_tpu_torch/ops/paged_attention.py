@@ -130,8 +130,9 @@ def _amax_scale(af, dims):
     """The amax of ``af`` over ``dims`` over 127, divided by a tensor on
     ``af``'s device: torch's CUDA division by a Python scalar multiplies by
     its reciprocal, which is not the IEEE quotient the kernels and the JAX
-    package compute."""
-    return af.abs().amax(dim=dims) / af.new_tensor(_QMAX)
+    package compute.  The divisor is filled on the device (no host copy),
+    so a CUDA graph can record the division."""
+    return af.abs().amax(dim=dims) / torch.full((), _QMAX, dtype=af.dtype, device=af.device)
 
 
 def _quantize(af, safe):

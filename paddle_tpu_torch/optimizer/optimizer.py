@@ -2,7 +2,12 @@
 
 What is kept from the JAX package:
 - per-parameter state ("accumulators") keyed by (name, parameter), created
-  at the first step that reaches the parameter;
+  at the first step that reaches the parameter, or ahead of any step by
+  ``_journaled_step`` (a rolled-back step on zero grads);
+- the learning rate as a 0-d f32 tensor on the parameters' device
+  (``_lr_t``): the updates read it there, ``set_lr`` and the scheduler
+  (``_sync_lr``, between steps) write it in place, so a step captured as
+  a CUDA graph reads every later rate;
 - f32 master weights, always on for bf16 and fp16 parameters: the update
   reads and writes the f32 master and the parameter gets its cast, so
   updates below the bf16 ulp are not lost;
@@ -11,7 +16,8 @@ What is kept from the JAX package:
   (AdamW) apply their own decay instead;
 - ``grad_clip`` sees the ``(param, grad)`` pairs before the update;
 - ``state_dict`` keys ``f"{name}_{param_index}"``, ``LR_Scheduler`` and
-  ``step_count``.
+  ``step_count``; ``opt_state_tensors()`` lists the accumulators and the
+  rate, the state a captured step reads and writes.
 
 ``parameters`` may also be ``(name, param)`` pairs, as
 ``model.named_parameters()`` gives them, or a list of parameter groups
@@ -40,6 +46,10 @@ __all__ = ["Optimizer"]
 _LOW_PRECISION = (torch.bfloat16, torch.float16)
 
 
+def _capturing(t) -> bool:
+    return t.is_cuda and torch.cuda.is_current_stream_capturing()
+
+
 class Optimizer:
     def __init__(self, learning_rate=0.001, parameters=None, weight_decay=None, grad_clip=None,
                  name=None):
@@ -60,6 +70,8 @@ class Optimizer:
 
         self._lr_scheduler = learning_rate if isinstance(learning_rate, LRScheduler) else None
         self._lr = None if self._lr_scheduler is not None else float(learning_rate)
+        device = self._parameter_list[0].device if self._parameter_list else None
+        self._lr_t = torch.tensor(self.get_lr(), dtype=torch.float32, device=device)
         if weight_decay is None or isinstance(weight_decay, (int, float)):
             self._weight_decay = float(weight_decay or 0.0)
         else:
@@ -90,6 +102,13 @@ class Optimizer:
         if self._lr_scheduler is not None:
             raise RuntimeError("can't set_lr when using an LRScheduler")
         self._lr = float(value)
+        self._lr_t.fill_(self._lr)
+
+    def _sync_lr(self):
+        """Write the scheduler's current rate into ``_lr_t``, in place (a
+        no-op without a scheduler: ``set_lr`` writes it)."""
+        if self._lr_scheduler is not None:
+            self._lr_t.fill_(float(self._lr_scheduler.get_lr()))
 
     # ---------------------------------------------------------- accumulators
     def _acc(self, name: str, p: torch.Tensor, init=None, dtype=None) -> torch.Tensor:
@@ -105,7 +124,8 @@ class Optimizer:
     # ---------------------------------------------------------------- update
     def _single_update(self, p, value, g, lr):
         """The updated value of ``p`` from its current ``value`` (the f32
-        master for low-precision parameters) and its gradient ``g``."""
+        master for low-precision parameters), its gradient ``g`` and the
+        0-d f32 rate tensor ``lr``."""
         raise NotImplementedError
 
     def _decoupled_wd(self) -> bool:
@@ -118,7 +138,12 @@ class Optimizer:
 
     @torch.no_grad()
     def step(self):
-        lr = self.get_lr()
+        # while a CUDA graph records the step, the rate is what the caller
+        # synced into _lr_t before each replay: a fill here would be
+        # recorded with this moment's value
+        if not _capturing(self._lr_t):
+            self._sync_lr()
+        lr = self._lr_t
         params_grads = [(p, p.grad) for p in self._parameter_list
                         if p.requires_grad and p.grad is not None]
         if self._grad_clip is not None:
@@ -144,6 +169,52 @@ class Optimizer:
                     gv = gv + reg
                 p.copy_(self._single_update(p, p, gv, lr))
         self._step_count += 1
+
+    def _journaled_step(self, params):
+        """Create the accumulators a step on ``params`` reaches, without a
+        step: run ``step()`` on zero grads, then roll back every mutation,
+        in place (every tensor keeps its address).  Parameters, grads, the
+        rate tensor and the step count are restored from snapshots,
+        accumulators that existed keep their values, and new ones are
+        reset to the value their creation gave them (taken by a spy on
+        ``_acc`` before the step updates them)."""
+        pre = {k: t.clone() for k, t in self._accumulators.items()}
+        fresh = {}
+        orig_acc = self._acc
+
+        def acc_spy(name, p, init=None, dtype=None):
+            key = (name, id(p))
+            existed = key in self._accumulators
+            t = orig_acc(name, p, init=init, dtype=dtype)
+            if not existed:
+                fresh[key] = t.clone()
+            return t
+
+        saved = [(p, p.detach().clone(), p.grad) for p in params]
+        saved_count, saved_lr = self._step_count, self._lr_t.clone()
+        self._acc = acc_spy
+        try:
+            for p in params:
+                p.grad = torch.zeros_like(p)
+            self.step()
+        finally:
+            del self._acc  # the bound method again
+            with torch.no_grad():
+                for p, v, g in saved:
+                    p.copy_(v)
+                    p.grad = g
+                for k, t in self._accumulators.items():
+                    if k in pre:
+                        t.copy_(pre[k])
+                    elif k in fresh:
+                        t.copy_(fresh[k])
+                self._lr_t.copy_(saved_lr)
+            self._step_count = saved_count
+
+    def opt_state_tensors(self) -> list:
+        """Every mutable optimizer state tensor: the accumulators, then the
+        rate."""
+        return list(self._accumulators.values()) + [self._lr_t]
 
     def clear_grad(self, set_to_zero: bool = False):
         for p in self._parameter_list:

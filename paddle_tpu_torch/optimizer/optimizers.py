@@ -1,9 +1,11 @@
 """SGD, Adam and AdamW (counterpart of paddle_tpu/optimizer/optimizers.py).
 
 The update math follows the JAX package operation for operation, in f32
-for the moments; the moments and ``beta{1,2}_pow`` accumulators are
-updated in place.  The other optimizers are not ported yet (ROADMAP.md
-A.3.3).
+for the moments, with the rate read from the optimizer's 0-d f32 tensor
+on the device, as the JAX package reads ``_lr_t``; the moments and
+``beta{1,2}_pow`` accumulators are updated in place.  No host scalar is
+built from the rate, so a captured step reads each later rate.  The
+other optimizers are not ported yet (ROADMAP.md A.3.3).
 """
 
 from __future__ import annotations
@@ -21,9 +23,8 @@ class SGD(Optimizer):
         super().__init__(learning_rate, parameters, weight_decay, grad_clip, name)
 
     def _single_update(self, p, value, g, lr):
-        # the learning rate in the gradient's dtype, as JAX's lr.astype(g.dtype)
-        lr_g = float(torch.tensor(lr, dtype=g.dtype))
-        return value - g * lr_g
+        # the rate in the gradient's dtype, as JAX's lr.astype(g.dtype)
+        return value - lr.to(g.dtype) * g
 
 
 class Adam(Optimizer):
@@ -86,6 +87,8 @@ class AdamW(Adam):
         decay = self._wd_coeff
         if self._apply_decay_fn is not None and not self._apply_decay_fn(self._param_name(p)):
             decay = 0.0
+        # lr_ratio(p) is a host float fixed at construction: a constant of
+        # a captured step
         lr_eff = lr * (self._lr_ratio(p) if self._lr_ratio is not None else 1.0)
         master = value.float() * (1.0 - lr_eff * decay)
         return master - lr_eff * m_hat / (v_hat.sqrt() + self._eps)

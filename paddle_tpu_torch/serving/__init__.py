@@ -28,7 +28,15 @@ steps).  And the admission half of the serving features (ROADMAP.md A.2):
   (``serving/snapshot.py``) and its stream resumes bit-identically;
 - ``add_request(nonce=)``, ``adopt_pages`` (base engines, ``ns=None``),
   ``warmup(adopt=True)``'s page round trip, and the serving counters
-  (``decode_stats`` / ``reset_decode_stats``).
+  (``decode_stats`` / ``reset_decode_stats``);
+- speculative decoding (``draft_model=``, ``num_speculative_tokens=`` K):
+  the draft keeps pools of its own geometry indexed by the target's block
+  ids (so the draft may be the target itself), prefills and pours the
+  same suffix at admission, and each ``step()`` is one tick: K + 1 draft
+  steps, one verify of the ``[B, K + 1]`` chunk by the target, then
+  per-lane greedy acceptance (``spec_stats``).  Spec lanes are greedy
+  only; as in the JAX package, spec engines admit atomically, never
+  preempt, refuse ``adopt_pages`` and run no decode chain.
 
 In JAX the D-token macro-step is one ``lax.scan`` inside a jitted program,
 compiled once per D.  Here its body reads fixed device buffers (tokens,
@@ -39,9 +47,14 @@ that every ``step()`` replays, with one device-to-host copy of the
 ``[B, D]`` tokens.  On the CPU the same body runs eagerly.  Admission,
 prefill chunks, pours, parking and adoption run eagerly between replays,
 as in the JAX package, and write the pools in place, so the next replay
-reads their bytes.  Options of the JAX engine that this package does not
-port yet raise ``NotImplementedError`` naming their ROADMAP item:
-``mesh=`` (A.6), ``draft_model=``, ``adapters=`` / ``adapter=``,
+reads their bytes.  A speculative tick is recorded the same way, once an
+engine at its first tick: the draft loop (each draft argmax feeding the
+next draft step on the device, lens grown in-graph from one base), then
+the verify, with one device-to-host copy of the proposals and the
+predictions, where the JAX package compiles the draft step and the
+verify as two programs and reads each back.  Options of the JAX engine
+that this package does not port yet raise ``NotImplementedError`` naming
+their ROADMAP item: ``mesh=`` (A.6), ``adapters=`` / ``adapter=``,
 ``snapshot()`` and ``drain()`` (A.2).
 """
 
@@ -170,6 +183,7 @@ _CHAIN_UNSET = object()
 def _rearm_chain_verdicts(_changed):
     for eng in list(_ENGINES):
         eng._step_fns.clear()
+        eng._spec_fn = None
         eng._decode_chain_cfg = _CHAIN_UNSET
         eng._prefill_chain_cfg = _CHAIN_UNSET
 
@@ -207,6 +221,7 @@ class _Slot:
     rid: object = None
     active: bool = False
     seq_len: int = 0          # tokens stored in the pool (incl. prompt)
+    d_seq_len: int = 0        # tokens the draft pools cover (speculative)
     max_len: int = 0          # seq_len limit for this request
     blocks: list = field(default_factory=list)
     last_token: int = 0
@@ -355,6 +370,15 @@ class RadixPrefixCache:
 # the step's input row of a lane, one int64 each: the last token, the W
 # block-table entries, then these columns
 _LEN, _MAX_LEN, _DONE, _KEY, _COUNTER, _TEMP = range(6)
+# a speculative tick's row: the last token, the W table entries, then the
+# target's and the draft's pool coverage
+_SEQ, _DSEQ = range(2)
+
+
+def _check_in_place(written, pools):
+    if any(a is not b for a, b in zip(written, pools)):
+        raise RuntimeError("a pool write returned a new pool: a captured step must write "
+                           "the pools in place")
 
 
 def _request_seed(seed: int, nonce: int) -> int:
@@ -381,7 +405,11 @@ class GenerationEngine:
     ``step()`` advances D = decode_chunk tokens (None -> FLAGS_decode_chunk,
     default 8) and returns ``{rid: [tokens...]}``; at D == 1 it returns
     ``{rid: token}``.  On the card each D's step is captured as a CUDA
-    graph at its first use, or ahead of traffic by ``warmup()``.
+    graph at its first use, or ahead of traffic by ``warmup()``.  With a
+    ``draft_model`` each ``step()`` is one speculative tick of K =
+    ``num_speculative_tokens`` proposals (default 4), which emits 1 to K +
+    1 tokens a lane, always as a list; its graph is captured at the first
+    tick.
     ``prefix_cache`` (None -> FLAGS_prefix_cache) turns on the radix
     prefix cache; ``prefill_chunk_blocks`` (None -> the flag, read at each
     use) > 0 interleaves prefill with decode, that many one-block chunks a
@@ -391,13 +419,11 @@ class GenerationEngine:
 
     def __init__(self, model, max_batch=4, block_size=16, num_blocks=128,
                  eos_token_id=None, mesh=None, prefill_chunk=None,
-                 draft_model=None, decode_chunk=None,
+                 draft_model=None, num_speculative_tokens=4, decode_chunk=None,
                  prefix_cache=None, kv_cache_dtype=None, adapters=None,
                  prefill_chunk_blocks=None, device=None):
         if mesh is not None:
             raise _not_ported("tensor-parallel serving (mesh=)", _DIST_ITEM)
-        if draft_model is not None:
-            raise _not_ported("speculative decoding (draft_model=)", _SERVING_ITEM)
         if adapters is not None:
             raise _not_ported("multi-tenant LoRA serving (adapters=)", _SERVING_ITEM)
         if prefill_chunk is not None and int(prefill_chunk) < 1:
@@ -434,12 +460,23 @@ class GenerationEngine:
         # int8 pools are QuantPools (payload plus per-page scales)
         self._num_blocks = int(num_blocks)
         total = self._num_blocks + self.max_batch
-        pools = [pa.alloc_paged_cache(total, self._nkv, self.block_size, self._head_dim,
-                                      "int8" if kv_dt == "int8" else cfg.torch_dtype,
-                                      self.device)
-                 for _ in range(self._n_layers)]
-        self._kpools = [k for k, _ in pools]
-        self._vpools = [v for _, v in pools]
+        self._kpools, self._vpools = self._alloc_pools(cfg, total)
+        # the speculative tier: the draft's own pools, of its geometry,
+        # indexed by the same block ids as the target's
+        self.draft_model = draft_model
+        self.num_speculative = int(num_speculative_tokens)
+        self._spec_fn = None  # the captured tick (graphs.Captured), built at the first tick
+        if draft_model is not None:
+            if self.num_speculative < 1:
+                raise ValueError("num_speculative_tokens must be >= 1")
+            dcfg = draft_model.config
+            if dcfg.vocab_size != cfg.vocab_size:
+                raise ValueError("draft and target must share a vocabulary")
+            if draft_model.device != self.device:
+                raise ValueError(f"the draft model lies on {draft_model.device}, the engine "
+                                 f"runs on {self.device}")
+            self._d_kpools, self._d_vpools = self._alloc_pools(dcfg, total)
+            self._spec_stats = {"ticks": 0, "proposed": 0, "accepted": 0, "emitted": 0}
         self._free = list(range(self._num_blocks))
         self._ref = [0] * total  # requests referencing each block
         pc = prefix_cache if prefix_cache is not None else _flags.flag("FLAGS_prefix_cache")
@@ -459,8 +496,9 @@ class GenerationEngine:
         # the macro-step's inputs: one int64 row a lane (_LEN ...), staged
         # on the host (pinned on the card) and copied to the device buffer
         # the captured steps read; temperatures travel as float32 bits
-        self._stage = torch.zeros((self.max_batch, 1 + self._max_blocks_per_seq + 6),
-                                  dtype=torch.int64, pin_memory=self.device.type == "cuda")
+        cols = 1 + self._max_blocks_per_seq + (6 if draft_model is None else 2)
+        self._stage = torch.zeros((self.max_batch, cols), dtype=torch.int64,
+                                  pin_memory=self.device.type == "cuda")
         self._inputs = torch.zeros_like(self._stage, device=self.device)
         self._vocab_hash = sampling.vocab_hash(cfg.vocab_size, self.device)
         self._step_fns: dict = {}  # D -> graphs.Captured
@@ -473,10 +511,27 @@ class GenerationEngine:
         _DECODE_STATS["pool_bytes"] = _DECODE_STATS["pool_bytes_per_device"] = self.pool_bytes()
         _DECODE_STATS["mesh_shape"] = ""
 
+    def _alloc_pools(self, cfg, total):
+        """Per-layer K and V pools of ``cfg``'s geometry: ``total`` pages
+        of ``[Nkv, bs, H]``, int8 QuantPools when the engine's pools are
+        int8, else the model's dtype."""
+        nkv, hd = cfg.num_key_value_heads, cfg.hidden_size // cfg.num_attention_heads
+        pools = [pa.alloc_paged_cache(total, nkv, self.block_size, hd,
+                                      "int8" if self._kv_dtype == "int8" else cfg.torch_dtype,
+                                      self.device)
+                 for _ in range(cfg.num_hidden_layers)]
+        return [k for k, _ in pools], [v for _, v in pools]
+
+    def _all_pools(self):
+        pools = self._kpools + self._vpools
+        if self.draft_model is not None:
+            pools = pools + self._d_kpools + self._d_vpools
+        return pools
+
     def pool_bytes(self) -> int:
-        """Resident bytes of every layer's K and V pools (scratch pages and
-        int8 scales included)."""
-        return sum(pa.pool_nbytes(p) for p in self._kpools + self._vpools)
+        """Resident bytes of every layer's K and V pools, the draft's too
+        (scratch pages and int8 scales included)."""
+        return sum(pa.pool_nbytes(p) for p in self._all_pools())
 
     # ------------------------------------------------------------ requests
     def has_work(self):
@@ -571,9 +626,16 @@ class GenerationEngine:
         (``FLAGS_preempt_low_priority``)."""
         if adapter is not None:
             raise _not_ported("LoRA adapters (adapter=)", _SERVING_ITEM)
+        if self.draft_model is not None and float(temperature or 0.0) > 0.0:
+            # before any allocation: a refused request holds nothing
+            raise ValueError("speculative decoding slots are greedy-only (sampled "
+                             "acceptance needs rejection sampling); drop temperature")
         prompt = np.asarray(prompt_ids, np.int64).reshape(1, -1)
         max_len = prompt.shape[1] + int(max_new_tokens)
-        n_blocks = -(-max_len // self.block_size)
+        # a verify writes up to K + 1 positions past a lane's length before
+        # acceptance rolls it back: they must land in pages the request owns
+        headroom = 0 if self.draft_model is None else self.num_speculative + 1
+        n_blocks = -(-(max_len + headroom) // self.block_size)
         if n_blocks > self._max_blocks_per_seq:
             raise RuntimeError(f"request needs {n_blocks} blocks > per-seq table width "
                                f"{self._max_blocks_per_seq}")
@@ -599,7 +661,12 @@ class GenerationEngine:
         return self._results[rid][0]
 
     def _prefill_chunk_blocks(self) -> int:
-        """The interleaved prefill budget in blocks a step (0 = atomic)."""
+        """The interleaved prefill budget in blocks a step (0 = atomic).
+        Speculative engines always admit atomically: admission pours the
+        draft pools too, and an interleaved prefill would leave the draft's
+        coverage behind mid-prompt."""
+        if self.draft_model is not None:
+            return 0
         if self.prefill_chunk_blocks is not None:
             return self.prefill_chunk_blocks
         return max(0, int(_flags.flag("FLAGS_prefill_chunk_blocks")))
@@ -704,6 +771,15 @@ class GenerationEngine:
             # the suffix's K/V into this request's own pages: the matched
             # pages are shared and never written
             self._pour(caches, blocks, s0, start_tok=m_len)
+            if self.draft_model is not None:
+                # the draft prefills the same suffix whole, into its pools
+                # (a cached page holds both pool sets: every admission that
+                # inserted it poured both)
+                d_caches = self._prefix_or_empty(matched, m_len, draft=True)
+                _, d_caches = _model_forward_cached(self.draft_model.model, ids[:, m_len:],
+                                                    d_caches, m_len)
+                self._pour(d_caches, blocks, s0, start_tok=m_len, draft=True)
+                slot.d_seq_len = s0
         except BaseException:
             self._free_fresh(fresh)
             self._unref(matched)
@@ -894,6 +970,8 @@ class GenerationEngine:
         was."""
         if not _flags.flag("FLAGS_preempt_low_priority"):
             return False
+        if self.draft_model is not None:
+            return False  # parking ships the target's pages only
         victims = [s for s in self._slots
                    if s.active and s.priority >= _PRIORITY["low"] and s.req is not None]
         if victims:
@@ -935,35 +1013,45 @@ class GenerationEngine:
         return True
 
     # ----------------------------------------------------------- page moves
-    def _prefix_or_empty(self, matched, m_len):
+    def _pool_set(self, draft):
+        """``(kpools, vpools, model config)`` of the target or the draft."""
+        if draft:
+            return self._d_kpools, self._d_vpools, self.draft_model.config
+        return self._kpools, self._vpools, self.model.config
+
+    def _prefix_or_empty(self, matched, m_len, draft=False):
         """The naive caches a suffix prefill starts from: the matched
-        prefix gathered from the pools (``[1, L, Nkv, H]`` a layer, in the
-        model's dtype; int8 pages dequantized), or empty ones."""
-        dt = self.model.config.torch_dtype
+        prefix gathered from the target's (or the draft's) pools (``[1, L,
+        Nkv, H]`` a layer, in the model's dtype; int8 pages dequantized),
+        or empty ones."""
+        kpools, vpools, cfg = self._pool_set(draft)
+        dt = cfg.torch_dtype
         if not m_len:
-            return [(torch.zeros((1, 0, self._nkv, self._head_dim), dtype=dt,
-                                 device=self.device),) * 2 for _ in range(self._n_layers)]
+            nkv, hd = cfg.num_key_value_heads, cfg.hidden_size // cfg.num_attention_heads
+            return [(torch.zeros((1, 0, nkv, hd), dtype=dt, device=self.device),) * 2
+                    for _ in range(cfg.num_hidden_layers)]
         tables = torch.as_tensor([matched], dtype=torch.long, device=self.device)
         return [tuple(pa.paged_gather(pool, tables)[:, :, :m_len].transpose(1, 2).to(dt)
                       for pool in (kc, vc))
-                for kc, vc in zip(self._kpools, self._vpools)]
+                for kc, vc in zip(kpools, vpools)]
 
-    def _pour(self, caches, blocks, s0, start_tok=0):
+    def _pour(self, caches, blocks, s0, start_tok=0, draft=False):
         """Scatter the naive caches ``[1, S, Nkv, H]`` into the request's
-        pages from the block-aligned ``start_tok`` on (the pages before it
-        are matched or already poured); the tail of the last page is
-        zero-padded."""
+        pages of the target's (or the draft's) pools from the block-aligned
+        ``start_tok`` on (the pages before it are matched or already
+        poured); the tail of the last page is zero-padded."""
+        kpools, vpools, _ = self._pool_set(draft)
         bs = self.block_size
         tgt = blocks[start_tok // bs:]
         n_t = len(tgt)
         pad = start_tok + n_t * bs - s0
         idx = torch.as_tensor(tgt, dtype=torch.long, device=self.device)
         for li, (k, v) in enumerate(caches):
-            for pool, kv in ((self._kpools[li], k), (self._vpools[li], v)):
+            for pool, kv in ((kpools[li], k), (vpools[li], v)):
                 kv = kv.transpose(1, 2)[:, :, start_tok:]  # [1, Nkv, S', H]
                 if pad:
                     kv = torch.nn.functional.pad(kv, (0, 0, 0, pad))
-                kv = kv.reshape(self._nkv, n_t, bs, self._head_dim).transpose(0, 1)
+                kv = kv.reshape(kv.shape[1], n_t, bs, kv.shape[-1]).transpose(0, 1)
                 pa.paged_pour_blocks(pool, kv, idx)
 
     def _finish(self, slot):
@@ -986,6 +1074,10 @@ class GenerationEngine:
         if self._prefix is None:
             raise RuntimeError("adopt_pages needs the prefix cache: adopted pages are "
                                "delivered as cached prefixes (prefix_cache=True)")
+        if self.draft_model is not None:
+            raise RuntimeError("adopt_pages on a speculative engine is not supported: "
+                               "shipped pages cover the target pools only, and a "
+                               "draft-pool-less prefix would desynchronize d_seq_len")
         if ns is not None:
             raise ValueError(f"adopt_pages got adapter namespace ns={tuple(ns)} but this "
                              "engine serves no adapters: adapter-poured K/V must never "
@@ -1116,9 +1208,7 @@ class GenerationEngine:
                 h, kp, vp = _decode_layers_paged(
                     mm.layers, h, mm.rope_cos, mm.rope_sin, self._kpools, self._vpools,
                     tables_eff, lens_eff, chain_cfg)
-                if any(a is not b for a, b in zip(kp + vp, self._kpools + self._vpools)):
-                    raise RuntimeError("a pool write returned a new pool: a captured step "
-                                       "must write the pools in place")
+                _check_in_place(kp + vp, self._kpools + self._vpools)
                 lg = model._logits(mm.norm(h))[:, -1, :]
                 nxt = sampling.sample(lg, temps, keys, counters, self._vocab_hash)
                 fin = (nxt == eos) if eos is not None else torch.zeros_like(done)
@@ -1178,11 +1268,14 @@ class GenerationEngine:
         ``adopt=True``, with the prefix cache on, round-trips the first
         scratch page of layer 0 through ``pool_get_blocks`` /
         ``pool_set_blocks``, the page moves of adoption and parking
-        (scratch contents are garbage by design).  Returns ``{"chunks":
-        [warmed widths], "seconds": wall}``, capture and instantiation
-        included."""
+        (scratch contents are garbage by design).  A speculative engine,
+        as the JAX one, warms neither the macro-step (it runs ticks, which
+        it captures at the first) nor the adoption round trip (it adopts
+        nothing).  Returns ``{"chunks": [warmed widths], "seconds":
+        wall}``, capture and instantiation included."""
         t0 = time.perf_counter()
-        todo = sorted({int(c) for c in (
+        spec = self.draft_model is not None
+        todo = [] if spec else sorted({int(c) for c in (
             chunks if chunks is not None else [self._effective_chunk()])})
         if any(d < 1 for d in todo):
             raise ValueError("decode chunk widths must be >= 1")
@@ -1197,7 +1290,7 @@ class GenerationEngine:
             with torch.no_grad():
                 h, _ = _model_forward_cached(self.model.model, dummy, caches, 0)
                 self.model._logits(h[:, -1:, :])
-        if adopt and self._prefix is not None:
+        if adopt and self._prefix is not None and not spec:
             idx = [self._scratch[0]]
             for pool in (self._kpools[0], self._vpools[0]):
                 pa.pool_set_blocks(pool, idx, pa.pool_get_blocks(pool, idx))
@@ -1210,8 +1303,10 @@ class GenerationEngine:
         requests are admitted (in class order, preempting LOW ones where
         a higher class is blocked), interleaved prefills advance by this
         step's chunk budget, then D = decode_chunk tokens advance for every
-        active lane.  Requests are admitted and retired only here.  Returns
-        ``{rid: [tok, ...]}`` (``{rid: tok}`` at D == 1); a request
+        active lane (a speculative engine: one tick, 1 to K + 1 tokens a
+        lane).  Requests are admitted and retired only here.  Returns
+        ``{rid: [tok, ...]}`` (``{rid: tok}`` at D == 1 on a plain
+        engine; a speculative engine always emits lists); a request
         admitted from the queue in this step (or whose interleaved prefill
         finished in it) always maps to a list led by its prefill-produced
         first token."""
@@ -1233,6 +1328,15 @@ class GenerationEngine:
             self._macro_steps += 1
             return {rid: list(self._results[rid]) for rid in admitted}
         t_start = time.perf_counter()
+        if self.draft_model is not None:
+            out = self._spec_step(eager)
+            _DECODE_STATS["tokens"] += sum(len(v) for v in out.values())
+            _DECODE_STATS["macro_steps"] += 1
+            _DECODE_STATS["step_seconds"] += time.perf_counter() - t_start
+            # after the counters: prefill first tokens are not decode tokens
+            self._merge_admitted(out, admitted)
+            self._macro_steps += 1
+            return out
         D = self._effective_chunk()
         if eager:
             run = self._decode_body(D)
@@ -1285,3 +1389,126 @@ class GenerationEngine:
                 out[rid] = [first] + got
             else:
                 out[rid] = [first, got]
+
+    # ---------------------------------------------------------- speculative
+    def spec_stats(self):
+        """Speculative acceptance counters (None on plain engines): ticks,
+        proposed, accepted, emitted.  accepted / proposed is the mean
+        acceptance; emitted / ticks the tokens a lane gains a tick."""
+        return None if self.draft_model is None else dict(self._spec_stats)
+
+    def _spec_body(self):
+        """The speculative tick's body, from the input buffer alone
+        (``_fill_spec_inputs``): K + 1 draft steps, each draft argmax
+        feeding the next step on the device (step j at lens ``d_seq_len +
+        1 + j``; the last step only writes the last proposal's K/V, so the
+        draft pools always cover their own proposals), then the target's
+        verify of the chunk ``[last token, K proposals]`` at lens
+        ``seq_len + K + 1``.  Inactive lanes ride their scratch pages with
+        lengths from 0.  Returns ``[B, 2K + 1]``: the K proposals, then the
+        target's K + 1 greedy predictions."""
+        K = self.num_speculative
+        draft, dm = self.draft_model, self.draft_model.model
+        model, mm = self.model, self.model.model
+        inp, c = self._inputs, 1 + self._max_blocks_per_seq
+
+        @torch.no_grad()
+        def body():
+            last, tables = inp[:, :1], inp[:, 1:c]
+            seq0, d0 = inp[:, c + _SEQ], inp[:, c + _DSEQ]
+            tok, props = last, []
+            for j in range(K + 1):
+                h = dm.embed_tokens(tok)
+                h, kp, vp = _decode_layers_paged(dm.layers, h, dm.rope_cos, dm.rope_sin,
+                                                 self._d_kpools, self._d_vpools, tables,
+                                                 d0 + 1 + j)
+                _check_in_place(kp + vp, self._d_kpools + self._d_vpools)
+                if j < K:
+                    nxt = torch.argmax(draft._logits(dm.norm(h))[:, -1, :], dim=-1)
+                    props.append(nxt)
+                    tok = nxt[:, None]
+            proposals = torch.stack(props, dim=1)
+            h = mm.embed_tokens(torch.cat([last, proposals], dim=1))
+            h, kp, vp = _decode_layers_paged(mm.layers, h, mm.rope_cos, mm.rope_sin,
+                                             self._kpools, self._vpools, tables,
+                                             seq0 + K + 1, chunk=True)
+            _check_in_place(kp + vp, self._kpools + self._vpools)
+            preds = torch.argmax(model._logits(mm.norm(h)), dim=-1)
+            return torch.cat([proposals, preds], dim=1)
+
+        return body
+
+    def _fill_spec_inputs(self, idle=False):
+        """Stage every lane's tick inputs and copy them to the device buffer:
+        inactive lanes (every lane when ``idle``) get their scratch page and
+        zeros."""
+        w, c = self._max_blocks_per_seq, 1 + self._max_blocks_per_seq
+        st = self._stage.numpy()
+        st[:] = 0
+        for i, s in enumerate(self._slots):
+            if s.active and not idle:
+                st[i, 0] = s.last_token
+                st[i, 1:c] = list(s.blocks) + [s.blocks[-1]] * (w - len(s.blocks))
+                st[i, c + _SEQ] = s.seq_len
+                st[i, c + _DSEQ] = s.d_seq_len
+            else:
+                st[i, 1:c] = self._scratch[i]
+        self._inputs.copy_(self._stage, non_blocking=not idle)
+
+    def _build_spec(self):
+        """Warm up and capture the tick (on the CPU: keep its body); the
+        card's warm-up runs every lane idle, on scratch pages only."""
+        self._fill_spec_inputs(idle=True)
+        return graphs.capture(self._spec_body(), self.device)
+
+    def _spec_step(self, eager):
+        """One speculative tick: the recorded body (``_spec_body``; built at
+        the first tick), one device-to-host copy of proposals and
+        predictions, then per-lane greedy acceptance: the longest run of
+        proposals the target predicted too, then the target's own token
+        after it, cut at EOS or ``max_len``.  Rejected positions in both
+        pool sets die by lens bookkeeping (pages are positional).  The
+        counters count as the JAX engine's: K + 1 draft dispatches and one
+        verify a tick."""
+        K = self.num_speculative
+        if eager:
+            run = self._spec_body()
+        else:
+            if self._spec_fn is None:
+                self._spec_fn = self._build_spec()
+            run = self._spec_fn.replay
+        self._fill_spec_inputs()
+        dev = run()
+        t_sync = time.perf_counter()
+        res = dev.cpu().numpy()  # [B, 2K + 1]: the one device sync a tick
+        _DECODE_STATS["sync_seconds"] += time.perf_counter() - t_sync
+        _DECODE_STATS["dispatches"] += K + 2
+        proposals, preds = res[:, :K], res[:, K:]
+        self._spec_stats["ticks"] += 1
+        out = {}
+        for i, sl in enumerate(self._slots):
+            if not sl.active:
+                continue
+            accepted = 0
+            while accepted < K and preds[i, accepted] == proposals[i, accepted]:
+                accepted += 1
+            self._spec_stats["proposed"] += K
+            self._spec_stats["accepted"] += accepted
+            new_toks = [int(t) for t in proposals[i, :accepted]] + [int(preds[i, accepted])]
+            base_seq = sl.seq_len
+            emitted, finish = [], False
+            for t in new_toks:
+                emitted.append(t)
+                sl.generated.append(t)
+                if (self.eos_token_id is not None and t == self.eos_token_id) or (
+                        base_seq + 1 + len(emitted) >= sl.max_len):
+                    finish = True
+                    break
+            # the pools hold prompt + generated[:-1]; so does the draft's
+            sl.seq_len = sl.d_seq_len = base_seq + len(emitted)
+            sl.last_token = emitted[-1]
+            out[sl.rid] = emitted
+            self._spec_stats["emitted"] += len(emitted)
+            if finish:
+                self._finish(sl)
+        return out

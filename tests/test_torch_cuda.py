@@ -1853,3 +1853,134 @@ def test_adopted_pages_are_read_through_the_captured_step(cuda, tiny_bf16_llama)
             eng.step()
         assert eng._step_fns == captured
         assert eng.result("hit") == donor.result("hit")
+
+
+def _tiny_trainer(cuda, seed):
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import LlamaForCausalLM, llama_tiny
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW, lr
+
+    model = LlamaForCausalLM(llama_tiny(dtype="bfloat16"), device=cuda,
+                             generator=torch.Generator(device=cuda).manual_seed(seed))
+    opt = AdamW(lr.LinearWarmup(1e-3, 3, 1e-4, 1e-3), parameters=model.parameters(),
+                weight_decay=0.01, grad_clip=ClipGradByGlobalNorm(1.0))
+    return TrainStep(model, opt, lambda m, i, l: m(i, labels=l)[0])
+
+
+def _train_state(step):
+    opt = step.optimizer
+    out = [p.detach().clone() for p in opt._parameter_list]
+    out += [t.clone() for t in opt.opt_state_tensors()]
+    return out, [p.grad for p in opt._parameter_list], opt._step_count
+
+
+def test_graphed_train_step_equals_the_eager_step(cuda):
+    """A tiny bf16 LLaMA under AdamW with a warm-up schedule and clipping:
+    warmup() leaves every state tensor, the grads and the step count bit
+    for bit; then five graphed steps (replays from the first) equal five
+    eager steps from the same weights, losses and every state tensor bit
+    for bit, and each replay credits the eager step's launches."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    ids = torch.randint(0, 1024, (2, 128), generator=g, device=cuda)
+    graphed, eager = _tiny_trainer(cuda, 7), _tiny_trainer(cuda, 7)
+    # the accumulators created first, so the state lists line up
+    graphed.optimizer._journaled_step(list(graphed.model.parameters()))
+    before = _train_state(graphed)
+    assert graphed.warmup(ids, ids) is graphed
+    after = _train_state(graphed)
+    assert all(torch.equal(a, b) for a, b in zip(before[0], after[0]))
+    assert before[1:] == after[1:]
+    captured = next(iter(graphed._steps.values())).step
+    assert captured._graph is not None and captured.graph_bytes > 0
+    losses = {"graphed": [], "eager": []}
+    for i in range(5):
+        for mode, step in (("graphed", graphed), ("eager", eager)):
+            ops.reset_launch_counts()
+            run = step if mode == "graphed" else step._eager_step
+            losses[mode].append(run(ids, ids))
+            torch.cuda.synchronize()
+            counts = {k: v for k, v in ops.launch_counts().items() if v}
+            if mode == "graphed":
+                assert counts == captured.launches[0]
+            else:
+                eager_counts = counts
+            step.optimizer._lr_scheduler.step()
+        assert eager_counts == captured.launches[0]
+    assert graphed.captures == 1 and graphed.optimizer._step_count == 5
+    assert all(p.grad is None for p in graphed.model.parameters())
+    assert [float(x) for x in losses["graphed"]] == [float(x) for x in losses["eager"]]
+    got, want = _train_state(graphed)[0], _train_state(eager)[0]
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    p = next(graphed.model.parameters())
+    p.grad = torch.zeros_like(p)
+    with pytest.raises(RuntimeError, match="clear_grad"):
+        graphed(ids, ids)
+
+
+def _early_exit(model, layers):
+    """A draft of ``model``'s width whose embedding, first ``layers`` layers,
+    final norm and head are the model's own."""
+    import dataclasses
+
+    from paddle_tpu_torch.models import LlamaForCausalLM
+
+    cfg = dataclasses.replace(model.config, num_hidden_layers=layers)
+    draft = LlamaForCausalLM(cfg, device="meta")
+    draft.model.embed_tokens = model.model.embed_tokens
+    draft.model.layers = torch.nn.ModuleList(list(model.model.layers[:layers]))
+    draft.model.norm = model.model.norm
+    draft.model.rope_cos, draft.model.rope_sin = model.model.rope_cos, model.model.rope_sin
+    draft.lm_head = model.lm_head
+    return draft
+
+
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+@pytest.mark.parametrize("draft", ["self", "early_exit"])
+def test_spec_tick_replays_equal_the_eager_body(cuda, tiny_bf16_llama, kv, draft):
+    """A speculative engine (K = 4) serving three greedy requests: through
+    the captured tick (``step()``) the streams, spec_stats and both pool
+    sets equal the eager body's (``_step_eager``), the launch counts too
+    but for the capture's warm-up tick, and each replay credits its tick's
+    launches."""
+    from paddle_tpu_torch.serving import GenerationEngine
+
+    d = tiny_bf16_llama if draft == "self" else _early_exit(tiny_bf16_llama, 1)
+
+    def serve(step_name):
+        eng = GenerationEngine(tiny_bf16_llama, draft_model=d, num_speculative_tokens=4,
+                               max_batch=4, block_size=16, num_blocks=64, device=cuda,
+                               kv_cache_dtype=kv)
+        g = torch.Generator().manual_seed(49)
+        for i, n in enumerate((5, 17, 40)):
+            eng.add_request(f"s{i}", torch.randint(1, 1000, (n,), generator=g).tolist(),
+                            max_new_tokens=21)
+        ops.reset_launch_counts()
+        while eng.has_work():
+            getattr(eng, step_name)()
+        torch.cuda.synchronize()
+        return eng, ops.launch_counts()
+
+    eager, want_counts = serve("_step_eager")
+    eng, counts = serve("step")
+    assert eng._spec_fn is not None and eng._spec_fn._graph is not None
+    assert {f"s{i}": eng.result(f"s{i}") for i in range(3)} == {
+        f"s{i}": eager.result(f"s{i}") for i in range(3)}
+    assert eng.spec_stats() == eager.spec_stats()
+    if draft == "self":
+        assert eng.spec_stats()["accepted"] == eng.spec_stats()["proposed"]
+    # the graphed pass also ran the capture's warm-up tick (idle lanes)
+    assert counts == {k: v + eng._spec_fn.launches[0].get(k, 0) for k, v in want_counts.items()}
+    shared = slice(0, eng._num_blocks)
+    for a, b in zip(eng._all_pools(), eager._all_pools()):
+        pa_ = (a.data, a.scale) if hasattr(a, "scale") else (a,)
+        pb_ = (b.data, b.scale) if hasattr(b, "scale") else (b,)
+        for x, y in zip(pa_, pb_):
+            assert torch.equal(x[shared], y[shared])
+    eng._fill_spec_inputs(idle=True)
+    ops.reset_launch_counts()
+    for _ in range(2):
+        eng._spec_fn.replay()
+    torch.cuda.synchronize()
+    assert {k: v for k, v in ops.launch_counts().items() if v} == {
+        k: 2 * v for k, v in eng._spec_fn.launches[0].items()}

@@ -161,7 +161,7 @@ def test_sampled_streams_deterministic_port_against_port(models):
 def test_unported_options_raise(models):
     _, tm = models
     kw = dict(max_batch=1, block_size=8, num_blocks=8, device="cpu")
-    for bad in (dict(mesh=object()), dict(draft_model=tm), dict(adapters=4)):
+    for bad in (dict(mesh=object()), dict(adapters=4)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             GenerationEngine(tm, **kw, **bad)
     eng = GenerationEngine(tm, **kw)

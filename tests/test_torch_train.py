@@ -353,10 +353,6 @@ def test_unported_options_raise_naming_the_roadmap():
     opt = topt.AdamW(1e-3, parameters=tm.parameters())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TrainStep(tm, opt, _loss_fn, scaler=object())
-    step = TrainStep(tm, opt, _loss_fn)
-    for method in (step.lower, step.warmup):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            method()
     p = torch.nn.Parameter(torch.zeros(4, 2))
     p.grad = torch.zeros(4, 2).to_sparse()
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -5,13 +5,15 @@
 
 Builds the ``chip_smoke.py`` phase-4 configuration (bench.py's flagship
 LLaMA, bf16, 8 layers, batch 4 x 1024) with ``TrainStep`` and AdamW,
-runs 3 warm-up steps, then prints three JSON lines:
+runs 3 warm-up steps (the first records the step as a CUDA graph), then
+prints four JSON lines:
 
-1. ms a step on the host clock over 10 unprofiled steps;
-2. two ``TrainStep`` steps under ``torch.profiler``: the time the card was
-   busy (kernel, copy and memset events only, overlaps counted once) and
-   its share of the profiled wall time, the device events a step, and the
-   kernels with the most device time;
+1. ms a step on the host clock over 10 unprofiled steps (graph replays);
+2. two ``TrainStep`` steps (replays), then two of its eager body
+   (``_eager_step``), each pair under ``torch.profiler``: the time the
+   card was busy (kernel, copy and memset events only, overlaps counted
+   once) and its share of the profiled wall time, the device events a
+   step, and the kernels with the most device time;
 3. one step split into its phases (forward and loss, backward,
    ``optimizer.step`` with ``clear_grad``), each under
    ``record_function`` and ended by a synchronise: device ms and events a
@@ -47,7 +49,7 @@ def step_ms(step, ids, labels, n=10):
     return (time.perf_counter() - t0) * 1e3 / n
 
 
-def profile_steps(step, ids, labels, n=2, top=25):
+def profile_steps(step, ids, labels, n=2, top=25, what="TrainStep"):
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -56,7 +58,7 @@ def profile_steps(step, ids, labels, n=2, top=25):
     busy_ms = serving_profile.busy_us(events) / 1e3 / n
     if not 0 < busy_ms <= wall_ms:
         raise RuntimeError(f"device busy {busy_ms} ms a step outside (0, wall {wall_ms} ms]")
-    return {"profile": f"{n} TrainStep steps", "profiled_wall_ms_per_step": wall_ms,
+    return {"profile": f"{n} {what} steps", "profiled_wall_ms_per_step": wall_ms,
             "device_busy_ms_per_step": busy_ms, "device_busy_share": busy_ms / wall_ms,
             "device_events_per_step": len(events) / n,
             "top_kernels": serving_profile.top_kernels(events, top, per=n)}
@@ -137,6 +139,7 @@ def main() -> int:
     print(json.dumps({"config": "bench.py flagship, bf16, 8 layers, batch 4 x 1024",
                       "step_ms": step_ms(step, ids, labels)}), flush=True)
     print(json.dumps(profile_steps(step, ids, labels)), flush=True)
+    print(json.dumps(profile_steps(step._eager_step, ids, labels, what="eager body")), flush=True)
     print(json.dumps(profile_phases(model, opt, chip_smoke._loss_fn, ids, labels)), flush=True)
     return 0
 

@@ -11,19 +11,23 @@ Workloads (``chip_smoke.py``'s configurations, seeded random weights):
   the chained int8 engine (``prefill_chunk=128``, FLAGS_schedule_search
   on with a fresh verdict cache, so their warm-up pass searches both
   serving chains and the run fails unless both are accepted);
+- the speculative tick (K = 4, ``chip_smoke.py`` phase 3c) for the same 4
+  requests on the same model: the model as its own draft, and the 2-layer
+  early-exit draft;
 - BERT-base's static batch, 32 x 128 bf16 ids with ragged padding,
   through ``static.Executor``: the fused program, and the same after
   ``generic_elementwise_fusion`` with FLAGS_schedule_search on;
 - the flagship training step (bench.py's configuration, 4 x 1024 tokens,
-  AdamW), eager only: its capture is not ported yet.
+  AdamW): TrainStep's eager body and its recorded step (``warmup()``).
 
-Each serving and static workload runs ROUNDS samples eager (the engine's
-``_step_eager``, the Executor's ``_run_eager``: every op launched from the
-host) and ROUNDS captured (``step()`` / ``run()``: one graph replay), in
-turns: eager then captured in even rounds, captured then eager in odd
-ones.  A serving sample is one ``step()`` (host clock; the step ends in
-its device-to-host copy); a static sample is 10 runs and a training
-sample one step, each ended by ``torch.cuda.synchronize()``.  Then one
+Each workload runs ROUNDS samples eager (the engine's ``_step_eager``, the
+Executor's ``_run_eager``, TrainStep's ``_eager_step``: every op launched
+from the host) and ROUNDS captured (``step()`` / ``run()`` / the
+TrainStep: one graph replay), in turns: eager then captured in even
+rounds, captured then eager in odd ones.  A serving sample is one
+``step()`` (host clock; the step ends in its device-to-host copy); a
+static sample is 10 runs and a training sample one step, each ended by
+``torch.cuda.synchronize()``.  Then one
 more sample of each mode runs under ``torch.profiler`` for the device's
 busy time (kernel, copy and memset events, overlaps once), whose share is
 taken of the unprofiled median.  Prints the card's name and power limit,
@@ -145,6 +149,49 @@ def time_decode(chip_smoke, model, rounds, kv, rows):
         shutil.rmtree(cache_dir, ignore_errors=True)
 
 
+def time_spec(chip_smoke, model, rounds, tag, rows):
+    """The speculative tick of 4 resident requests, with the model as its
+    own draft (``tag`` "self") or the early-exit draft."""
+    draft = model if tag == "self" else chip_smoke.early_exit_draft(
+        model, chip_smoke.SPEC_DRAFT_LAYERS)
+    engine = chip_smoke._spec_engine(model, draft)
+    prompts = chip_smoke.serving_prompts(model.config)
+    with torch.no_grad():
+        # no request finishes while samples run: 2 ROUNDS + 8 ticks of up
+        # to K + 1 tokens, the warm-up and the profiled ticks included
+        new = (2 * rounds + 8) * (chip_smoke.SPEC_K + 1) + 1
+        for rid, p in prompts.items():
+            engine.add_request(rid, p, max_new_tokens=new)
+        engine.step()  # the capture
+        engine._step_eager()
+
+        def tick(fn):
+            t0 = time.perf_counter()
+            out = fn()
+            ms = (time.perf_counter() - t0) * 1e3
+            if len(out) != len(prompts):
+                raise RuntimeError(f"a request finished while timing: {sorted(out)}")
+            return ms
+
+        before = engine.spec_stats()
+        samples = _interleaved(rounds, lambda: tick(engine._step_eager),
+                               lambda: tick(engine.step))
+        stats = {k: v - before[k] for k, v in engine.spec_stats().items()}
+        name = (f"speculative tick K={chip_smoke.SPEC_K} batch 4, draft "
+                + ("self" if tag == "self" else f"early exit {chip_smoke.SPEC_DRAFT_LAYERS} layers"))
+        for mode, fn in (("eager", engine._step_eager), ("graphed", engine.step)):
+            row = _row(name, mode, samples[mode], fn)
+            row.update(acceptance=stats["accepted"] / stats["proposed"],
+                       tokens_per_lane_tick=stats["emitted"] / (stats["ticks"] * len(prompts)))
+            if mode == "graphed":
+                row.update(capture_s=engine._spec_fn.capture_s,
+                           graph_bytes=engine._spec_fn.graph_bytes)
+            print(json.dumps({k: row[k] for k in ("workload", "mode", "acceptance",
+                                                   "tokens_per_lane_tick", "capture_s",
+                                                   "graph_bytes") if k in row}), flush=True)
+            rows.append(row)
+
+
 def time_static(chip_smoke, rounds, rows):
     """BERT-base's static batch, fused and with the codegen passes."""
     from paddle_tpu_torch import set_flags, static
@@ -207,10 +254,20 @@ def time_training(chip_smoke, rounds, rows):
     step = TrainStep(model, AdamW(learning_rate=1e-4, parameters=model.parameters(),
                                   weight_decay=0.01), chip_smoke._loss_fn)
     for _ in range(3):
-        step(ids, labels)
-    samples = [_timed(lambda: step(ids, labels)) for _ in range(rounds)]
-    rows.append(_row("training step, flagship, 4 x 1024", "eager", samples,
-                     lambda: step(ids, labels)))
+        step._eager_step(ids, labels)
+    step.warmup(ids, labels)
+    step(ids, labels)
+    samples = _interleaved(rounds, lambda: _timed(lambda: step._eager_step(ids, labels)),
+                           lambda: _timed(lambda: step(ids, labels)))
+    captured = next(iter(step._steps.values())).step
+    for mode, fn in (("eager", lambda: step._eager_step(ids, labels)),
+                     ("graphed", lambda: step(ids, labels))):
+        row = _row("training step, flagship, 4 x 1024", mode, samples[mode], fn)
+        if mode == "graphed":
+            row.update(capture_s=captured.capture_s, graph_bytes=captured.graph_bytes)
+            print(json.dumps({k: row[k] for k in ("workload", "mode", "capture_s",
+                                                   "graph_bytes")}), flush=True)
+        rows.append(row)
 
 
 def main() -> int:
@@ -230,6 +287,9 @@ def main() -> int:
     model = chip_smoke.build_model()
     for kv in (None, "bf16", "int8"):
         time_decode(chip_smoke, model, rounds, kv, rows)
+    for tag in ("self", "early_exit"):
+        time_spec(chip_smoke, model, rounds, tag, rows)
+        gc.collect()
     del model
     gc.collect()
     torch.cuda.empty_cache()
