@@ -144,6 +144,33 @@ Phases, each of which raises (exit code != 0) on failure:
    logit error against a forward of the model).  Prints acceptance,
    tokens a lane a tick, decode tokens/s, ms a tick, capture seconds and
    graph bytes.
+3d. Multi-tenant LoRA on phase 3's model: phase 3's chained bf16 engine
+   (its verdicts) with an adapter pack (rank 16, 4 slots; the pack's
+   bytes printed), three seeded adapters t0-t2 and a base request over
+   phase 3's prompts, 32 new tokens each, greedy: (a) the eager body's
+   streams equal the graphed replays', (b) each request served alone on
+   the same engine equals its stream in the mixed batch, (c) the base
+   request equals phase 3's chained bf16 stream, (d) each adapter
+   request's first-token logits are within LOGITS_REL_TOL of a forward of
+   plain versions with the adapter's delta added (and each adapter moves
+   those logits by more than 5 x LOGITS_REL_TOL), (e) a hot swap between
+   steps (evict t2, register t3) records no step again and t3's stream
+   equals a fresh engine's, (f) the launches equal phase 3's chained bf16
+   engine's for the same submissions, (g) a speculative adapter engine
+   (phase 3c's early-exit draft, K = 4) against the plain adapter engine
+   (phase 3c's tie rule).  Prints the D = 8 step's ms graphed and eager
+   beside phase 3's chained bf16 engine, the swap's ms and lora_stats().
+3e. Snapshot, restore and drain on phase 3's model: a chained int8 engine
+   with the prefix cache and the adapters serves phase 3b's 8 requests
+   (adapters t0, t1 and the base model) on 4 lanes, is snapshotted after
+   two steps into a temporary directory, finishes and is deleted;
+   restore_engine builds a fresh engine, warmup() captures it, and it
+   finishes: every stream bit for bit the original's, the cached pages'
+   bytes and the adapter slots' epochs as at the snapshot.  Then a second
+   engine is drained after two steps: add_request raises, its residents
+   finish, and the engine restored from the drain serves the queue to
+   the original's streams.  Prints the snapshot's bytes, save and restore
+   ms and GB/s, and snapshot_stats().
 4. Train the flagship configuration of bench.py (vocab 32000, hidden
    2048, FFN 5632, 8 layers, 16 heads, bf16) at full width and depth with
    TrainStep and AdamW on one seeded batch of 4 x 1024 tokens: check that
@@ -160,6 +187,12 @@ Phases, each of which raises (exit code != 0) on failure:
    and eager ms a step, tokens/s, the model-FLOP share, warmup and
    capture seconds, the graph's bytes and peak memory
    (tools/profile_torch_training.py says where the step's time goes).
+4b. The LoRA fine-tune on phase 4's model: apply_lora (rank 16) freezes
+   the base, TrainStep with AdamW trains the adapters alone: 3 eager
+   steps, warmup(), 5 graphed steps, each with phase 4's launches; the
+   loss falls, every base parameter is bit for bit as it was and holds no
+   grad, the optimizer holds the adapters' state alone.  Prints ms a step
+   beside phase 4's full step.
 5. Run BERT-base (12 layers, hidden 768, bf16, seeded random weights)
    through the static Program tier: capture
    BertForSequenceClassification under static.program_guard, run
@@ -187,8 +220,9 @@ Phases, each of which raises (exit code != 0) on failure:
    captures of all four, whose verdicts must come from the cache with no
    new search.
 7. Print the ``kernels`` JSON line (all thirteen kernels, launches by main
-   path, phase 3b's two checked engines, phase 3c's three spec engines
-   and phase 4's graphed and eager steps among them; the flash forward,
+   path, phase 3b's two checked engines, phase 3c's three spec engines,
+   phase 3d's adapter engines, phase 3e's snapshot engines and phases 4
+   and 4b's graphed and eager steps among them; the flash forward,
    the two backward kernels, the prefill chain and the matmul epilogue
    with their launches by route), then the result line.
 
@@ -1455,29 +1489,40 @@ def time_plain_backwards(timer):
     return out
 
 
-def plain_forward(model, ids):
+def plain_forward(model, ids, adapter=None):
     """The model's forward built only from the plain versions of the
-    three kernels (the weights and the matmuls are the model's own)."""
+    three kernels (the weights and the matmuls are the model's own).
+    ``adapter``: ``{target: (A [L, in, r], B [L, r, out])}`` and its
+    scaling, as a pair; each target projection then adds ``(x @ A[l]) @
+    B[l] * scaling`` to its output."""
     from paddle_tpu_torch.models.llama import apply_rotary_pos_emb
     from paddle_tpu_torch.ops import flash_attention_reference
     from paddle_tpu_torch.ops.fused_norm import rms_norm_plain
     from paddle_tpu_torch.ops.swiglu import swiglu_plain
 
     mm, eps = model.model, model.config.rms_norm_eps
+
+    def proj(li, name, lin, x):
+        out = lin(x)
+        if adapter is not None and name in adapter[0]:
+            a, b = adapter[0][name]
+            out = out + ((x @ a[li]) @ b[li] * adapter[1]).to(out.dtype)
+        return out
+
     h = mm.embed_tokens(ids)
-    for layer in mm.layers:
+    for li, layer in enumerate(mm.layers):
         a = layer.self_attn
         x = rms_norm_plain(h, layer.input_layernorm.weight, eps)
         b, s, _ = x.shape
-        q = a.q_proj(x).reshape(b, s, a.num_heads, a.head_dim)
-        k = a.k_proj(x).reshape(b, s, a.num_kv_heads, a.head_dim)
-        v = a.v_proj(x).reshape(b, s, a.num_kv_heads, a.head_dim)
+        q = proj(li, "self_attn.q_proj", a.q_proj, x).reshape(b, s, a.num_heads, a.head_dim)
+        k = proj(li, "self_attn.k_proj", a.k_proj, x).reshape(b, s, a.num_kv_heads, a.head_dim)
+        v = proj(li, "self_attn.v_proj", a.v_proj, x).reshape(b, s, a.num_kv_heads, a.head_dim)
         q, k = apply_rotary_pos_emb(q, k, mm.rope_cos, mm.rope_sin)
         o = flash_attention_reference(q, k, v, causal=True)
-        h = h + a.o_proj(o.reshape(b, s, a.num_heads * a.head_dim))
+        h = h + proj(li, "self_attn.o_proj", a.o_proj, o.reshape(b, s, a.num_heads * a.head_dim))
         x = rms_norm_plain(h, layer.post_attention_layernorm.weight, eps)
-        gate, up = layer.mlp.gate_up_proj(x).chunk(2, dim=-1)
-        h = h + layer.mlp.down_proj(swiglu_plain(gate, up))
+        gate, up = proj(li, "mlp.gate_up_proj", layer.mlp.gate_up_proj, x).chunk(2, dim=-1)
+        h = h + proj(li, "mlp.down_proj", layer.mlp.down_proj, swiglu_plain(gate, up))
     return model._logits(rms_norm_plain(h, mm.norm.weight, eps))
 
 
@@ -1751,6 +1796,7 @@ def serve(card):
     check(int(got.argmax()) == engine.result(rid)[0],
           "the engine's first token is not the argmax of its prefill logits")
     paths = {"serving": counts}
+    chained = {}  # kv -> the engine's verdicts, its streams and its numbers (phases 3d, 3e)
     default_pool_bytes = result["pool_bytes"]
     plain = {"streams": result.pop("streams"),
              "logits_err": first["first_token_logits_max_abs_err"]}
@@ -1776,11 +1822,14 @@ def serve(card):
                   f"{kv} chained engine: first token is not the argmax of its prefill logits")
             with torch.no_grad():
                 step = check_chained_step(model, engine)
+            # before the flags change below, which re-arms every live engine's verdicts
+            verdicts = verdicts_of(engine)
         finally:
             set_flags({"FLAGS_schedule_search": False, "FLAGS_autotune_cache_dir": ""})
             shutil.rmtree(cache_dir, ignore_errors=True)
         paths[f"serving_{kv}_chained"] = counts
-        result.pop("streams")
+        chained[kv] = {"verdicts": verdicts, "streams": result.pop("streams"),
+                       "counts": counts, "result": result}
         emit({"engine": f"{engine_name}, {kv} pools, prefill_chunk 128, schedule search",
               "card": card, **result, **first, **step,
               "decode_decision": _decision(engine.decode_decision),
@@ -1792,6 +1841,10 @@ def serve(card):
     paths.update(serve_admission(card, model))
     gc.collect()
     paths.update(serve_spec(card, model, plain))
+    gc.collect()
+    paths.update(serve_lora(card, model, chained["bf16"], plain))
+    gc.collect()
+    paths.update(serve_snapshot(card, model, chained["int8"]))
     return paths
 
 
@@ -2167,9 +2220,10 @@ def spec_expected_counts(engine, admissions, ticks):
     return want
 
 
-def spec_pass(engine, prompts, step, on_admitted=None):
-    """Admit every prompt (SERVE_NEW new tokens each; ``on_admitted()``
-    runs after the admissions, before any tick), then tick with ``step``
+def spec_pass(engine, prompts, step, on_admitted=None, adapters=None):
+    """Admit every prompt (SERVE_NEW new tokens each, through
+    ``adapters[rid]`` where given; ``on_admitted()`` runs after the
+    admissions, before any tick), then tick with ``step``
     (the captured ``step`` or the eager body) until idle, every launch
     count set to 0 just before.  Checks the launch counts against what the
     admissions and ticks imply (and the capture's warm-up tick, where the
@@ -2187,7 +2241,8 @@ def spec_pass(engine, prompts, step, on_admitted=None):
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     for rid, p in prompts.items():
-        check(engine.add_request(rid, p, max_new_tokens=SERVE_NEW) is not None,
+        check(engine.add_request(rid, p, max_new_tokens=SERVE_NEW,
+                                 adapter=(adapters or {}).get(rid)) is not None,
               f"{rid} was queued, not admitted")
     torch.cuda.synchronize()
     t1 = time.perf_counter()
@@ -2433,6 +2488,412 @@ def serve_spec(card, model, plain):
     return paths
 
 
+LORA_RANK = 16            # phases 3d and 3e: the adapters' rank (alpha = rank: scaling 1)
+LORA_SLOTS = 4            # the pack's usable slots
+LORA_A_STD, LORA_B_STD = 0.02, 0.1  # each adapter moves a projection's output by about
+                                    # 0.02 * 0.1 * sqrt(4096 * 16) = 0.5 of its own spread
+LORA_ENGINE = dict(adapters={"rank": LORA_RANK, "max_adapters": LORA_SLOTS})
+LORA_SHIFT_MIN = 5 * LOGITS_REL_TOL  # an adapter must move the first-token logits by more
+
+
+def verdicts_of(engine):
+    """An engine's resolved chain verdicts (configs and decisions)."""
+    return {"_decode_chain_cfg": engine._decode_chain_cfg,
+            "_prefill_chain_cfg": engine._prefill_chain_cfg,
+            "decode_decision": engine.decode_decision,
+            "prefill_decision": engine.prefill_decision}
+
+
+def adopt_verdicts(engine, verdicts):
+    """Give ``engine`` the verdicts a phase-3 chained engine of the same
+    geometry reached (its search measured them in this run)."""
+    check(isinstance(verdicts["_decode_chain_cfg"], dict)
+          and isinstance(verdicts["_prefill_chain_cfg"], dict),
+          f"phase 3's verdicts were not kept: {verdicts}")
+    for k, v in verdicts.items():
+        setattr(engine, k, v)
+    return engine
+
+
+def lora_adapter(model, seed):
+    """A seeded adapter state dict of ``model``'s widths: every LLaMA
+    target of every layer, A and B drawn on the card in the model's dtype
+    (A std LORA_A_STD, B std LORA_B_STD)."""
+    from paddle_tpu_torch.nn.lora import LLAMA_TARGETS, _resolve_sublayer
+
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    dt = model.config.torch_dtype
+    out = {}
+    for li, layer in enumerate(model.model.layers):
+        for t in LLAMA_TARGETS:
+            lin = _resolve_sublayer(layer, t)
+            out[f"model.layers.{li}.{t}.lora_A"] = (LORA_A_STD * torch.randn(
+                lin.in_features, LORA_RANK, generator=g, device=DEVICE)).to(dt)
+            out[f"model.layers.{li}.{t}.lora_B"] = (LORA_B_STD * torch.randn(
+                LORA_RANK, lin.out_features, generator=g, device=DEVICE)).to(dt)
+    return out
+
+
+def _stacked(model, sd):
+    """An adapter state dict as ``{target: (A [L, in, r], B [L, r, out])}``
+    on the card (plain_forward's ``adapter``)."""
+    from paddle_tpu_torch.nn.lora import LLAMA_TARGETS, parse_adapter_state_dict
+
+    n = model.config.num_hidden_layers
+    return {t: (a.to(DEVICE), b.to(DEVICE))
+            for t, (a, b) in parse_adapter_state_dict(sd, n, LLAMA_TARGETS, LORA_RANK).items()}
+
+
+def lora_pass(engine, reqs, step, tag=""):
+    """Submit ``reqs`` (rid -> (prompt, adapter)), SERVE_NEW new tokens
+    each, and step with ``step`` until idle, every launch count set to 0
+    just before.  Checks the launches against what the admissions and
+    steps imply (an adapter delta launches no kernel of the table).
+    Returns the counts, the streams, the numbers and the engine's
+    AdmissionLog (one an engine, over all its passes)."""
+    from paddle_tpu_torch import ops, serving
+
+    cfg = engine.model.config
+    if not hasattr(engine, "admission_log"):
+        engine.admission_log = AdmissionLog(engine)
+    log = engine.admission_log
+    torch.cuda.synchronize()
+    before = serving.decode_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    for rid, (p, ad) in reqs.items():
+        check(engine.add_request(tag + rid, p, max_new_tokens=SERVE_NEW, adapter=ad) is not None,
+              f"{tag}{rid} was queued, not admitted")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    steps = 0
+    while engine.has_work():
+        step()
+        steps += 1
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    counts = ops.launch_counts()
+    delta = {k: serving.decode_stats()[k] - before[k] for k in _COUNTER_KEYS}
+    check(not any(ops.yardstick_counts().values()),
+          f"lora: a Triton yardstick launched: {ops.yardstick_counts()}")
+    streams = {rid: engine.result(tag + rid) for rid in reqs}
+    for rid, stream in streams.items():
+        check(len(stream) == SERVE_NEW, f"{tag}{rid}: {len(stream)} tokens, expected {SERVE_NEW}")
+        check(all(0 <= t < cfg.vocab_size for t in stream), f"{tag}{rid}: token id out of range")
+    cuts = [c for p, _ in reqs.values() for c in prefill_cuts(engine, len(p))]
+    want = expected_counts(engine, cuts, delta["dispatches"] * engine._effective_chunk())
+    check(counts == want, f"lora {tag}launch counts {counts} != expected {want}")
+    return counts, streams, {"steps": steps, "prefill_s": t1 - t0, "decode_s": t2 - t1,
+                             "ms_per_step": (t2 - t1) * 1e3 / max(1, steps),
+                             "decode_tokens_per_s": len(reqs) * (SERVE_NEW - 1) / (t2 - t1),
+                             "counters": delta}, log
+
+
+def serve_lora(card, model, bf16, plain):
+    """Phase 3d: multi-tenant LoRA on phase 3's model.  The engine is phase
+    3's chained bf16 engine (its verdicts) with an adapter pack of
+    LORA_SLOTS slots at rank LORA_RANK; three seeded adapters t0-t2 and a
+    base request over phase 3's four prompts, SERVE_NEW tokens each,
+    greedy.  (a) eager body against the graphed replays, (b) each request
+    alone on the same engine against the mixed batch, (c) the base
+    request against phase 3's chained bf16 engine, (d) each adapter
+    request's first-token logits against a forward of plain versions with
+    the adapter's delta (and each adapter's shift of those logits above
+    LORA_SHIFT_MIN), (e) a hot swap between steps (evict t2, register t3)
+    records nothing and t3's stream equals a fresh engine's, (f) the
+    launches equal phase 3's chained bf16 engine's, (g) a speculative
+    adapter engine (phase 3c's early-exit draft, K = SPEC_K) against the
+    plain adapter engine (equal, or parting at a bf16 tie: phase 3c's
+    rule).  Returns each checked path's launches."""
+    from paddle_tpu_torch import serving
+    from paddle_tpu_torch.nn.lora import adapter_prefill_scope
+    from paddle_tpu_torch.serving import GenerationEngine
+
+    cfg = model.config
+    prompts = serving_prompts(cfg)
+    names = ["t0", "t1", "t2", None]  # the longest prompt is the base request
+    reqs = {rid: (p, ad) for (rid, p), ad in zip(prompts.items(), names)}
+    sds = {f"t{i}": lora_adapter(model, 20 + i) for i in range(4)}
+
+    def engine_of(**kw):
+        eng = GenerationEngine(model, **ENGINE_KW, **CHAINED["bf16"], **kw, device=DEVICE)
+        return adopt_verdicts(eng, bf16["verdicts"])
+
+    def register(eng, *tags):
+        for tag in tags:
+            eng.register_adapter(tag, sds[tag])
+
+    serving.reset_lora_stats()
+    engine = engine_of(**LORA_ENGINE)
+    register(engine, "t0", "t1", "t2")
+    # (a) the eager body's pass, then warmup() and the replays
+    e_counts, e_streams, e_nums, e_log = lora_pass(engine, reqs, engine._step_eager, "eager-")
+    report = engine.warmup()
+    D = engine._effective_chunk()
+    captured = engine._step_fns[D]
+    counts, streams, nums, log = lora_pass(engine, reqs, engine.step)
+    check(streams == e_streams, f"lora: graphed streams differ from the eager body's: "
+                                f"{_stream_diff(streams, e_streams)}")
+    check(counts == e_counts, f"lora: graphed launches {counts} != eager {e_counts}")
+    # (f) the same launches as the plain chained engine's for these submissions
+    check(counts == bf16["counts"], f"lora launches {counts} != the plain chained engine's "
+                                    f"{bf16['counts']}")
+    # (c) the base request: phase 3's chained bf16 stream
+    base = names.index(None)
+    base_rid = list(reqs)[base]
+    check(streams[base_rid] == bf16["streams"][base_rid],
+          f"lora: the base request's stream differs from the plain chained engine's")
+    check(len({tuple(s) for s in streams.values()}) == len(streams),
+          "lora: two requests decoded the same stream")
+    # (b) each request alone on the same engine (the step's M is max_batch)
+    for rid, (p, ad) in reqs.items():
+        _, alone, _, _ = lora_pass(engine, {rid: (p, ad)}, engine.step, "alone-")
+        check(alone[rid] == streams[rid], f"lora: {rid} alone differs from the mixed batch: "
+                                          f"{_stream_diff(alone, {rid: streams[rid]})}")
+    # (d) first-token logits against plain versions with the adapter's delta
+    rel, shift = {}, {}
+    with torch.no_grad():
+        for rid, (p, ad) in reqs.items():
+            if ad is None:
+                continue
+            ids = torch.tensor([p], device=DEVICE)
+            want = plain_forward(model, ids, (_stacked(model, sds[ad]), 1.0))[0, -1].float()
+            base_logits = plain_forward(model, ids)[0, -1].float()
+            got = log.logits[rid]
+            check(bool(torch.isfinite(got).all()), f"lora {rid}: non-finite logits")
+            rel[rid] = float((got - want).norm() / want.norm())
+            shift[rid] = float((want - base_logits).norm() / base_logits.norm())
+            check(int(got.argmax()) == streams[rid][0],
+                  f"lora {rid}: the first token is not the argmax of its prefill logits")
+    check(max(rel.values()) <= LOGITS_REL_TOL,
+          f"lora first-token logits against plain versions with the delta: {rel}")
+    check(min(shift.values()) >= LORA_SHIFT_MIN,
+          f"lora: an adapter moves the first-token logits too little: {shift}")
+    # (e) a hot swap between steps: t2 idle, evicted; t3 registered in its
+    # slot while a base request decodes; nothing is recorded again
+    long_p = prompts[base_rid]
+    engine.add_request("swap-base", long_p, max_new_tokens=SERVE_NEW)
+    engine.step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine.evict_adapter("t2")
+    slot = engine.register_adapter("t3", sds["t3"])
+    torch.cuda.synchronize()
+    swap_ms = (time.perf_counter() - t0) * 1e3
+    t3_rid, t3_prompt = list(reqs)[2], list(reqs.values())[2][0]
+    engine.add_request("swap-t3", t3_prompt, max_new_tokens=SERVE_NEW, adapter="t3")
+    while engine.has_work():
+        engine.step()
+    check(list(engine._step_fns) == [D] and engine._step_fns[D] is captured,
+          f"lora: the swap recorded a step again: {list(engine._step_fns)}")
+    fresh = engine_of(**LORA_ENGINE)
+    register(fresh, "t3")
+    fresh.warmup()
+    fresh.add_request("t3", t3_prompt, max_new_tokens=SERVE_NEW, adapter="t3")
+    while fresh.has_work():
+        fresh.step()
+    check(engine.result("swap-t3") == fresh.result("t3"),
+          "lora: t3 after the swap differs from a fresh engine's t3")
+    check(engine.result("swap-base") == bf16["streams"][base_rid],
+          "lora: the base request decoding across the swap changed its stream")
+    del fresh
+    lora = serving.lora_stats()
+    pack_bytes = engine._pack.nbytes
+    plain_chained = bf16["result"]
+    emit({"engine": f"llama_7b {cfg.dtype} {cfg.num_hidden_layers} layers, bf16 pools, "
+                    f"prefill_chunk 128, adapters rank {LORA_RANK} x {LORA_SLOTS} slots",
+          "card": card, "requests": {rid: ad for rid, (_, ad) in reqs.items()},
+          "new_tokens_each": SERVE_NEW, "decode_chunk": D, "launches": counts,
+          "step_ms_graphed": nums["ms_per_step"], "step_ms_eager": e_nums["ms_per_step"],
+          "plain_chained_step_ms_graphed": plain_chained["decode_s"] * 1e3
+          / plain_chained["steps"],
+          "plain_chained_step_ms_eager": plain_chained["eager"]["decode_s"] * 1e3
+          / plain_chained["eager"]["steps"],
+          "decode_tokens_per_s": nums["decode_tokens_per_s"],
+          "decode_tokens_per_s_eager": e_nums["decode_tokens_per_s"],
+          "prefill_ms": log.report()["prefill_ms"], "swap_ms": swap_ms, "swap_slot": slot,
+          "pack_bytes": pack_bytes, "pool_bytes": engine.pool_bytes(),
+          "first_token_logits_rel_l2": rel, "adapter_logit_shift_rel_l2": shift,
+          "streams_equal_eager": True, "alone_equal_mixed": True,
+          "base_equal_plain_chained": True, "swap_recorded_nothing": True,
+          "launches_equal_plain_chained": True, "warmup": report,
+          "capture_s": captured.capture_s, "graph_bytes": captured.graph_bytes,
+          "lora_stats": lora})
+    paths = {"serving_lora": counts, "serving_lora_eager": e_counts}
+    del engine
+    gc.collect()
+
+    # (g) the speculative adapter engine: the early-exit draft proposes
+    # with the base model, the verify goes through each row's adapter
+    draft = early_exit_draft(model, SPEC_DRAFT_LAYERS)
+    spec = GenerationEngine(model, draft_model=draft, num_speculative_tokens=SPEC_K,
+                            **ENGINE_KW, **LORA_ENGINE, device=DEVICE)
+    register(spec, "t0", "t1", "t2")
+    s_counts, s_streams, s_nums, _ = spec_pass(
+        spec, {rid: p for rid, (p, _) in reqs.items()}, spec.step,
+        adapters={rid: ad for rid, (_, ad) in reqs.items()})
+    margin = 2 * plain["logits_err"]
+    parted = {}
+    for rid, (p, ad) in reqs.items():
+        if ad is None:
+            scope = contextlib.nullcontext()
+        else:
+            scope = adapter_prefill_scope(model.model.layers, spec._pack,
+                                          spec.adapter_slots()[ad])
+        with scope:
+            parted.update(check_against_plain(model, {rid: p}, {rid: s_streams[rid]},
+                                              {rid: streams[rid]}, margin, "lora speculative"))
+    paths["serving_lora_spec"] = s_counts
+    emit({"engine": f"llama_7b {cfg.dtype} {cfg.num_hidden_layers} layers, speculative K "
+                    f"{SPEC_K}, draft early_exit ({SPEC_DRAFT_LAYERS} layers), adapters rank "
+                    f"{LORA_RANK}", "card": card, "launches": s_counts, **s_nums,
+          "plain_margin_rule": margin, "parted_from_plain_adapter_engine": parted,
+          "capture_s": spec._spec_fn.capture_s, "graph_bytes": spec._spec_fn.graph_bytes,
+          "lora_stats": serving.lora_stats()})
+    del spec, draft
+    gc.collect()
+    return paths
+
+
+SNAPSHOT_ADAPTERS = ("t0", "t0", "t1", None, "t1", None, "t0", "t1")  # phase 3e, by suffix
+
+
+def _snapshot_engine(model, int8):
+    from paddle_tpu_torch.serving import GenerationEngine
+
+    eng = GenerationEngine(model, **ENGINE_KW, **CHAINED["int8"], prefix_cache=True,
+                           **LORA_ENGINE, device=DEVICE)
+    return adopt_verdicts(eng, int8["verdicts"])
+
+
+def _shared_pages(engine):
+    """The blocks the prefix tree holds, and their bytes in every pool."""
+    blocks = sorted(engine._prefix._by_block)
+    return blocks, _pages_of(engine, blocks)
+
+
+def serve_snapshot(card, model, int8):
+    """Phase 3e: snapshot, restore and drain on phase 3's model.  A chained
+    int8 engine (phase 3's int8 verdicts) with the prefix cache and the
+    adapters serves phase 3b's 8 requests sharing the 512-token system
+    prompt (adapters t0, t1 and the base model, SNAPSHOT_ADAPTERS), 4
+    lanes: after two steps it is snapshotted into a temporary directory,
+    then finishes.  It is deleted; ``restore_engine`` builds a fresh
+    engine, which ``warmup()`` captures and which finishes: every stream
+    bit for bit the original's, the shared pages' bytes and the slots'
+    epochs as at the snapshot.  Then a second engine of the same traffic
+    is drained after two steps: ``add_request`` raises, its residents
+    finish, and the engine restored from the drain serves the queued
+    requests; every stream the original's.  Returns the path's launches
+    (every engine of the phase)."""
+    from paddle_tpu_torch import ops, serving
+    from paddle_tpu_torch.serving import restore_engine, snapshot_stats
+
+    cfg = model.config
+    _, prompts = admission_prompts(cfg)
+    reqs = {rid: (p, ad) for (rid, p), ad in zip(prompts.items(), SNAPSHOT_ADAPTERS)}
+    sds = {f"t{i}": lora_adapter(model, 30 + i) for i in range(2)}
+
+    def start():
+        eng = _snapshot_engine(model, int8)
+        for tag, sd in sds.items():
+            eng.register_adapter(tag, sd)
+        eng.warmup()
+        for rid, (p, ad) in reqs.items():
+            eng.add_request(rid, p, max_new_tokens=SERVE_NEW, adapter=ad)
+        eng.step()
+        eng.step()
+        return eng
+
+    def finish(eng):
+        while eng.has_work():
+            eng.step()
+        torch.cuda.synchronize()
+
+    root = Path(tempfile.mkdtemp(prefix="engine-snapshot-"))
+    serving.reset_snapshot_stats()
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    try:
+        engine = start()
+        check(engine.pending_requests() and any(s.active for s in engine._slots),
+              "snapshot: nothing in flight or nothing queued at the snapshot")
+        blocks, shared = _shared_pages(engine)
+        epochs = list(engine._slot_epochs)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step = engine.snapshot(root / "snap")
+        save_ms = (time.perf_counter() - t0) * 1e3
+        snap_bytes = snapshot_stats()["bytes"]
+        finish(engine)
+        want = {rid: engine.result(rid) for rid in reqs}
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        restored = restore_engine(model, root / "snap", device=DEVICE)
+        torch.cuda.synchronize()
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        adopt_verdicts(restored, int8["verdicts"])
+        check(restored._macro_steps == step, f"restored at {restored._macro_steps}, not {step}")
+        differing = sum(int((a != b).sum()) for a, b in zip(shared, _pages_of(restored, blocks)))
+        check(differing == 0, f"snapshot: {differing} bytes of the shared pages differ")
+        check(restored._slot_epochs == epochs and serving.lora_stats()["slots_resident"] == 2,
+              f"snapshot: epochs {restored._slot_epochs} != {epochs}")
+        restored.warmup()
+        finish(restored)
+        got = {rid: restored.result(rid) for rid in reqs}
+        check(got == want, f"restored streams differ from the original's: "
+                           f"{_stream_diff(got, want)}")
+        del restored
+        gc.collect()
+
+        # drain a busy engine: admissions close, its residents finish, the
+        # engine restored from the drain serves its queue
+        engine = start()
+        queued = engine.pending_requests()
+        engine.drain(root / "drain")
+        raised = False
+        try:
+            engine.add_request("late", reqs[queued[0]][0], max_new_tokens=2)
+        except RuntimeError:
+            raised = True
+        check(raised, "drain: add_request did not raise")
+        finish(engine)
+        residents = {rid: engine.result(rid) for rid in reqs if engine.result(rid) is not None}
+        check(set(residents) == set(reqs) - set(queued),
+              f"drain: the drained engine served {sorted(residents)}, queued {queued}")
+        del engine
+        gc.collect()
+        target = adopt_verdicts(restore_engine(model, root / "drain", device=DEVICE),
+                                int8["verdicts"])
+        check(target.pending_requests() == queued, "drain: the queue did not ride the snapshot")
+        target.warmup()
+        finish(target)
+        served = {**residents, **{rid: target.result(rid) for rid in queued}}
+        check(served == want, f"drained and restored streams differ from the undrained "
+                              f"run's: {_stream_diff(served, want)}")
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        stats = snapshot_stats()
+        del target
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    gc.collect()
+    emit({"engine": f"llama_7b {cfg.dtype} {cfg.num_hidden_layers} layers, int8 pools, "
+                    f"prefill_chunk 128, prefix cache, adapters rank {LORA_RANK}", "card": card,
+          "requests": {rid: ad for rid, (_, ad) in reqs.items()}, "snapshot_step": step,
+          "snapshot_bytes": snap_bytes, "save_ms": save_ms, "restore_ms": restore_ms,
+          "save_gb_per_s": snap_bytes / save_ms / 1e6,
+          "restore_gb_per_s": snap_bytes / restore_ms / 1e6,
+          "shared_pages": len(blocks), "shared_page_bytes_differing": 0,
+          "restored_equal_original": True, "drained_equal_undrained": True,
+          "queued_at_drain": queued, "snapshot_stats": stats, "launches": counts,
+          "lora_stats": serving.lora_stats()})
+    return {"serving_snapshot": counts}
+
+
 def train_config():
     """The flagship training configuration of bench.py (its on-accelerator
     branch): full width and depth."""
@@ -2624,7 +3085,64 @@ def train(card):
               "eager_model_flop_share": flops / (eager_ms / 1e3) / BF16_TC_FLOPS,
               "peak_memory_gb": graphed_peak, "eager_peak_memory_gb": eager_peak}
     emit(result)
-    return totals, eager_totals
+    paths = {"training": totals, "training_eager": eager_totals}
+    del step, captured  # phase 4's optimizer state and graph
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths.update(train_lora(card, model, ids, labels, per_step, graphed_ms))
+    return paths
+
+
+LORA_TRAIN_LR = 1e-3  # phase 4b: AdamW over the adapters
+
+
+def train_lora(card, model, ids, labels, per_step, full_step_ms):
+    """Phase 4b: the LoRA fine-tune on phase 4's model.  ``apply_lora``
+    (rank LORA_RANK on every LLaMA projection) freezes the base; TrainStep
+    with AdamW over every parameter trains the adapters alone: 3 eager
+    steps, ``warmup()``, 5 graphed steps.  Every step's launches are
+    phase 4's (the adapters' products launch no kernel of the table), the
+    loss falls, every base parameter holds no grad and stays bit for bit,
+    and the optimizer holds the adapters' state alone.  Returns the
+    graphed and the eager steps' launches."""
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.nn.lora import apply_lora
+    from paddle_tpu_torch.optimizer import AdamW
+
+    base = {n: p.detach().clone() for n, p in model.named_parameters()}
+    apply_lora(model, rank=LORA_RANK, generator=torch.Generator(device=DEVICE).manual_seed(7))
+    adapters = [p for p in model.parameters() if p.requires_grad]
+    step = TrainStep(model, AdamW(learning_rate=LORA_TRAIN_LR, parameters=model.parameters(),
+                                  weight_decay=0.01), _loss_fn)
+    e_losses, eager_ms, eager_totals = _train_steps(step, step._eager_step, ids, labels, 3,
+                                                    per_step, "lora eager")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step.warmup(ids, labels)
+    torch.cuda.synchronize()
+    warmup_s = time.perf_counter() - t0
+    g_losses, graphed_ms, totals = _train_steps(step, step, ids, labels, 5, per_step,
+                                                "lora graphed")
+    losses = e_losses + g_losses
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          f"lora fine-tune: the loss did not fall: {losses}")
+    params = dict(model.named_parameters())
+    moved = [n for n, t in base.items() if params[n].grad is not None
+             or not torch.equal(params[n], t)]
+    check(not moved, f"lora fine-tune: base parameters moved or hold a grad: {moved[:4]}")
+    held = {pid for _, pid in step.optimizer._accumulators}
+    check(held == {id(p) for p in adapters},
+          "lora fine-tune: the optimizer holds state of frozen parameters")
+    n_adapter = sum(p.numel() for p in adapters)
+    emit({"trainer": f"bench.py flagship, apply_lora rank {LORA_RANK}, AdamW lr "
+                     f"{LORA_TRAIN_LR} over the adapters", "card": card,
+          "adapter_parameters": n_adapter, "frozen_parameters": len(base),
+          "losses": losses, "step_ms": graphed_ms, "eager_step_ms": eager_ms,
+          "full_fine_tune_step_ms": full_step_ms, "warmup_s": warmup_s,
+          "launches_per_step": per_step, "base_unchanged": True,
+          "optimizer_state_tensors": len(step.optimizer.opt_state_tensors()),
+          "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9})
+    return {"training_lora": totals, "training_lora_eager": eager_totals}
 
 
 BERT_BATCH, BERT_SEQ = 32, 128   # benchmarks/bench_bert.py's batch for BERT-base
@@ -3069,7 +3587,7 @@ def main() -> int:
     del timer
     gc.collect()  # the 7B engines are gone with serve(); return their memory
     torch.cuda.empty_cache()
-    paths["training"], paths["training_eager"] = train(card)
+    paths.update(train(card))
     gc.collect()
     torch.cuda.empty_cache()
     paths["static_bert"], bert = static_bert(card)

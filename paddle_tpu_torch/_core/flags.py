@@ -168,3 +168,33 @@ define_flag(
     "not ported: the port's Executor raises while it is on (ROADMAP.md "
     "A.5.1)",
 )
+define_flag(
+    "FLAGS_lora_max_adapters",
+    8,
+    "Usable adapter slots in a serving AdapterPack (nn/lora.py): a "
+    "GenerationEngine built with adapters= allocates this many "
+    "hot-swappable LoRA slots plus the reserved slot 0 (the zero adapter, "
+    "the base model).  The geometry is fixed at construction: "
+    "register_adapter/evict_adapter write slot contents in place, so the "
+    "captured decode steps are never recorded again on a swap",
+)
+define_flag(
+    "FLAGS_engine_snapshot_dir",
+    "",
+    "Serving fault tolerance (serving/snapshot.py): directory for live "
+    "GenerationEngine snapshots.  When set, engine.step() calls "
+    "maybe_snapshot() at every macro-step boundary: a pending SIGTERM "
+    "preemption (install_preemption_handler) or the "
+    "FLAGS_engine_snapshot_interval period then commits a restorable "
+    "snapshot through the atomic commit protocol of "
+    "distributed/checkpoint/manager.py.  Empty disables the automatic "
+    "path (explicit engine.snapshot(dir)/drain(dir) calls still work)",
+)
+define_flag(
+    "FLAGS_engine_snapshot_interval",
+    0,
+    "Macro-steps between periodic live-engine snapshots "
+    "(FLAGS_engine_snapshot_dir must be set; 0 = preemption-triggered "
+    "only).  Snapshots are written at macro-step boundaries, never while "
+    "a step runs",
+)

@@ -6,7 +6,8 @@ training loss (``forward(ids, labels=)``) and the
 serving paths the engine runs — the cached prefill
 (``_model_forward_cached``), the paged decode step and the T-token
 paged chunk of the speculative verify (``_decode_layers_paged``,
-``chunk=True``).  Parameter names match the JAX model's
+``chunk=True``), both with the per-row adapter deltas of a multi-tenant
+LoRA pack (``adapters=``, ``nn/lora.py``).  Parameter names match the JAX model's
 ``state_dict`` keys, so ``paddle_tpu_torch.convert.load_jax_state_dict``
 carries weights across.
 
@@ -33,6 +34,7 @@ from paddle_tpu_torch._core.device import resolve_device
 from paddle_tpu_torch.ops import decode_chain as dc
 from paddle_tpu_torch.nn import Embedding, Linear, RMSNorm
 from paddle_tpu_torch.nn import functional as F
+from paddle_tpu_torch.nn.lora import lora_delta
 from paddle_tpu_torch.ops import paged_attention as pa
 
 __all__ = ["LlamaConfig", "LlamaForCausalLM", "LlamaModel", "LlamaDecoderLayer",
@@ -293,7 +295,26 @@ def _model_forward_cached(model: LlamaModel, input_ids, caches, position_offset=
     return model.norm(h), new_caches
 
 
-def _decode_layer_paged(layer, h, cos, sin, kc, vc, tables, lens, chain_cfg=None):
+def _proj_lora(proj, x, ad, name, slots, scaling):
+    """A target projection's output, plus its gathered per-row adapter
+    delta when the pack covers it (``nn.lora.lora_delta``)."""
+    out = proj(x)
+    if ad is not None and name in ad:
+        out = out + lora_delta(x, *ad[name], slots, scaling)
+    return out
+
+
+def _mlp_paged(mlp, x, ad, slots, scaling):
+    """``mlp(x)``, with the adapter deltas on gate_up and down when the
+    pack covers them (``LlamaMLP.forward``'s ops otherwise)."""
+    if ad is None or ("mlp.gate_up_proj" not in ad and "mlp.down_proj" not in ad):
+        return mlp(x)
+    act = ops.swiglu(_proj_lora(mlp.gate_up_proj, x, ad, "mlp.gate_up_proj", slots, scaling))
+    return _proj_lora(mlp.down_proj, act, ad, "mlp.down_proj", slots, scaling)
+
+
+def _decode_layer_paged(layer, h, cos, sin, kc, vc, tables, lens, chain_cfg=None, ad=None,
+                        slots=None, scaling=None):
     """One decoder layer on one new token against the paged KV pools.
 
     h ``[B, 1, D]``; kc/vc pools ``[num_blocks, Nkv, bs, H]`` or QuantPools
@@ -301,15 +322,19 @@ def _decode_layer_paged(layer, h, cos, sin, kc, vc, tables, lens, chain_cfg=None
     including this token.  ``chain_cfg``: an accepted decode-chain config
     (ops/decode_chain.py); the write, write, attend below then runs as one
     kernel.  Only the serving engine passes it, after the measured-win
-    gate.  Returns ``(h', kc, vc)``."""
+    gate.  ``ad`` / ``slots`` / ``scaling``: multi-tenant LoRA, ``ad``
+    mapping target paths to this layer's slot-stacked ``(A [S, in, r], B
+    [S, r, out])``, ``slots [B]`` each row's slot and ``scaling [B]`` its
+    alpha / rank; the projections get their deltas before the chain (slot
+    0 rows add zeros).  Returns ``(h', kc, vc)``."""
     attn = layer.self_attn
     residual = h
     x = layer.input_layernorm(h)
     b = x.shape[0]
     n, nkv, hd = attn.num_heads, attn.num_kv_heads, attn.head_dim
-    qv = attn.q_proj(x).reshape(b, n, hd)
-    kv_ = attn.k_proj(x).reshape(b, nkv, hd)
-    vv = attn.v_proj(x).reshape(b, nkv, hd)
+    qv = _proj_lora(attn.q_proj, x, ad, "self_attn.q_proj", slots, scaling).reshape(b, n, hd)
+    kv_ = _proj_lora(attn.k_proj, x, ad, "self_attn.k_proj", slots, scaling).reshape(b, nkv, hd)
+    vv = _proj_lora(attn.v_proj, x, ad, "self_attn.v_proj", slots, scaling).reshape(b, nkv, hd)
     pos = lens - 1
     qv = pa.rope_rotate_by_position(qv, cos, sin, pos)
     kv_ = pa.rope_rotate_by_position(kv_, cos, sin, pos)
@@ -319,55 +344,64 @@ def _decode_layer_paged(layer, h, cos, sin, kc, vc, tables, lens, chain_cfg=None
         kc = pa.paged_write(kc, kv_, tables, pos)
         vc = pa.paged_write(vc, vv, tables, pos)
         o = pa.paged_decode_attention(qv, kc, vc, tables, lens)
-    x, h = layer.post_attention_layernorm.add_norm(attn.o_proj(o.reshape(b, 1, n * hd)),
-                                                   residual)
-    return h + layer.mlp(x), kc, vc
+    o = _proj_lora(attn.o_proj, o.reshape(b, 1, n * hd), ad, "self_attn.o_proj", slots, scaling)
+    x, h = layer.post_attention_layernorm.add_norm(o, residual)
+    return h + _mlp_paged(layer.mlp, x, ad, slots, scaling), kc, vc
 
 
-def _decode_layer_paged_chunk(layer, h, cos, sin, kc, vc, tables, lens):
+def _decode_layer_paged_chunk(layer, h, cos, sin, kc, vc, tables, lens, ad=None, slots=None,
+                              scaling=None):
     """One decoder layer on a T-token chunk against the paged KV pools (the
     speculative verify).  h ``[B, T, D]``; lens ``[B]`` lengths including
     all T chunk tokens: chunk token j sits at position ``lens - T + j``.
     The chunk's K/V are written in place (int8 pools through the chunk
     write's running-max scales), then every token attends the cache up to
-    its own position.  Returns ``(h', kc, vc)``."""
+    its own position.  ``ad`` / ``slots`` / ``scaling`` as in
+    ``_decode_layer_paged``.  Returns ``(h', kc, vc)``."""
     attn = layer.self_attn
     residual = h
     x = layer.input_layernorm(h)
     b, t = x.shape[0], x.shape[1]
     n, nkv, hd = attn.num_heads, attn.num_kv_heads, attn.head_dim
-    qv = attn.q_proj(x).reshape(b, t, n, hd)
-    kv_ = attn.k_proj(x).reshape(b, t, nkv, hd)
-    vv = attn.v_proj(x).reshape(b, t, nkv, hd)
+    qv = _proj_lora(attn.q_proj, x, ad, "self_attn.q_proj", slots, scaling).reshape(b, t, n, hd)
+    kv_ = _proj_lora(attn.k_proj, x, ad, "self_attn.k_proj", slots,
+                     scaling).reshape(b, t, nkv, hd)
+    vv = _proj_lora(attn.v_proj, x, ad, "self_attn.v_proj", slots,
+                    scaling).reshape(b, t, nkv, hd)
     pos = lens[:, None] - t + torch.arange(t, dtype=lens.dtype, device=lens.device)[None, :]
     qv = pa.rope_rotate_chunk(qv, cos, sin, pos)
     kv_ = pa.rope_rotate_chunk(kv_, cos, sin, pos)
     kc = pa.paged_write_chunk(kc, kv_, tables, pos)
     vc = pa.paged_write_chunk(vc, vv, tables, pos)
     o = pa.paged_chunk_attention(qv, kc, vc, tables, lens)
-    x, h = layer.post_attention_layernorm.add_norm(attn.o_proj(o.reshape(b, t, n * hd)),
-                                                   residual)
-    return h + layer.mlp(x), kc, vc
+    o = _proj_lora(attn.o_proj, o.reshape(b, t, n * hd), ad, "self_attn.o_proj", slots, scaling)
+    x, h = layer.post_attention_layernorm.add_norm(o, residual)
+    return h + _mlp_paged(layer.mlp, x, ad, slots, scaling), kc, vc
 
 
 def _decode_layers_paged(layers, h, cos, sin, kpools, vpools, tables, lens, chain_cfg=None,
-                         chunk=False):
+                         chunk=False, adapters=None, slots=None, scaling=None):
     """Every decoder layer's paged decode step over per-layer pool lists,
     each through the accepted decode-chain config when one is given.
     ``chunk=True`` runs the T-token layer (``_decode_layer_paged_chunk``);
     the decode chain covers the single-token step only, so a
-    ``chain_cfg`` with it raises ``ValueError``.  Returns ``(h, kpools,
-    vpools)``."""
+    ``chain_cfg`` with it raises ``ValueError``.  ``adapters`` maps target
+    paths to the pack's ``(A [L, S, in, r], B [L, S, r, out])``; each layer
+    reads its slice, with ``slots [B]`` and ``scaling [B]`` a row.
+    Returns ``(h, kpools, vpools)``."""
     if chunk and chain_cfg is not None:
         raise ValueError("decode-chain fusion covers the single-token step only; "
                          "chunked/verify paths must not pass chain_cfg")
     new_k, new_v = [], []
-    for layer, kc, vc in zip(layers, kpools, vpools):
+    for li, (layer, kc, vc) in enumerate(zip(layers, kpools, vpools)):
+        ad = (None if adapters is None else
+              {t: (a[li], b[li]) for t, (a, b) in adapters.items()})
         if chunk:
-            h, kc, vc = _decode_layer_paged_chunk(layer, h, cos, sin, kc, vc, tables, lens)
+            h, kc, vc = _decode_layer_paged_chunk(layer, h, cos, sin, kc, vc, tables, lens,
+                                                  ad, slots, scaling)
         else:
             h, kc, vc = _decode_layer_paged(layer, h, cos, sin, kc, vc, tables, lens,
-                                            chain_cfg)
+                                            chain_cfg, ad, slots, scaling)
         new_k.append(kc)
         new_v.append(vc)
     return h, new_k, new_v

@@ -32,7 +32,10 @@ __all__ = [
     "paged_decode_attention",
     "paged_chunk_attention",
     "pool_nbytes",
+    "pool_device_nbytes",
     "pool_parts",
+    "pool_state_dict",
+    "pool_from_state",
     "pool_get_blocks",
     "pool_set_blocks",
     "rope_rotate_chunk",
@@ -89,6 +92,32 @@ def pool_parts(cache):
     if isinstance(cache, QuantPool):
         return [("payload", cache.data), ("scale", cache.scale)]
     return [("payload", cache)]
+
+
+def pool_device_nbytes(cache):
+    """Per-device resident bytes of a paged pool.  The port serves on one
+    card (tensor-parallel pools are ROADMAP.md A.6), so this is
+    ``pool_nbytes``."""
+    return pool_nbytes(cache)
+
+
+def pool_state_dict(prefix, cache):
+    """Flat ``{f"{prefix}.{part}": tensor}`` view of a paged pool's leaves
+    (the snapshot's names): a QuantPool gives its payload and its scales,
+    so an int8 pool round-trips bit-exactly."""
+    return {f"{prefix}.{name}": t for name, t in pool_parts(cache)}
+
+
+def pool_from_state(template, fetch, prefix=""):
+    """The inverse of ``pool_state_dict``: a pool shaped like ``template``
+    from ``fetch(f"{prefix}.{part}", template_leaf)`` a leaf.  ``fetch``
+    returns the restored leaf; an engine restoring a snapshot copies into
+    the template's own leaf and returns it, so its pools keep their
+    addresses (a captured step reads them there)."""
+    if isinstance(template, QuantPool):
+        return QuantPool(fetch(f"{prefix}.payload", template.data),
+                         fetch(f"{prefix}.scale", template.scale))
+    return fetch(f"{prefix}.payload", template)
 
 
 def pool_get_blocks(cache, block_ids):

@@ -37,29 +37,44 @@ steps).  And the admission half of the serving features (ROADMAP.md A.2):
   per-lane greedy acceptance (``spec_stats``).  Spec lanes are greedy
   only; as in the JAX package, spec engines admit atomically, never
   preempt, refuse ``adopt_pages`` and run no decode chain.
+And the second half (ROADMAP.md A.2.1-A.2.2):
+- multi-tenant LoRA (``adapters=``, ``nn/lora.py``'s ``AdapterPack``):
+  ``register_adapter`` installs an adapter into a pack slot (LRU over idle
+  slots), ``add_request(adapter=)`` serves a request through it (the
+  prefill through forward hooks, the decode step and the speculative
+  verify through each row's gathered delta; the draft proposes base-model
+  tokens), the prefix tree is namespaced by ``(slot, epoch)``, and
+  ``evict_adapter`` / re-registration bump the slot's epoch, which drops
+  its cached subtree; ``lora_stats``;
+- fault tolerance (``serving/snapshot.py``): ``snapshot(dir)``,
+  ``maybe_snapshot`` (at every boundary when ``FLAGS_engine_snapshot_dir``
+  is set), the SIGTERM preemption handler, and ``drain(dir)``, which
+  demotes PREFILLING and parked requests to the queue, snapshots and
+  closes admissions; ``restore_engine`` builds an engine from a snapshot.
 
 In JAX the D-token macro-step is one ``lax.scan`` inside a jitted program,
 compiled once per D.  Here its body reads fixed device buffers (tokens,
-tables, lens, max_lens, done, temperatures, keys and counters, filled by
-one copy from a pinned host area at every ``step()``), the pools and the
-weights, and is recorded once per D as a CUDA graph (``_core/graphs.py``)
-that every ``step()`` replays, with one device-to-host copy of the
-``[B, D]`` tokens.  On the CPU the same body runs eagerly.  Admission,
-prefill chunks, pours, parking and adoption run eagerly between replays,
-as in the JAX package, and write the pools in place, so the next replay
-reads their bytes.  A speculative tick is recorded the same way, once an
-engine at its first tick: the draft loop (each draft argmax feeding the
-next draft step on the device, lens grown in-graph from one base), then
-the verify, with one device-to-host copy of the proposals and the
-predictions, where the JAX package compiles the draft step and the
-verify as two programs and reads each back.  Options of the JAX engine
-that this package does not port yet raise ``NotImplementedError`` naming
-their ROADMAP item: ``mesh=`` (A.6), ``adapters=`` / ``adapter=``,
-``snapshot()`` and ``drain()`` (A.2).
+tables, lens, max_lens, done, temperatures, keys and counters, adapter
+slots, filled by one copy from a pinned host area at every ``step()``),
+the pools, the adapter pack and the weights, and is recorded once per D
+as a CUDA graph (``_core/graphs.py``) that every ``step()`` replays, with
+one device-to-host copy of the ``[B, D]`` tokens.  On the CPU the same
+body runs eagerly.  Admission, prefill chunks, pours, parking, adoption,
+adapter installs and snapshot restores run eagerly between replays, as in
+the JAX package, and write the pools and the pack in place, so the next
+replay reads their bytes: a hot swap records nothing again.  A
+speculative tick is recorded the same way, once an engine at its first
+tick: the draft loop (each draft argmax feeding the next draft step on
+the device, lens grown in-graph from one base), then the verify, with one
+device-to-host copy of the proposals and the predictions, where the JAX
+package compiles the draft step and the verify as two programs and reads
+each back.  Tensor-parallel serving (``mesh=``) is not ported yet and
+raises ``NotImplementedError`` naming ROADMAP.md A.6.
 """
 
 from __future__ import annotations
 
+import contextlib
 import heapq
 import time
 import weakref
@@ -80,9 +95,10 @@ from paddle_tpu_torch.ops import paged_attention as pa
 from . import sampling
 
 __all__ = ["GenerationEngine", "RadixPrefixCache", "decode_stats", "reset_decode_stats",
-           "schedule_decode_stats", "reset_schedule_decode_stats"]
+           "schedule_decode_stats", "reset_schedule_decode_stats", "lora_stats",
+           "reset_lora_stats", "EngineSnapshot", "restore_engine", "snapshot_stats",
+           "reset_snapshot_stats"]
 
-_SERVING_ITEM = "ROADMAP.md A.2 (serving features)"
 _DIST_ITEM = "ROADMAP.md A.6 (distributed)"
 
 
@@ -145,6 +161,39 @@ def reset_decode_stats():
         if k == "parked_requests":
             continue  # a gauge of live engine state, not traffic
         _DECODE_STATS[k] = "" if isinstance(v, str) else 0.0 if isinstance(v, float) else 0
+
+
+# Multi-tenant LoRA counters (the JAX package's keys): slots_resident and
+# slots_total are gauges of the latest adapter engine's pack (a reset
+# leaves them); swaps = installs into a slot (re-registrations and LRU
+# re-installs included); evictions = slots vacated (explicit or LRU);
+# gather_dispatches = decode steps and verifies that gathered per-row
+# adapter rows; cache_epochs = slot epoch bumps (each drops that slot's
+# prefix subtree); ship_ns_drops = adopted pages dropped for a stale
+# (slot, epoch) namespace.
+_LORA_STATS = {
+    "slots_resident": 0,
+    "slots_total": 0,
+    "swaps": 0,
+    "evictions": 0,
+    "gather_dispatches": 0,
+    "cache_epochs": 0,
+    "ship_ns_drops": 0,
+}
+
+
+def lora_stats(reset: bool = False) -> dict:
+    """The multi-tenant LoRA counters (zeros when no adapter engine ran)."""
+    out = dict(_LORA_STATS)
+    if reset:
+        reset_lora_stats()
+    return out
+
+
+def reset_lora_stats():
+    for k in _LORA_STATS:
+        if k not in ("slots_resident", "slots_total"):  # gauges of live engine state
+            _LORA_STATS[k] = 0
 
 
 # Serving-chain counters of the schedule search: found = engines that
@@ -231,6 +280,7 @@ class _Slot:
     priority: int = 1         # _PRIORITY class (2 = LOW = preemptible)
     req: object = None        # the submission (preemption keeps it)
     prefill: object = None    # _PrefillState while PREFILLING, else None
+    adapter_slot: int = 0     # the request's adapter pack slot (0 = the base model)
 
 
 class _PoolExhausted(RuntimeError):
@@ -368,11 +418,11 @@ class RadixPrefixCache:
 
 
 # the step's input row of a lane, one int64 each: the last token, the W
-# block-table entries, then these columns
-_LEN, _MAX_LEN, _DONE, _KEY, _COUNTER, _TEMP = range(6)
+# block-table entries, then these columns (_SLOT: the adapter pack slot)
+_LEN, _MAX_LEN, _DONE, _KEY, _COUNTER, _TEMP, _SLOT = range(7)
 # a speculative tick's row: the last token, the W table entries, then the
-# target's and the draft's pool coverage
-_SEQ, _DSEQ = range(2)
+# target's and the draft's pool coverage and the adapter pack slot
+_SEQ, _DSEQ, _SPEC_SLOT = range(3)
 
 
 def _check_in_place(written, pools):
@@ -413,8 +463,11 @@ class GenerationEngine:
     ``prefix_cache`` (None -> FLAGS_prefix_cache) turns on the radix
     prefix cache; ``prefill_chunk_blocks`` (None -> the flag, read at each
     use) > 0 interleaves prefill with decode, that many one-block chunks a
-    step.  ``device=None`` means the CUDA card and raises without one; the
-    model must lie on the engine's device.
+    step.  ``adapters``: an int rank, an ``AdapterPack`` config dict
+    (``rank``, ``alpha``, ``max_adapters``, ``targets``) or an
+    ``AdapterPack`` serves multi-tenant LoRA.  ``device=None`` means the
+    CUDA card and raises without one; the model must lie on the engine's
+    device.
     """
 
     def __init__(self, model, max_batch=4, block_size=16, num_blocks=128,
@@ -424,8 +477,6 @@ class GenerationEngine:
                  prefill_chunk_blocks=None, device=None):
         if mesh is not None:
             raise _not_ported("tensor-parallel serving (mesh=)", _DIST_ITEM)
-        if adapters is not None:
-            raise _not_ported("multi-tenant LoRA serving (adapters=)", _SERVING_ITEM)
         if prefill_chunk is not None and int(prefill_chunk) < 1:
             raise ValueError("prefill_chunk must be a positive token count")
         if prefill_chunk_blocks is not None and int(prefill_chunk_blocks) < 0:
@@ -484,7 +535,16 @@ class GenerationEngine:
         self._pending: deque = deque()
         self._parked: dict = {}   # rid -> parked record (preempted LOW requests)
         self._submit_seq = 0      # admission order within a class
-        self._macro_steps = 0     # macro-step boundaries passed
+        self._macro_steps = 0     # macro-step boundaries passed (snapshot step tags)
+        # fault tolerance (serving/snapshot.py)
+        self._last_auto_snapshot = 0  # the boundary of the last periodic snapshot
+        self._snapshot_store = None   # one EngineSnapshot for the last directory
+        self._draining = False        # drain(): admissions closed
+        self._drain_step = None       # the committed handoff step
+        self._drain_dir = None        # and its directory
+        self._preempt_requested = False
+        self._preempt_saved = False
+        self._prev_handlers: dict = {}
         self._scratch = [self._num_blocks + i for i in range(self.max_batch)]
         self._slots = [_Slot() for _ in range(self.max_batch)]
         self._results: dict = {}
@@ -496,7 +556,7 @@ class GenerationEngine:
         # the macro-step's inputs: one int64 row a lane (_LEN ...), staged
         # on the host (pinned on the card) and copied to the device buffer
         # the captured steps read; temperatures travel as float32 bits
-        cols = 1 + self._max_blocks_per_seq + (6 if draft_model is None else 2)
+        cols = 1 + self._max_blocks_per_seq + (7 if draft_model is None else 3)
         self._stage = torch.zeros((self.max_batch, cols), dtype=torch.int64,
                                   pin_memory=self.device.type == "cuda")
         self._inputs = torch.zeros_like(self._stage, device=self.device)
@@ -507,9 +567,42 @@ class GenerationEngine:
         self.decode_decision = self.prefill_decision = None
         self._decode_chain_cfg = _CHAIN_UNSET
         self._prefill_chain_cfg = _CHAIN_UNSET
+        # the multi-tenant LoRA tier: the slot-stacked pack, written in
+        # place by installs (the captured steps read it at fixed addresses)
+        self._pack = None
+        if adapters is not None:
+            self._init_pack(model, adapters)
         _ENGINES.add(self)
-        _DECODE_STATS["pool_bytes"] = _DECODE_STATS["pool_bytes_per_device"] = self.pool_bytes()
+        _DECODE_STATS["pool_bytes"] = self.pool_bytes()
+        _DECODE_STATS["pool_bytes_per_device"] = sum(pa.pool_device_nbytes(p)
+                                                      for p in self._all_pools())
         _DECODE_STATS["mesh_shape"] = ""
+
+    def _init_pack(self, model, adapters):
+        from paddle_tpu_torch.nn.lora import AdapterPack
+
+        if isinstance(adapters, AdapterPack):
+            pack = adapters
+        elif isinstance(adapters, int) and not isinstance(adapters, bool):
+            pack = AdapterPack(model, rank=adapters)
+        elif isinstance(adapters, dict):
+            pack = AdapterPack(model, **adapters)
+        else:
+            raise TypeError("adapters must be an int rank, a config dict, or an "
+                            f"nn.AdapterPack; got {type(adapters).__name__}")
+        if pack.device != self.device:
+            raise ValueError(f"the adapter pack lies on {pack.device}, the engine runs on "
+                             f"{self.device}")
+        self._pack = pack
+        S = pack.num_slots
+        self._adapter_registry: dict = {}  # name -> (host arrays, alpha)
+        self._slot_names = [None] * S      # slot -> installed adapter name
+        self._slot_epochs = [0] * S        # bumped at every content change
+        self._slot_refs = [0] * S          # requests in flight on each slot
+        self._slot_used = [0] * S          # LRU clock marks
+        self._slot_clock = 0
+        _LORA_STATS["slots_total"] = S - 1
+        _LORA_STATS["slots_resident"] = 0
 
     def _alloc_pools(self, cfg, total):
         """Per-layer K and V pools of ``cfg``'s geometry: ``total`` pages
@@ -535,8 +628,11 @@ class GenerationEngine:
 
     # ------------------------------------------------------------ requests
     def has_work(self):
+        """Active or PREFILLING lanes, queued or parked requests.  A
+        draining engine's queue is not its work: it rode the drain
+        snapshot and belongs to the restore target."""
         return (any(s.active or s.prefill is not None for s in self._slots)
-                or bool(self._pending) or bool(self._parked))
+                or ((bool(self._pending) or bool(self._parked)) and not self._draining))
 
     def pending_requests(self):
         """Request ids queued for admission; they retry at the next
@@ -555,11 +651,130 @@ class GenerationEngine:
     def result(self, rid):
         return self._results.get(rid)
 
-    def snapshot(self, *args, **kwargs):
-        raise _not_ported("engine snapshots", _SERVING_ITEM)
+    # ---------------------------------------------------- adapter registry
+    def _require_pack(self):
+        if self._pack is None:
+            raise RuntimeError("this engine was built without adapters=; pass "
+                               "GenerationEngine(adapters=rank_or_config) to serve "
+                               "multi-tenant LoRA")
+        return self._pack
 
-    def drain(self, *args, **kwargs):
-        raise _not_ported("engine drain", _SERVING_ITEM)
+    def _ns(self, ad_slot):
+        """The prefix tree namespace of an adapter slot: ``(slot, epoch)``
+        on adapter engines, None otherwise."""
+        return None if self._pack is None else (ad_slot, self._slot_epochs[ad_slot])
+
+    def _adapter_scope(self, ad_slot):
+        """The adapter prefill hooks of ``ad_slot`` (none for slot 0 or
+        without a pack)."""
+        if self._pack is None or not ad_slot:
+            return contextlib.nullcontext()
+        from paddle_tpu_torch.nn.lora import adapter_prefill_scope
+
+        return adapter_prefill_scope(self.model.model.layers, self._pack, ad_slot)
+
+    def _slot_of(self, name):
+        return next((s for s, n in enumerate(self._slot_names) if n == name), None)
+
+    def _touch_slot(self, slot):
+        self._slot_clock += 1
+        self._slot_used[slot] = self._slot_clock
+
+    def _bump_epoch(self, slot):
+        """Make ``slot``'s prefix subtree unreachable (its old ``(slot,
+        epoch)`` namespace is dropped, its refcount-zero pages freed now)."""
+        if self._prefix is not None:
+            self._free.extend(self._prefix.drop_subtree((slot, self._slot_epochs[slot]),
+                                                        self._ref))
+        self._slot_epochs[slot] += 1
+        _LORA_STATS["cache_epochs"] += 1
+
+    def _resident_count(self):
+        return sum(1 for n in self._slot_names[1:] if n is not None)
+
+    def register_adapter(self, name, state_dict, alpha=None):
+        """Register a LoRA adapter (an adapter-only state dict, as
+        ``nn.lora_state_dict`` gives it, torch tensors or arrays) and
+        install it into a free or LRU-reclaimable pack slot.  Returns the
+        slot, or None when every slot serves requests in flight: the
+        adapter stays registered and installs when one of its requests is
+        admitted (requests queue on slot exhaustion, never raise).  An
+        install writes the pack in place, so the captured steps serve it
+        at their next replay.  ``alpha`` defaults to the pack's.
+        Re-registering a resident name writes the new weights into its
+        slot and bumps its epoch; it raises while the adapter has active
+        requests."""
+        pack = self._require_pack()
+        from paddle_tpu_torch.nn.lora import parse_adapter_state_dict
+
+        arrays = parse_adapter_state_dict(state_dict, pack.num_layers, pack.targets, pack.rank)
+        slot = self._slot_of(name)
+        if slot is not None:
+            if self._slot_refs[slot] > 0:
+                raise RuntimeError(f"adapter {name!r} has in-flight requests; re-registering "
+                                   "would change their weights mid-stream; drain them first")
+            self._adapter_registry[name] = (arrays, alpha)
+            self._bump_epoch(slot)
+            pack.set_slot(slot, arrays, alpha)
+            self._touch_slot(slot)
+            _LORA_STATS["swaps"] += 1
+            return slot
+        self._adapter_registry[name] = (arrays, alpha)
+        return self._try_install(name)
+
+    def _try_install(self, name):
+        """Make ``name`` resident: its slot, a free one, or the least
+        recently used idle one (never a slot with requests in flight).
+        Returns the slot, or None when every slot is busy."""
+        slot = self._slot_of(name)
+        if slot is not None:
+            self._touch_slot(slot)
+            return slot
+        arrays, alpha = self._adapter_registry[name]
+        S = self._pack.num_slots
+        free = next((s for s in range(1, S) if self._slot_names[s] is None), None)
+        if free is None:
+            idle = [s for s in range(1, S) if self._slot_refs[s] == 0]
+            if not idle:
+                return None
+            free = min(idle, key=lambda s: self._slot_used[s])
+            self._slot_names[free] = None
+            _LORA_STATS["evictions"] += 1
+        # the install writes every target (omitted ones zero); the epoch
+        # bump first strands the old contents' cached subtree
+        self._bump_epoch(free)
+        self._pack.set_slot(free, arrays, alpha)
+        self._slot_names[free] = name
+        self._touch_slot(free)
+        _LORA_STATS["swaps"] += 1
+        _LORA_STATS["slots_resident"] = self._resident_count()
+        return free
+
+    def evict_adapter(self, name):
+        """Unregister ``name`` and zero its slot (its prefix subtree
+        dropped).  Raises while the adapter has requests active or queued;
+        an unregistered name raises ``KeyError``."""
+        self._require_pack()
+        if name not in self._adapter_registry:
+            raise KeyError(f"adapter {name!r} is not registered")
+        slot = self._slot_of(name)
+        in_flight = slot is not None and self._slot_refs[slot] > 0
+        if in_flight or any(r.get("adapter") == name for r in self._pending):
+            raise RuntimeError(f"adapter {name!r} has in-flight requests "
+                               f"({'active' if in_flight else 'queued'}); drain them before "
+                               "evicting")
+        del self._adapter_registry[name]
+        if slot is not None:
+            self._slot_names[slot] = None
+            self._bump_epoch(slot)
+            self._pack.clear_slot(slot)
+            _LORA_STATS["evictions"] += 1
+            _LORA_STATS["slots_resident"] = self._resident_count()
+
+    def adapter_slots(self):
+        """``{adapter name: slot}`` of the resident adapters."""
+        self._require_pack()
+        return {n: s for s, n in enumerate(self._slot_names) if n is not None}
 
     # ----------------------------------------------------------- allocator
     def _alloc(self, n):
@@ -595,6 +810,9 @@ class GenerationEngine:
 
     def _release(self, slot):
         self._unref(slot.blocks)
+        if self._pack is not None:
+            self._slot_refs[slot.adapter_slot] -= 1
+        slot.adapter_slot = 0
         slot.blocks = []
         slot.active = False
         slot.rid = None
@@ -623,9 +841,14 @@ class GenerationEngine:
         past it), so a queued, preempted or re-dispatched request draws the
         stream it would have drawn at once.  ``priority``: "high",
         "normal" or "low"; LOW requests may be preempted
-        (``FLAGS_preempt_low_priority``)."""
-        if adapter is not None:
-            raise _not_ported("LoRA adapters (adapter=)", _SERVING_ITEM)
+        (``FLAGS_preempt_low_priority``).  ``adapter``: the name of a
+        registered adapter (``register_adapter``), None for the base
+        model; when no pack slot can take it now the request queues, and
+        an unregistered name raises ``KeyError``.  A draining engine
+        raises ``RuntimeError``."""
+        if self._draining:
+            raise RuntimeError("engine is draining (drain(): snapshot taken, admissions "
+                               "closed); submit to the restored engine instead")
         if self.draft_model is not None and float(temperature or 0.0) > 0.0:
             # before any allocation: a refused request holds nothing
             raise ValueError("speculative decoding slots are greedy-only (sampled "
@@ -639,6 +862,11 @@ class GenerationEngine:
         if n_blocks > self._max_blocks_per_seq:
             raise RuntimeError(f"request needs {n_blocks} blocks > per-seq table width "
                                f"{self._max_blocks_per_seq}")
+        if adapter is not None:
+            self._require_pack()
+            if adapter not in self._adapter_registry:
+                raise KeyError(f"adapter {adapter!r} is not registered on this engine; call "
+                               "register_adapter first")
         if priority not in _PRIORITY:
             raise ValueError(f"priority must be one of {sorted(_PRIORITY)}, got {priority!r}")
         if nonce is None:
@@ -649,7 +877,7 @@ class GenerationEngine:
             self._req_counter = max(self._req_counter, nonce + 1)
         req = {"rid": rid, "prompt": prompt, "max_len": max_len, "n_blocks": n_blocks,
                "temperature": float(temperature or 0.0), "seed": int(seed), "nonce": nonce,
-               "pri": _PRIORITY[priority], "seq": self._submit_seq}
+               "adapter": adapter, "pri": _PRIORITY[priority], "seq": self._submit_seq}
         self._submit_seq += 1
         if self._prefill_chunk_blocks() > 0:
             # interleaved: admission happens at boundaries only
@@ -718,14 +946,23 @@ class GenerationEngine:
     def _free_slot(self):
         return next((s for s in self._slots if not s.active and s.prefill is None), None)
 
-    def _reserve(self, req):
-        """Match the prompt in the prefix cache (referencing the matched
-        pages) and take fresh blocks for the rest.  Returns (matched,
-        fresh), or None with nothing held when the pool is short."""
+    def _install_for(self, req):
+        """The pack slot of the request's adapter, installed now if it
+        must be (0 for the base model); None when no slot is free."""
+        if self._pack is None or req.get("adapter") is None:
+            return 0
+        return self._try_install(req["adapter"])
+
+    def _reserve(self, req, ns):
+        """Match the prompt in the prefix cache under namespace ``ns``
+        (referencing the matched pages) and take fresh blocks for the
+        rest.  Returns (matched, fresh), or None with nothing held when the
+        pool is short."""
         matched = []
         if self._prefix is not None:
             s0 = req["prompt"].shape[1]
-            matched = self._prefix.match(_tokens(req), max_blocks=(s0 - 1) // self.block_size)
+            matched = self._prefix.match(_tokens(req), max_blocks=(s0 - 1) // self.block_size,
+                                         ns=ns)
             for b in matched:
                 self._ref[b] += 1
         try:
@@ -744,7 +981,12 @@ class GenerationEngine:
         slot = self._free_slot()
         if slot is None:
             return False
-        got = self._reserve(req)
+        # the adapter holds a pack slot before the prefill: its deltas
+        # feed the K/V the prefill pours
+        ad_slot = self._install_for(req)
+        if ad_slot is None:
+            return False
+        got = self._reserve(req, self._ns(ad_slot))
         if got is None:
             return False
         matched, fresh = got
@@ -756,25 +998,30 @@ class GenerationEngine:
         try:
             caches = self._prefix_or_empty(matched, m_len)
             ids = torch.as_tensor(prompt, device=self.device)
-            if self.prefill_chunk is None or s0 - m_len <= self.prefill_chunk:
-                h, caches = _model_forward_cached(mm, ids[:, m_len:], caches, m_len)
-            else:
-                # fixed-size chunks through the cached forward (bottom-right
-                # causal against the cache so far) cap the activations of a
-                # long prompt; an accepted prefill-chain config runs each
-                # chunk it tiles as its kernel
-                with prefill_chain_scope(self._resolve_prefill_chain()):
-                    for off in range(m_len, s0, self.prefill_chunk):
-                        h, caches = _model_forward_cached(
-                            mm, ids[:, off:off + self.prefill_chunk], caches, off)
-            logits_last = self.model._logits(h[:, -1:, :])[0, -1, :]
+            # an adapter request prefills through its adapter (forward
+            # hooks on the pack's targets), so the poured K/V is what the
+            # adapted model caches
+            with self._adapter_scope(ad_slot):
+                if self.prefill_chunk is None or s0 - m_len <= self.prefill_chunk:
+                    h, caches = _model_forward_cached(mm, ids[:, m_len:], caches, m_len)
+                else:
+                    # fixed-size chunks through the cached forward
+                    # (bottom-right causal against the cache so far) cap
+                    # the activations of a long prompt; an accepted
+                    # prefill-chain config runs each chunk it tiles as its
+                    # kernel
+                    with prefill_chain_scope(self._resolve_prefill_chain()):
+                        for off in range(m_len, s0, self.prefill_chunk):
+                            h, caches = _model_forward_cached(
+                                mm, ids[:, off:off + self.prefill_chunk], caches, off)
+                logits_last = self.model._logits(h[:, -1:, :])[0, -1, :]
             # the suffix's K/V into this request's own pages: the matched
             # pages are shared and never written
             self._pour(caches, blocks, s0, start_tok=m_len)
             if self.draft_model is not None:
-                # the draft prefills the same suffix whole, into its pools
-                # (a cached page holds both pool sets: every admission that
-                # inserted it poured both)
+                # the draft prefills the same suffix whole, into its pools,
+                # with the base model (a cached page holds both pool sets:
+                # every admission that inserted it poured both)
                 d_caches = self._prefix_or_empty(matched, m_len, draft=True)
                 _, d_caches = _model_forward_cached(self.draft_model.model, ids[:, m_len:],
                                                     d_caches, m_len)
@@ -785,8 +1032,17 @@ class GenerationEngine:
             self._unref(matched)
             raise
         slot.blocks = blocks
+        self._hold_adapter(slot, ad_slot)
         self._commit(slot, req, logits_last, len(matched))
         return True
+
+    def _hold_adapter(self, slot, ad_slot):
+        """The lane serves through ``ad_slot``: an in-flight reference pins
+        the pack slot (LRU installs and ``evict_adapter`` refuse it)."""
+        slot.adapter_slot = ad_slot
+        if self._pack is not None:
+            self._slot_refs[ad_slot] += 1
+            self._touch_slot(ad_slot)
 
     def _commit(self, slot, req, logits_last, n_matched):
         """The lane becomes active: its first token (argmax, or sampled at
@@ -816,7 +1072,8 @@ class GenerationEngine:
         if self._prefix is not None:
             # full prompt blocks become shared pages; the partial tail block
             # stays private (copy on write)
-            self._prefix.insert(_tokens(req), slot.blocks[:s0 // self.block_size])
+            self._prefix.insert(_tokens(req), slot.blocks[:s0 // self.block_size],
+                                ns=self._ns(slot.adapter_slot))
             if n_matched:
                 _DECODE_STATS["prefix_hits"] += 1
                 _DECODE_STATS["prefix_hit_tokens"] += n_matched * self.block_size
@@ -840,7 +1097,10 @@ class GenerationEngine:
         slot = self._free_slot()
         if slot is None:
             return False
-        got = self._reserve(req)
+        ad_slot = self._install_for(req)
+        if ad_slot is None:
+            return False
+        got = self._reserve(req, self._ns(ad_slot))
         if got is None:
             return False
         matched, fresh = got
@@ -855,6 +1115,7 @@ class GenerationEngine:
         slot.blocks = matched + fresh
         slot.priority = req["pri"]
         slot.req = req
+        self._hold_adapter(slot, ad_slot)
         slot.prefill = _PrefillState(req=req, caches=caches, matched=list(matched),
                                      fresh=list(fresh), off=m_len, poured=len(matched),
                                      since=self._macro_steps)
@@ -907,7 +1168,8 @@ class GenerationEngine:
         s0 = prompt.shape[1]
         bs = self.block_size
         try:
-            with prefill_chain_scope(self._resolve_prefill_chain()):
+            with prefill_chain_scope(self._resolve_prefill_chain()), \
+                    self._adapter_scope(slot.adapter_slot):
                 ids = torch.as_tensor(prompt[:, st.off:st.off + bs], device=self.device)
                 st.h, st.caches = _model_forward_cached(self.model.model, ids, st.caches,
                                                         st.off)
@@ -917,7 +1179,8 @@ class GenerationEngine:
                 self._pour_block(slot, st.poured)
                 st.poured += 1
             if self._prefix is not None and st.poured > len(st.matched):
-                self._prefix.insert(_tokens(st.req)[:st.poured * bs], slot.blocks[:st.poured])
+                self._prefix.insert(_tokens(st.req)[:st.poured * bs], slot.blocks[:st.poured],
+                                    ns=self._ns(slot.adapter_slot))
             if st.off < s0:
                 return False
             self._finish_prefill(slot)
@@ -955,6 +1218,9 @@ class GenerationEngine:
         st = slot.prefill
         self._unref(st.fresh)
         self._unref(st.matched)
+        if self._pack is not None:
+            self._slot_refs[slot.adapter_slot] -= 1
+        slot.adapter_slot = 0
         slot.blocks = []
         slot.rid = None
         slot.req = None
@@ -972,8 +1238,9 @@ class GenerationEngine:
             return False
         if self.draft_model is not None:
             return False  # parking ships the target's pages only
-        victims = [s for s in self._slots
-                   if s.active and s.priority >= _PRIORITY["low"] and s.req is not None]
+        # a parked record carries no adapter: only base-model lanes park
+        victims = [s for s in self._slots if s.active and s.priority >= _PRIORITY["low"]
+                   and s.adapter_slot == 0 and s.req is not None]
         if victims:
             self._park_request(min(victims,
                                    key=lambda s: (len(s.generated), self._slots.index(s))))
@@ -1005,6 +1272,7 @@ class GenerationEngine:
         if slot is None or not unpark_request_state(self, slot, self._parked[rid]):
             return False
         del self._parked[rid]
+        self._hold_adapter(slot, 0)
         self._results[rid] = slot.generated  # a live stream aliases its lane's list
         _DECODE_STATS["preempt_readmits"] += 1
         _DECODE_STATS["parked_requests"] = len(self._parked)
@@ -1069,8 +1337,14 @@ class GenerationEngine:
         keep their pages.  Best effort: under pool pressure, or with the
         prefix already cached, fewer (maybe no) blocks are adopted;
         returns how many.  Needs the prefix cache (RuntimeError); a page
-        kind or geometry other than the pool's raises ValueError, as does
-        an adapter namespace ``ns`` (no adapters here)."""
+        kind or geometry other than the pool's raises ValueError.
+
+        ``ns`` is the sender's ``(slot, epoch)`` adapter namespace, pinned
+        when the pages were shipped: on an adapter engine they land in that
+        namespace (``ns=None`` is slot 0's, the base model's).  A stale
+        epoch (the slot was re-registered or evicted since) drops the
+        pages, counts ``lora_stats()["ship_ns_drops"]`` and returns 0; a
+        namespace on an engine without adapters raises ValueError."""
         if self._prefix is None:
             raise RuntimeError("adopt_pages needs the prefix cache: adopted pages are "
                                "delivered as cached prefixes (prefix_cache=True)")
@@ -1078,10 +1352,22 @@ class GenerationEngine:
             raise RuntimeError("adopt_pages on a speculative engine is not supported: "
                                "shipped pages cover the target pools only, and a "
                                "draft-pool-less prefix would desynchronize d_seq_len")
-        if ns is not None:
-            raise ValueError(f"adopt_pages got adapter namespace ns={tuple(ns)} but this "
-                             "engine serves no adapters: adapter-poured K/V must never "
-                             "enter a base engine's prefix cache")
+        if self._pack is None:
+            if ns is not None:
+                raise ValueError(f"adopt_pages got adapter namespace ns={tuple(ns)} but this "
+                                 "engine was built without adapters=: adapter-poured K/V "
+                                 "must never enter a base engine's prefix cache")
+        else:
+            slot, epoch = ((0, self._slot_epochs[0]) if ns is None
+                           else (int(ns[0]), int(ns[1])))
+            if not 0 <= slot < self._pack.num_slots:
+                raise ValueError(f"adopt_pages namespace slot {slot} out of range "
+                                 f"[0, {self._pack.num_slots}) for this engine's pack")
+            if epoch != self._slot_epochs[slot]:
+                # K/V of weights this engine no longer serves: never cached
+                _LORA_STATS["ship_ns_drops"] += 1
+                return 0
+            ns = (slot, epoch)
         if len(k_blocks) != self._n_layers or len(v_blocks) != self._n_layers:
             raise ValueError(f"adopted pages cover {len(k_blocks)}/{len(v_blocks)} layers; "
                              f"this engine has {self._n_layers}")
@@ -1100,7 +1386,7 @@ class GenerationEngine:
         n_wire = int(k_blocks[0]["payload"].shape[0])
         toks = [int(t) for t in np.asarray(prompt_ids).reshape(-1)]
         n = min(n_wire, len(toks) // bs)
-        matched = self._prefix.match(toks[:n * bs])
+        matched = self._prefix.match(toks[:n * bs], ns=ns)
         start = len(matched)
         if start >= n:
             return 0
@@ -1114,8 +1400,121 @@ class GenerationEngine:
             for pool, pages in ((self._kpools[li], k_blocks[li]),
                                 (self._vpools[li], v_blocks[li])):
                 pa.pool_set_blocks(pool, fresh, {k: t[start:n] for k, t in pages.items()})
-        self._prefix.insert(toks[:n * bs], matched + fresh)
+        self._prefix.insert(toks[:n * bs], matched + fresh, ns=ns)
         return len(fresh)
+
+    # ---------------------------------------------------- fault tolerance
+    def snapshot(self, dir, step=None) -> int:
+        """Commit a restorable snapshot of this engine under ``dir``
+        (``serving/snapshot.py``: the pools, the allocator, the prefix
+        tree, the requests, the adapter tier) through the atomic commit
+        protocol.  Call between ``step()``s.  Returns the committed step
+        tag (default: the macro-step count)."""
+        from .snapshot import EngineSnapshot
+
+        store = self._snapshot_store
+        if store is None or store.dir != str(dir):
+            # one store per engine and directory: its validity cache keeps
+            # the retention sweep from hashing every kept snapshot again
+            store = self._snapshot_store = EngineSnapshot(dir)
+        return store.save(self, step=step)
+
+    def install_preemption_handler(self, signals=None):
+        """SIGTERM-style preemption: the handler only sets a flag (a signal
+        handler is no place for device syncs or disk writes); the next
+        ``maybe_snapshot()`` at a macro-step boundary writes the final
+        snapshot, and ``preemption_saved`` then says so.  The original
+        disposition is kept for ``uninstall_preemption_handler``."""
+        import signal as _signal
+
+        if signals is None:
+            signals = (_signal.SIGTERM,)
+
+        def _handler(signum, frame):
+            self._preempt_requested = True
+
+        for sig in signals:
+            prev = _signal.signal(sig, _handler)
+            # a second install keeps the original, not this engine's handler
+            self._prev_handlers.setdefault(sig, prev)
+
+    def uninstall_preemption_handler(self):
+        import signal as _signal
+
+        for sig, prev in self._prev_handlers.items():
+            _signal.signal(sig, prev)
+        self._prev_handlers.clear()
+
+    @property
+    def preemption_requested(self) -> bool:
+        return self._preempt_requested
+
+    @property
+    def preemption_saved(self) -> bool:
+        """True once a preemption-triggered snapshot was committed."""
+        return self._preempt_saved
+
+    def maybe_snapshot(self, dir=None, step=None):
+        """Snapshot when one is due: a pending preemption, or
+        ``FLAGS_engine_snapshot_interval`` boundaries since the last
+        periodic one.  ``step()`` calls it at the end of every macro-step
+        (a no-op while ``FLAGS_engine_snapshot_dir`` is empty and ``dir``
+        is None).  A draining engine never snapshots again.  Returns the
+        committed step tag, or None."""
+        if self._draining:
+            return None
+        d = dir if dir is not None else _flags.flag("FLAGS_engine_snapshot_dir")
+        if not d:
+            return None
+        due = self._preempt_requested and not self._preempt_saved
+        if not due:
+            # boundaries since the last periodic save, not a modulo: idle
+            # boundaries call in without moving the count
+            interval = int(_flags.flag("FLAGS_engine_snapshot_interval"))
+            due = (interval > 0 and self._macro_steps > 0
+                   and self._macro_steps - self._last_auto_snapshot >= interval)
+        if not due:
+            return None
+        st = self.snapshot(d, step=step)
+        self._last_auto_snapshot = self._macro_steps
+        if self._preempt_requested:
+            self._preempt_saved = True
+        return st
+
+    def drain(self, dir=None, step=None) -> int:
+        """Migration or scale-down: PREFILLING lanes and parked requests go
+        back to the queue, a final snapshot is committed (``dir`` or
+        ``FLAGS_engine_snapshot_dir``), and admissions close
+        (``add_request`` raises, the queue is the restore target's, and
+        ``maybe_snapshot`` is disarmed).  The resident requests may go on
+        stepping to their end.  Returns the snapshot's step.  A second
+        drain returns the same step for the same directory and raises
+        ``ValueError`` for another."""
+        if self._draining and self._drain_step is not None:
+            if dir is not None and str(dir) != self._drain_dir:
+                raise ValueError(f"engine already drained to {self._drain_dir!r} (step "
+                                 f"{self._drain_step}); a re-drain to {dir!r} cannot capture "
+                                 "the handoff state again; restore from the first directory")
+            return self._drain_step
+        d = dir if dir is not None else _flags.flag("FLAGS_engine_snapshot_dir")
+        if not d:
+            raise ValueError("drain() needs a snapshot directory: pass dir= or set "
+                             "FLAGS_engine_snapshot_dir")
+        # PREFILLING lanes and parked requests ride the snapshot as queued
+        # submissions; the restore target replays them from (seed, nonce)
+        for s in self._slots:
+            if s.prefill is not None:
+                self._cancel_prefill(s, requeue=True)
+        for rid in list(self._parked):
+            self._pending.append(self._parked.pop(rid)["req"])
+        _DECODE_STATS["parked_requests"] = len(self._parked)
+        self._draining = True
+        self._drain_dir = str(d)
+        st = self._drain_step = self.snapshot(d, step=step)
+        from .snapshot import _SNAPSHOT_STATS
+
+        _SNAPSHOT_STATS["drains"] += 1
+        return st
 
     # -------------------------------------------------------------- decode
     def _effective_chunk(self) -> int:
@@ -1183,15 +1582,18 @@ class GenerationEngine:
         Lanes that stop (EOS, or no room left within max_len) flip
         ``done``; from then on their writes land on their scratch page
         with lens 1, their counters freeze, and their tokens are dropped
-        on the host.  The decode-chain verdict is resolved here, outside
-        the body: a captured step holds it.  Returns the body, which
-        returns ``[B, chunk]`` token ids."""
+        on the host.  On an adapter engine every layer adds each row's
+        gathered adapter delta (the pack read in place, the rows' scaling
+        gathered on the device).  The decode-chain verdict is resolved
+        here, outside the body: a captured step holds it.  Returns the
+        body, which returns ``[B, chunk]`` token ids."""
         model = self.model
         mm = model.model
         eos = self.eos_token_id
         chain_cfg = self._resolve_decode_chain()
         w, inp = self._max_blocks_per_seq, self._inputs
         c = 1 + w  # the first column after the tables
+        pack = self._pack
 
         @torch.no_grad()
         def body():
@@ -1200,6 +1602,11 @@ class GenerationEngine:
             done, keys = inp[:, c + _DONE] != 0, inp[:, c + _KEY]
             counters = inp[:, c + _COUNTER]
             temps = inp[:, c + _TEMP].to(torch.int32).view(torch.float32)
+            lora = {}
+            if pack is not None:
+                slots = inp[:, c + _SLOT]
+                lora = {"adapters": pack.ab, "slots": slots,
+                        "scaling": pack.scaling.index_select(0, slots)}
             out = []
             for _ in range(chunk):
                 tables_eff = torch.where(done[:, None], self._scratch_tables, tables)
@@ -1207,7 +1614,7 @@ class GenerationEngine:
                 h = mm.embed_tokens(tokens)
                 h, kp, vp = _decode_layers_paged(
                     mm.layers, h, mm.rope_cos, mm.rope_sin, self._kpools, self._vpools,
-                    tables_eff, lens_eff, chain_cfg)
+                    tables_eff, lens_eff, chain_cfg, **lora)
                 _check_in_place(kp + vp, self._kpools + self._vpools)
                 lg = model._logits(mm.norm(h))[:, -1, :]
                 nxt = sampling.sample(lg, temps, keys, counters, self._vocab_hash)
@@ -1241,6 +1648,7 @@ class GenerationEngine:
                 st[i, c + _KEY] = s.key
                 st[i, c + _COUNTER] = len(s.generated)  # this request's token counter
                 st[i, c + _TEMP] = int(np.float32(s.temperature).view(np.int32))
+                st[i, c + _SLOT] = s.adapter_slot
             else:
                 st[i, 1:c] = self._scratch[i]  # park masked lanes off-pool
         # the idle fill is rare: a blocking copy, so the next fill cannot
@@ -1320,14 +1728,22 @@ class GenerationEngine:
 
     def _macro_step(self, eager):
         if not self.has_work():
+            # an idle engine is at a boundary too: a pending preemption
+            # commits its snapshot here
+            self.maybe_snapshot()
             return {}
-        admitted = self._admit_pending()
+        # a draining engine admits nothing: its queue rode the drain
+        # snapshot and is the restore target's to serve
+        admitted = [] if self._draining else self._admit_pending()
         admitted.extend(self._advance_prefills())
         if not any(s.active for s in self._slots):
             # admitted requests may have finished at admission
             self._macro_steps += 1
+            self.maybe_snapshot()
             return {rid: list(self._results[rid]) for rid in admitted}
         t_start = time.perf_counter()
+        if self._pack is not None:
+            _LORA_STATS["gather_dispatches"] += 1
         if self.draft_model is not None:
             out = self._spec_step(eager)
             _DECODE_STATS["tokens"] += sum(len(v) for v in out.values())
@@ -1336,6 +1752,7 @@ class GenerationEngine:
             # after the counters: prefill first tokens are not decode tokens
             self._merge_admitted(out, admitted)
             self._macro_steps += 1
+            self.maybe_snapshot()
             return out
         D = self._effective_chunk()
         if eager:
@@ -1375,6 +1792,7 @@ class GenerationEngine:
         _DECODE_STATS["step_seconds"] += time.perf_counter() - t_start
         self._merge_admitted(out, admitted)
         self._macro_steps += 1
+        self.maybe_snapshot()  # a boundary: a no-op without a snapshot directory
         return out
 
     def _merge_admitted(self, out, admitted):
@@ -1405,12 +1823,16 @@ class GenerationEngine:
         draft pools always cover their own proposals), then the target's
         verify of the chunk ``[last token, K proposals]`` at lens
         ``seq_len + K + 1``.  Inactive lanes ride their scratch pages with
-        lengths from 0.  Returns ``[B, 2K + 1]``: the K proposals, then the
-        target's K + 1 greedy predictions."""
+        lengths from 0.  On an adapter engine the draft proposes with the
+        base model and the verify goes through each row's adapter, so
+        acceptance keeps only tokens the adapted model decodes.  Returns
+        ``[B, 2K + 1]``: the K proposals, then the target's K + 1 greedy
+        predictions."""
         K = self.num_speculative
         draft, dm = self.draft_model, self.draft_model.model
         model, mm = self.model, self.model.model
         inp, c = self._inputs, 1 + self._max_blocks_per_seq
+        pack = self._pack
 
         @torch.no_grad()
         def body():
@@ -1428,10 +1850,15 @@ class GenerationEngine:
                     props.append(nxt)
                     tok = nxt[:, None]
             proposals = torch.stack(props, dim=1)
+            lora = {}
+            if pack is not None:
+                slots = inp[:, c + _SPEC_SLOT]
+                lora = {"adapters": pack.ab, "slots": slots,
+                        "scaling": pack.scaling.index_select(0, slots)}
             h = mm.embed_tokens(torch.cat([last, proposals], dim=1))
             h, kp, vp = _decode_layers_paged(mm.layers, h, mm.rope_cos, mm.rope_sin,
                                              self._kpools, self._vpools, tables,
-                                             seq0 + K + 1, chunk=True)
+                                             seq0 + K + 1, chunk=True, **lora)
             _check_in_place(kp + vp, self._kpools + self._vpools)
             preds = torch.argmax(model._logits(mm.norm(h)), dim=-1)
             return torch.cat([proposals, preds], dim=1)
@@ -1451,6 +1878,7 @@ class GenerationEngine:
                 st[i, 1:c] = list(s.blocks) + [s.blocks[-1]] * (w - len(s.blocks))
                 st[i, c + _SEQ] = s.seq_len
                 st[i, c + _DSEQ] = s.d_seq_len
+                st[i, c + _SPEC_SLOT] = s.adapter_slot
             else:
                 st[i, 1:c] = self._scratch[i]
         self._inputs.copy_(self._stage, non_blocking=not idle)
@@ -1512,3 +1940,7 @@ class GenerationEngine:
             if finish:
                 self._finish(sl)
         return out
+
+
+from .snapshot import (EngineSnapshot, reset_snapshot_stats, restore_engine,  # noqa: E402
+                       snapshot_stats)

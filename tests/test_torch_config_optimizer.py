@@ -109,13 +109,16 @@ def _raiser(case):
     from paddle_tpu_torch.jit import TrainStep
     from paddle_tpu_torch.nn import functional as tF
     from paddle_tpu_torch.nn.layer.common import Embedding
+    from paddle_tpu_torch.nn.lora import adapter_prefill_scope
     from paddle_tpu_torch.serving import GenerationEngine
     from paddle_tpu_torch.static.passes import apply_pass
 
     x = torch.ones(2, 4)
     calls = {
         "scaler": ("A.3.1", lambda: TrainStep(None, None, None, scaler=object())),
-        "serving_adapters": ("A.2", lambda: GenerationEngine(None, adapters=4)),
+        # adapters are ported; their LayerStack layout is not
+        "serving_adapters": ("A.3.4", lambda: adapter_prefill_scope(object(), None, 1)
+                             .__enter__()),
         "serving_mesh": ("A.6", lambda: GenerationEngine(None, mesh=object())),
         "dropout": ("A.3.2", lambda: tF.dropout(x, p=0.5, training=True)),
         "regularizer": ("A.3.3", lambda: topt.SGD(0.1, parameters=[torch.nn.Parameter(x)],
@@ -135,9 +138,9 @@ def _raiser(case):
                                   "mesh_pass"])
 def test_unported_calls_name_the_current_roadmap_item(case):
     """Each message names the item of ROADMAP.md's queue A that ports it
-    (serving A.2, training A.3 with amp A.3.1, dropout A.3.2, regularizers
-    and the other optimizers A.3.3, sparse A.3.5; static A.5; distributed
-    A.6), never a retired "queue A item" number."""
+    (training A.3 with amp A.3.1, dropout A.3.2, regularizers and the
+    other optimizers A.3.3, the LayerStack layout A.3.4, sparse A.3.5;
+    static A.5; distributed A.6), never a retired "queue A item" number."""
     item, call = _raiser(case)
     with pytest.raises(NotImplementedError) as err:
         call()

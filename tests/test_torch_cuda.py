@@ -1984,3 +1984,132 @@ def test_spec_tick_replays_equal_the_eager_body(cuda, tiny_bf16_llama, kv, draft
     torch.cuda.synchronize()
     assert {k: v for k, v in ops.launch_counts().items() if v} == {
         k: 2 * v for k, v in eng._spec_fn.launches[0].items()}
+
+
+def _adapter(model, seed, rank=4, b_scale=0.5):
+    """A seeded adapter state dict of ``model``'s widths (host tensors; A
+    std 0.05, B std ``b_scale``)."""
+    from paddle_tpu_torch.nn.lora import LLAMA_TARGETS, _resolve_sublayer
+
+    g = torch.Generator().manual_seed(seed)
+    out = {}
+    for li, layer in enumerate(model.model.layers):
+        for t in LLAMA_TARGETS:
+            lin = _resolve_sublayer(layer, t)
+            out[f"model.layers.{li}.{t}.lora_A"] = 0.05 * torch.randn(lin.in_features, rank,
+                                                                      generator=g)
+            out[f"model.layers.{li}.{t}.lora_B"] = b_scale * torch.randn(rank, lin.out_features,
+                                                                         generator=g)
+    return out
+
+
+def _adapter_engine(model, cuda, **kw):
+    from paddle_tpu_torch.serving import GenerationEngine
+
+    return GenerationEngine(model, max_batch=4, block_size=16, num_blocks=64, device=cuda,
+                            decode_chunk=8, adapters={"rank": 4, "max_adapters": 2}, **kw)
+
+
+def _serve_tenant(eng, step, name, prompt):
+    eng.add_request(name, prompt, max_new_tokens=17, adapter=name)
+    while eng.has_work():
+        step()
+    torch.cuda.synchronize()
+    return eng.result(name)
+
+
+def test_pack_swap_under_a_captured_step(cuda, tiny_bf16_llama):
+    """A hot swap between replays writes the pack in place: the captured
+    step is the same object, it is not recorded again, and the swapped
+    tenant's stream equals a fresh engine's eager body."""
+    eng = _adapter_engine(tiny_bf16_llama, cuda)
+    eng.warmup()
+    captured = eng._step_fns[8]
+    addrs = [t.data_ptr() for _, t in eng._pack.parts()]
+    eng.register_adapter("t0", _adapter(tiny_bf16_llama, 1), alpha=8)
+    first = _serve_tenant(eng, eng.step, "t0", [5, 9, 17, 33, 2])
+    eng.evict_adapter("t0")
+    eng.register_adapter("t1", _adapter(tiny_bf16_llama, 2), alpha=8)
+    got = _serve_tenant(eng, eng.step, "t1", [5, 9, 17, 33, 2])
+    assert eng._step_fns[8] is captured and list(eng._step_fns) == [8]
+    assert [t.data_ptr() for _, t in eng._pack.parts()] == addrs
+    fresh = _adapter_engine(tiny_bf16_llama, cuda)
+    fresh.register_adapter("t1", _adapter(tiny_bf16_llama, 2), alpha=8)
+    assert got == _serve_tenant(fresh, fresh._step_eager, "t1", [5, 9, 17, 33, 2])
+    assert got != first
+
+
+def test_restore_into_an_engine_that_captured_first(cuda, tiny_bf16_llama, tmp_path):
+    """An int8 adapter engine snapshotted mid-flight; the bytes are loaded
+    into an engine that recorded its step before: its replays finish every
+    stream as the uninterrupted engine does, and no pool or pack tensor
+    was rebound."""
+    from paddle_tpu_torch.ops import paged_attention as pa
+    from paddle_tpu_torch.serving import EngineSnapshot
+    from paddle_tpu_torch.serving import snapshot as snap
+
+    def start():
+        eng = _adapter_engine(tiny_bf16_llama, cuda, kv_cache_dtype="int8", prefix_cache=True)
+        eng.register_adapter("t0", _adapter(tiny_bf16_llama, 3), alpha=8)
+        g = torch.Generator().manual_seed(50)
+        for i, (n, ad) in enumerate(((5, "t0"), (17, None), (40, "t0"))):
+            eng.add_request(f"r{i}", torch.randint(1, 1000, (n,), generator=g).tolist(),
+                            max_new_tokens=25, adapter=ad)
+        return eng
+
+    ref = start()
+    while ref.has_work():
+        ref.step()
+    src = start()
+    src.step()
+    src.snapshot(str(tmp_path))
+    target = _adapter_engine(tiny_bf16_llama, cuda, kv_cache_dtype="int8", prefix_cache=True)
+    target.warmup()
+    captured = target._step_fns[8]
+    leaves = [t for p in target._kpools + target._vpools for _, t in pa.pool_parts(p)]
+    addrs = [t.data_ptr() for t in leaves] + [t.data_ptr() for _, t in target._pack.parts()]
+    snap._load_state(target, *EngineSnapshot(str(tmp_path))._resolve(None))
+    while target.has_work():
+        target.step()
+    torch.cuda.synchronize()
+    assert target._step_fns[8] is captured
+    assert [t.data_ptr() for t in leaves] + [t.data_ptr() for _, t in target._pack.parts()] \
+        == addrs
+    assert {f"r{i}": target.result(f"r{i}") for i in range(3)} == {
+        f"r{i}": ref.result(f"r{i}") for i in range(3)}
+
+
+def test_graphed_lora_train_step_leaves_the_base_unchanged(cuda):
+    """apply_lora on a tiny bf16 LLaMA, TrainStep with AdamW over every
+    parameter: two calls (the first records the step), warmup(), three
+    replays; the loss falls,
+    the frozen base holds no grad and stays bit for bit, the optimizer
+    holds only the adapters' state, and the replays equal an eager twin's
+    steps."""
+    from paddle_tpu_torch.nn.lora import apply_lora
+
+    g = torch.Generator(device=cuda).manual_seed(4)
+    ids = torch.randint(0, 1024, (2, 128), generator=g, device=cuda)
+
+    def trainer():
+        step = _tiny_trainer(cuda, 9)
+        apply_lora(step.model, rank=8, generator=torch.Generator(device=cuda).manual_seed(5))
+        step.optimizer = type(step.optimizer)(1e-3, parameters=step.model.parameters())
+        return step
+
+    graphed, eager = trainer(), trainer()
+    base = {n: p.detach().clone() for n, p in graphed.model.named_parameters()
+            if not p.requires_grad}
+    losses = [float(graphed(ids, ids)) for _ in range(2)]
+    losses_eager = [float(eager._eager_step(ids, ids)) for _ in range(2)]
+    graphed.warmup(ids, ids)
+    losses += [float(graphed(ids, ids)) for _ in range(3)]
+    losses_eager += [float(eager._eager_step(ids, ids)) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert losses == losses_eager and losses[-1] < losses[0]
+    assert graphed.captures == 2  # the first call's recording, then warmup()'s
+    for n, p in graphed.model.named_parameters():
+        if n in base:
+            assert p.grad is None and torch.equal(p, base[n]), n
+    adapters = {id(p) for p in graphed.model.parameters() if p.requires_grad}
+    assert {pid for _, pid in graphed.optimizer._accumulators} == adapters

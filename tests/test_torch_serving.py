@@ -19,7 +19,7 @@ from paddle_tpu.serving import GenerationEngine as JaxEngine
 
 from paddle_tpu_torch.convert import load_jax_state_dict
 from paddle_tpu_torch.models import llama as tllama
-from paddle_tpu_torch.serving import GenerationEngine
+from paddle_tpu_torch.serving import GenerationEngine, restore_engine
 
 MARGIN = 1e-3
 PAD_LEN = 32
@@ -158,20 +158,20 @@ def test_sampled_streams_deterministic_port_against_port(models):
     assert s_other != s1
 
 
-def test_unported_options_raise(models):
+def test_unported_options_raise(models, tmp_path):
     _, tm = models
     kw = dict(max_batch=1, block_size=8, num_blocks=8, device="cpu")
-    for bad in (dict(mesh=object()), dict(adapters=4)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            GenerationEngine(tm, **kw, **bad)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        GenerationEngine(tm, **kw, mesh=object())
+    # adapters and snapshots are ported: an engine without adapters= refuses
+    # an adapter, and only a tensor-parallel restore is left unported
     eng = GenerationEngine(tm, **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(RuntimeError, match="without adapters="):
         eng.add_request("x", [1, 2], adapter="a")
+    eng.snapshot(str(tmp_path))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.snapshot("dir")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.drain("dir")
-    # adapter namespaces need adapters=, which raises above
+        restore_engine(tm, str(tmp_path), mesh=object(), device="cpu")
+    # adapter namespaces need adapters=
     with pytest.raises(ValueError, match="namespace"):
         GenerationEngine(tm, **kw, prefix_cache=True).adopt_pages([1] * 8, [], [], ns=(1, 0))
     with pytest.raises(ValueError, match="lies on"):

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Where the port's serving time goes on the card.
 
-    python3 tools/profile_torch_serving.py [--chained int8|bf16 | --admission]
+    python3 tools/profile_torch_serving.py [--chained int8|bf16 [--adapters] | --admission
+                                            | --snapshot]
 
 Builds the ``chip_smoke.py`` phase-3 configuration (LLaMA-7B width, bf16,
 32 layers, batch 4): the default engine, or with ``--chained`` the engine
@@ -13,7 +14,10 @@ It warms the engine up (one pass through the eager body, then
 traces under ``torch.profiler`` (a) the prefill of the 640-token prompt,
 (b) one decode ``step()`` of D = 8 tokens for 4 resident requests, a
 replay of the captured step, and (c) the same step through the eager body
-(``_step_eager``, every op launched from the host), for comparison.  For
+(``_step_eager``, every op launched from the host), for comparison.
+With ``--adapters`` the engine also holds ``chip_smoke.py`` phase 3d's
+adapter pack (4 rank-16 slots) and the three shorter requests decode
+through three seeded adapters (the longest through the base model).  For
 each it prints one JSON line: wall
 time with and without the profiler, the time the card was busy (kernel,
 copy and memset events only, overlaps counted once) and its share of the
@@ -26,7 +30,13 @@ prompt's 32 pages, beside the same prompt's admission on the same engine
 without the prefix cache (a miss); on the bf16 engine with interleaved
 prefill, one 16-token prefill chunk in the middle of a 612-token prompt;
 and the parking and unparking of a resident request (its pages to the
-host and back).  Needs one CUDA card.
+host and back).  With ``--snapshot`` it times ``chip_smoke.py`` phase
+3e's snapshot of the chained int8 adapter engine with the prefix cache
+(four requests resident, four queued) and its restore, each split into
+its parts on the host clock: the pools' copy to pinned host memory, the
+pickled host state, the writes (each fsynced), the manifest's hashes and
+the rename; the manifest check, the load, the copy into the fresh
+engine's pools and the adapters' installs.  Needs one CUDA card.
 """
 
 from __future__ import annotations
@@ -117,8 +127,12 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--chained", choices=("int8", "bf16"), default=None,
                         help="profile the engine that runs the searched serving chains")
+    parser.add_argument("--adapters", action="store_true",
+                        help="serve through phase 3d's adapter pack (with --chained)")
     parser.add_argument("--admission", action="store_true",
                         help="profile phase 3b's prefix hits, prefill chunks and parking")
+    parser.add_argument("--snapshot", action="store_true",
+                        help="time phase 3e's snapshot and restore, part by part")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_serving: no CUDA device", file=sys.stderr)
@@ -130,34 +144,43 @@ def main() -> int:
 
     print(card_line(), flush=True)
     cache_dir = tempfile.mkdtemp(prefix="autotune-")
-    if args.chained or args.admission:
+    if args.chained or args.admission or args.snapshot:
         set_flags({"FLAGS_schedule_search": True, "FLAGS_autotune_cache_dir": cache_dir})
     try:
         if args.admission:
             return _run_admission(chip_smoke)
-        return _run(chip_smoke, chip_smoke.CHAINED[args.chained] if args.chained else {})
+        if args.snapshot:
+            return _run_snapshot(chip_smoke)
+        kw = dict(chip_smoke.CHAINED[args.chained]) if args.chained else {}
+        return _run(chip_smoke, kw, args.adapters)
     finally:
         set_flags({"FLAGS_schedule_search": False, "FLAGS_autotune_cache_dir": ""})
         shutil.rmtree(cache_dir, ignore_errors=True)
 
 
-def _run(chip_smoke, engine_kw) -> int:
+def _run(chip_smoke, engine_kw, adapters=False) -> int:
     with torch.no_grad():
-        model, engine, prompts, new = chip_smoke.build_engine(**engine_kw)
+        model, engine, prompts, new = chip_smoke.build_engine(
+            **engine_kw, **(chip_smoke.LORA_ENGINE if adapters else {}))
         longest = max(prompts.values(), key=len)
         others = [p for p in prompts.values() if p is not longest]
+        names = [None] * len(others)
+        if adapters:
+            names = [f"t{i}" for i in range(len(others))]
+            for i, name in enumerate(names):
+                engine.register_adapter(name, chip_smoke.lora_adapter(model, 20 + i))
 
         def prefill_longest(tag):
             engine.add_request(f"{tag}-long", longest, max_new_tokens=new)
 
         for i, p in enumerate(others):  # warm every shape, then fill 3 lanes
-            engine.add_request(f"warm-{i}", p, max_new_tokens=2)
+            engine.add_request(f"warm-{i}", p, max_new_tokens=2, adapter=names[i])
         prefill_longest("warm")
         while engine.has_work():
             engine._step_eager()
         engine.warmup()
         for i, p in enumerate(others):
-            engine.add_request(f"busy-{i}", p, max_new_tokens=new)
+            engine.add_request(f"busy-{i}", p, max_new_tokens=new, adapter=names[i])
         plain_prefill = _wall(lambda: prefill_longest("plain"))
         plain_step = _wall(engine.step)
         plain_eager_step = _wall(engine._step_eager)
@@ -165,13 +188,15 @@ def _run(chip_smoke, engine_kw) -> int:
         while engine.has_work():
             engine.step()
         for i, p in enumerate(others):
-            engine.add_request(f"prof-{i}", p, max_new_tokens=new)
+            engine.add_request(f"prof-{i}", p, max_new_tokens=new, adapter=names[i])
         if engine_kw and not (engine._decode_chain_cfg and engine._prefill_chain_cfg):
             raise RuntimeError(f"a serving chain lost the measured-win gate: "
                                f"{engine.decode_decision} {engine.prefill_decision}")
         d = engine._effective_chunk()
         label = (f", {engine_kw['kv_cache_dtype']} pools, chains {engine._decode_chain_cfg} "
                  f"{engine._prefill_chain_cfg}" if engine_kw else "")
+        if adapters:
+            label += f", adapters rank {chip_smoke.LORA_RANK} ({len(names)} of the 4 rows)"
         profile(f"prefill {len(longest)} tokens{label}", lambda: prefill_longest("prof"),
                 plain_prefill)
         profile(f"decode step D={d} batch 4{label}, graphed", engine.step, plain_step, per=d)
@@ -232,6 +257,82 @@ def _run_admission(chip_smoke) -> int:
         profile(f"park of {pages} pages x {2 * len(eng._kpools)} pools, bf16",
                 lambda: eng._park_request(lane()), plain_park)
         profile("unpark of the same", unpark, plain_unpark)
+    return 0
+
+
+def _run_snapshot(chip_smoke) -> int:
+    import os
+    import pickle
+
+    from paddle_tpu_torch.distributed.checkpoint import manager as ckpt
+    from paddle_tpu_torch.serving import EngineSnapshot
+    from paddle_tpu_torch.serving import snapshot as snap
+
+    parts = {}
+
+    def timed(name, fn, *args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        parts[name] = parts.get(name, 0.0) + (time.perf_counter() - t0) * 1e3
+        return out
+
+    def wrap(module, name):
+        fn = getattr(module, name)
+        setattr(module, name, lambda *a, **k: timed(name, fn, *a, **k))
+        return fn
+
+    with torch.no_grad():
+        model = chip_smoke.build_model()
+        _, prompts = chip_smoke.admission_prompts(model.config)
+        eng = chip_smoke.admission_engine(model, **chip_smoke.CHAINED["int8"], prefix_cache=True,
+                                          **chip_smoke.LORA_ENGINE)
+        for i in range(2):
+            eng.register_adapter(f"t{i}", chip_smoke.lora_adapter(model, 30 + i))
+        eng.warmup()
+        for (rid, p), ad in zip(prompts.items(), chip_smoke.SNAPSHOT_ADAPTERS):
+            eng.add_request(rid, p, max_new_tokens=chip_smoke.SERVE_NEW, adapter=ad)
+        eng.step()
+        eng.step()
+        root = Path(tempfile.mkdtemp(prefix="engine-snapshot-"))
+        try:
+            eng.snapshot(root / "warm")  # pinned allocations and the write path warmed
+            # parts may nest: the manifest's hashes (_sha256_file) lie inside
+            # the restore's manifest check, the manifest's write inside
+            # write_fsynced's total
+            originals = [(snap, "_pools_to_host"), (snap, "_capture_host_state"),
+                         (ckpt, "write_fsynced"), (ckpt, "_sha256_file"), (ckpt, "_fsync_dir")]
+            saved = [(m, n, wrap(m, n)) for m, n in originals]
+            try:
+                save_ms = _wall(lambda: eng.snapshot(root / "timed", step=1)) * 1e3
+                save_parts = dict(parts)
+                parts.clear()
+                nbytes = sum(os.path.getsize(root / "timed" / "step_00000001" / f)
+                             for f in os.listdir(root / "timed" / "step_00000001"))
+                store = EngineSnapshot(root / "timed")
+                path, extras = timed("manifest check and extras", store._resolve, 1)
+                fresh = chip_smoke.admission_engine(
+                    model, **chip_smoke.CHAINED["int8"], prefix_cache=True,
+                    **chip_smoke.LORA_ENGINE)
+                timed("pools copied in, host state, adapters installed", snap._load_state,
+                      fresh, path, extras)
+                restore_parts = dict(parts)
+            finally:
+                for m, n, fn in saved:
+                    setattr(m, n, fn)
+            restore_ms = _wall(lambda: snap.restore_engine(model, root / "timed",
+                                                           device=chip_smoke.DEVICE)) * 1e3
+            print(json.dumps({
+                "phase": "snapshot of phase 3e's engine (int8 pools, prefix cache, two "
+                         "adapters; 4 resident, 4 queued)", "bytes": nbytes,
+                "save_ms": save_ms, "save_parts_ms": save_parts,
+                "extras_pickle_bytes": len(pickle.dumps(snap._capture_host_state(eng))),
+                "restore_ms": restore_ms, "restore_parts_ms": restore_parts,
+                "save_gb_per_s": nbytes / save_ms / 1e6,
+                "restore_gb_per_s": nbytes / restore_ms / 1e6}), flush=True)
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
     return 0
 
 

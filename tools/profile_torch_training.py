@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the port's training time goes on the card.
 
-    python3 tools/profile_torch_training.py
+    python3 tools/profile_torch_training.py [--lora]
 
 Builds the ``chip_smoke.py`` phase-4 configuration (bench.py's flagship
 LLaMA, bf16, 8 layers, batch 4 x 1024) with ``TrainStep`` and AdamW,
@@ -22,7 +22,9 @@ prints four JSON lines:
    that no clock skew between the host and the card moves an event
    across phases.
 
-Needs one CUDA card.
+With ``--lora`` the model first takes ``chip_smoke.py`` phase 4b's
+adapters (``apply_lora``, rank 16, the base frozen) and AdamW trains
+them alone, at phase 4b's rate.  Needs one CUDA card.
 """
 
 from __future__ import annotations
@@ -133,11 +135,20 @@ def main() -> int:
     g = torch.Generator(device="cuda").manual_seed(6)
     ids = torch.randint(0, cfg.vocab_size, (4, 1024), generator=g, device="cuda")
     labels = torch.randint(0, cfg.vocab_size, (4, 1024), generator=g, device="cuda")
-    opt = AdamW(learning_rate=1e-4, parameters=model.parameters(), weight_decay=0.01)
+    lora = "--lora" in sys.argv[1:]
+    config = "bench.py flagship, bf16, 8 layers, batch 4 x 1024"
+    lr = 1e-4
+    if lora:
+        from paddle_tpu_torch.nn.lora import apply_lora
+
+        apply_lora(model, rank=chip_smoke.LORA_RANK,
+                   generator=torch.Generator(device="cuda").manual_seed(7))
+        config += f", apply_lora rank {chip_smoke.LORA_RANK} (the adapters alone train)"
+        lr = chip_smoke.LORA_TRAIN_LR
+    opt = AdamW(learning_rate=lr, parameters=model.parameters(), weight_decay=0.01)
     step = TrainStep(model, opt, chip_smoke._loss_fn)
     step_ms(step, ids, labels, n=3)  # warm-up
-    print(json.dumps({"config": "bench.py flagship, bf16, 8 layers, batch 4 x 1024",
-                      "step_ms": step_ms(step, ids, labels)}), flush=True)
+    print(json.dumps({"config": config, "step_ms": step_ms(step, ids, labels)}), flush=True)
     print(json.dumps(profile_steps(step, ids, labels)), flush=True)
     print(json.dumps(profile_steps(step._eager_step, ids, labels, what="eager body")), flush=True)
     print(json.dumps(profile_phases(model, opt, chip_smoke._loss_fn, ids, labels)), flush=True)
