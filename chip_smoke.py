@@ -34,15 +34,20 @@ Phases, each of which raises (exit code != 0) on failure:
    one torch op that moves the same bytes (copy_ms), the launch geometry,
    the instantiation's registers and spills from -Xptxas -v, and at the
    decode shape the queued cost a launch (queued_ms, the yardstick's
-   beside it); f16 and f32, a 4095 tail, odd widths and an RMSNorm weight
+   beside it); f16 and f32 (phase 4c's [4096, 2048] RMSNorm and [4096,
+   5632] SwiGLU among them), a 4095 tail, odd widths and an RMSNorm weight
    of another dtype than x (bf16 rows, f32 weight) against the plain
    versions.  The flash forward at the serving and training shapes (causal
-   and not, bf16 and f16: the TMA/wgmma route, with the general kernel's
+   and not, bf16 and f16, the training shape in f16 for phase 4c: the
+   TMA/wgmma route, with the general kernel's
    time at the main shapes and the host cost of encoding the tensor maps)
    and at small sizes on the general route (f32, head dims 32, 96 and 256,
-   strides that are not 16-byte multiples), each row naming its route;
+   strides that are not 16-byte multiples), then at phase 3f's decode
+   shapes (one query row against 129 and 159 cached keys, non-causal,
+   the beam frontier's 8 rows, the verify's 5 rows bottom-right causal;
+   bf16 and f16), each row naming its route;
    the flash backward likewise: the TMA/wgmma pair at the training shape
-   causal and not (with the general kernels' times on the same inputs and
+   causal and not, and in f16 (phase 4c's shape; with the general kernels' times on the same inputs and
    delta's share of the whole), GQA, a ragged length, Sq < Sk, f16 and
    H 64, the general pair in bf16, f16 and f32 at head dims 32 to 256 and
    strided; f32 cases within 1e-4; both pairs on causal rows that see no
@@ -171,6 +176,32 @@ Phases, each of which raises (exit code != 0) on failure:
    finish, and the engine restored from the drain serves the queue to
    the original's streams.  Prints the snapshot's bytes, save and restore
    ms and GB/s, and snapshot_stats().
+3f. The model-level LlamaForCausalLM.generate on phase 3's model, 4
+   prompts of 128 tokens, 32 new tokens each: (a) greedy on the paged
+   cache at D = 8 through the eager body (``_generate_eager``) and then
+   through the call's recording of the 8-token chunk, replayed twice (the
+   7-token tail runs once, through the body; streams equal; the
+   recording's seconds and graph bytes printed), and both ways at 17, 25,
+   41 and 65 new tokens, which gives the length from which recording
+   pays; (b) greedy on the naive cache (flash attention at Sq = 1,
+   non-causal, against the growing cache) and phase 3's default engine
+   serving the same prompts, each equal to (a) or parting at a token (a)
+   chose by a top-2 margin below phase 3c's tie margin; (c) sampled
+   (temperature 1.5, top_k 50, top_p 0.9, seed 3): D = 1, D = 8 and the
+   eager body bit for bit; the naive cache equal, or parting at a token
+   where the two runs' logits (each step's, kept by a spy) differ by less
+   than the tie margin up to it, and every token of both runs is the
+   Gumbel-max of its own run's filtered logits: the caches attend through different code
+   (the flash kernel, the plain paged gather), and top-k and top-p cut
+   bf16 logits, which tie in runs, so a difference within the margin can
+   move a token across a cut; top_k = 1 equal to (a), or parting at a
+   step whose top two bf16 logits tie (top-k keeps ties, as in the JAX
+   package); (d) beam search, 4 beams over 2 prompts, 16 new tokens (the
+   beams' scores printed); (e) speculative decoding with phase 3c's
+   early-exit draft, K = 4, one prompt, against (b)'s stream under the
+   tie rule (_spec_stats printed).  Every run's launches as its forwards
+   imply, every flash forward on the sm90 route.  Prints ms a token and
+   tokens/s of each mode.
 4. Train the flagship configuration of bench.py (vocab 32000, hidden
    2048, FFN 5632, 8 layers, 16 heads, bf16) at full width and depth with
    TrainStep and AdamW on one seeded batch of 4 x 1024 tokens: check that
@@ -193,6 +224,19 @@ Phases, each of which raises (exit code != 0) on failure:
    loss falls, every base parameter is bit for bit as it was and holds no
    grad, the optimizer holds the adapters' state alone.  Prints ms a step
    beside phase 4's full step.
+4c. AMP O1 on phase 4's configuration built in f32 (542,148,608
+   parameters): the first step's loss and gradients under
+   auto_cast(bfloat16), and under auto_cast(float16) with the loss scaled
+   by GradScaler's initial 2^16, against a forward of plain versions under
+   the same auto_cast and scale; then (a) O1 bf16 and (b) O1 f16 with a GradScaler, each
+   with TrainStep and AdamW: 3 eager steps (the attention in the AMP
+   dtype), ``warmup()`` (every state tensor, the scaler's included, as
+   it was), 10 graphed steps, then 10 eager steps from a copy of the
+   state: losses, the scale and skip of every step and every state
+   tensor bit for bit; every flash forward and backward on the sm90
+   route; (c) (b)'s scaler set to 2^40, one graphed step: the found flag
+   set, every parameter, moment and beta power bit for bit, the scale
+   2^39.  Prints ms a step graphed and eager beside phase 4's.
 5. Run BERT-base (12 layers, hidden 768, bf16, seeded random weights)
    through the static Program tier: capture
    BertForSequenceClassification under static.program_guard, run
@@ -221,8 +265,9 @@ Phases, each of which raises (exit code != 0) on failure:
    new search.
 7. Print the ``kernels`` JSON line (all thirteen kernels, launches by main
    path, phase 3b's two checked engines, phase 3c's three spec engines,
-   phase 3d's adapter engines, phase 3e's snapshot engines and phases 4
-   and 4b's graphed and eager steps among them; the flash forward,
+   phase 3d's adapter engines, phase 3e's snapshot engines, phase 3f's
+   generate modes and phases 4, 4b and 4c's graphed and eager steps
+   among them; the flash forward,
    the two backward kernels, the prefill chain and the matmul epilogue
    with their launches by route), then the result line.
 
@@ -457,7 +502,8 @@ def check_swiglu(timer, logs, floor):
 
 
 def check_norm_swiglu_dtypes():
-    """f16 and f32 (and a 4095 tail, f16 at hidden 100, an odd SwiGLU width),
+    """f16 and f32 (phase 4c's training shapes, a 4095 tail, hidden 100, an
+    odd SwiGLU width),
     and RMSNorm weights of another dtype than x, against the plain
     versions: bf16 and f16 outputs within bf16's TOL, f32 within
     F32_NORM_TOL."""
@@ -468,7 +514,7 @@ def check_norm_swiglu_dtypes():
     g = torch.Generator(device=DEVICE).manual_seed(12)
     errs = {}
     for dtype, tol in ((torch.float16, TOL), (torch.float32, F32_NORM_TOL)):
-        for rows, hidden in ((640, 4096), (37, 4095), (4096, 100)):
+        for rows, hidden in ((640, 4096), (4096, 2048), (37, 4095), (4096, 100)):
             x = torch.randn(rows, hidden, generator=g, device=DEVICE).to(dtype)
             r = torch.randn(rows, hidden, generator=g, device=DEVICE).to(dtype)
             w = (1 + 0.1 * torch.randn(hidden, generator=g, device=DEVICE)).to(dtype)
@@ -478,7 +524,7 @@ def check_norm_swiglu_dtypes():
                                                            rtol=tol),
                   f"fused_rms_norm {dtype} [{rows}, {hidden}]: {max_err(o, want)}")
             errs[f"rms_norm {dtype} {rows}x{hidden}"] = max_err(o, want)
-        for rows, cols in ((640, 11008), (37, 689)):
+        for rows, cols in ((640, 11008), (4096, 5632), (37, 689)):
             gate_up = torch.randn(rows, 2 * cols, generator=g, device=DEVICE).to(dtype)
             got, want = ops.swiglu(gate_up), swiglu_plain(*gate_up.chunk(2, dim=-1))
             check(torch.allclose(got.float(), want.float(), atol=tol, rtol=tol),
@@ -546,7 +592,8 @@ F32_ATTN_TOL = 1e-4  # f32 FMA kernels against the plain f32 einsums: other summ
 
 # (B, Sq, Sk, N, Nkv, H, causal, dtype, layout): the serving slice's prefill
 # shapes (the longest prompt first), one ragged, one cross-length, one GQA,
-# the training shape, both main shapes non-causal, an f16 serving prefill;
+# the training shape, both main shapes non-causal, an f16 serving prefill,
+# the training shape in f16 (phase 4c's O1 fp16);
 # then the general route's cases at small sizes (f32, head dims 32 and 96
 # and 256, f16, strides that are not 16-byte multiples)
 FLASH_CASES = [
@@ -559,11 +606,21 @@ FLASH_CASES = [
     (1, 640, 640, 32, 32, 128, False, torch.bfloat16, "contiguous"),
     (4, 1024, 1024, 16, 16, 128, False, torch.bfloat16, "contiguous"),
     (1, 640, 640, 32, 32, 128, True, torch.float16, "contiguous"),
+    (4, 1024, 1024, 16, 16, 128, True, torch.float16, "contiguous"),
     (2, 256, 256, 4, 4, 64, True, torch.float32, "contiguous"),
     (2, 256, 256, 4, 4, 32, True, torch.bfloat16, "contiguous"),
     (2, 256, 256, 4, 2, 96, True, torch.bfloat16, "contiguous"),
     (2, 256, 256, 4, 4, 256, True, torch.float16, "contiguous"),
     (2, 256, 256, 4, 4, 128, True, torch.bfloat16, "narrow"),
+    # phase 3f's generate(): a naive-cache decode row (Sq 1, non-causal) at
+    # its first and last length, the beam frontier's 8 rows, the
+    # speculative verify's K + 1 rows (bottom-right causal), in bf16 and f16
+    (4, 1, 129, 32, 32, 128, False, torch.bfloat16, "contiguous"),
+    (4, 1, 159, 32, 32, 128, False, torch.bfloat16, "contiguous"),
+    (8, 1, 143, 32, 32, 128, False, torch.bfloat16, "contiguous"),
+    (1, 5, 160, 32, 32, 128, True, torch.bfloat16, "contiguous"),
+    (4, 1, 159, 32, 32, 128, False, torch.float16, "contiguous"),
+    (1, 5, 160, 32, 32, 128, True, torch.float16, "contiguous"),
 ]
 
 
@@ -644,13 +701,15 @@ def _encode_us(q, k, v, iters=2000):
 
 
 # (B, Sq, Sk, N, Nkv, H, causal, dtype, layout): the sm90 route at the
-# training shape causal and not (both routes timed there), GQA 16:4, a
-# ragged length, Sq 256 against Sk 1024, f16 and H 64; then the general
+# training shape causal and not (both routes timed there), in f16 (phase
+# 4c's O1 fp16), GQA 16:4, a ragged length, Sq 256 against Sk 1024, f16
+# and H 64; then the general
 # route at small sizes (f32, head dims 32, 96 and 256, rows that are not
 # 16-byte multiples)
 FLASH_BWD_CASES = [
     (4, 1024, 1024, 16, 16, 128, True, torch.bfloat16, "contiguous"),
     (4, 1024, 1024, 16, 16, 128, False, torch.bfloat16, "contiguous"),
+    (4, 1024, 1024, 16, 16, 128, True, torch.float16, "contiguous"),
     (2, 1024, 1024, 16, 4, 128, True, torch.bfloat16, "contiguous"),
     (2, 1000, 1000, 16, 16, 128, True, torch.bfloat16, "contiguous"),
     (2, 256, 1024, 16, 16, 128, True, torch.bfloat16, "contiguous"),
@@ -1845,6 +1904,8 @@ def serve(card):
     paths.update(serve_lora(card, model, chained["bf16"], plain))
     gc.collect()
     paths.update(serve_snapshot(card, model, chained["int8"]))
+    gc.collect()
+    paths.update(serve_generate(card, model, plain))
     return paths
 
 
@@ -2894,6 +2955,302 @@ def serve_snapshot(card, model, int8):
     return {"serving_snapshot": counts}
 
 
+GEN_PROMPTS = 4            # phase 3f: prompts of GEN_PROMPT_LEN tokens (generate takes no padding)
+GEN_PROMPT_LEN = 128
+GEN_CHUNK = 8              # the paged macro-step's D
+GEN_SAMPLED = dict(do_sample=True, temperature=1.5, top_k=50, top_p=0.9, seed=3)
+GEN_BEAMS, GEN_BEAM_PROMPTS, GEN_BEAM_NEW = 4, 2, 16
+GEN_SWEEP = (17, 25, 41, 65)  # new tokens: 2, 3, 5 and 8 D chunks (1, 2, 4 and 7 replays)
+
+
+def generate_prompts(cfg):
+    g = torch.Generator().manual_seed(7)
+    return torch.randint(0, cfg.vocab_size, (GEN_PROMPTS, GEN_PROMPT_LEN), generator=g)
+
+
+def generate_counts(layers, forwards, flash_forwards):
+    """Every kernel's launches implied by a generate() run of ``forwards``
+    model forwards (the prefill and each decode token iteration: 2L + 1
+    RMSNorms and L SwiGLUs each), of which ``flash_forwards`` attend
+    through flash attention (the prefill, and every naive-cache step)."""
+    from paddle_tpu_torch import ops
+
+    want = dict.fromkeys(ops.launch_counts(), 0)
+    want.update({"fused_rms_norm": (2 * layers + 1) * forwards, "swiglu": layers * forwards,
+                 "flash_attention_fwd": layers * flash_forwards,
+                 "flash_attention_fwd_sm90": layers * flash_forwards})
+    return want
+
+
+def generate_pass(run, ids, want, what, vocab=32000, **kw):
+    """``run(ids, **kw)`` (generate or its eager twin) with every launch
+    count set to 0 just before; checks the counts against ``want`` and
+    the tokens' range.  Returns the tokens as lists, the counts and the
+    seconds (the card synced at both ends)."""
+    from paddle_tpu_torch import ops
+
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = run(ids, **kw)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    check(counts == want, f"generate {what}: launch counts {counts} != expected {want}")
+    check(not any(ops.yardstick_counts().values()),
+          f"generate {what}: a Triton yardstick launched: {ops.yardstick_counts()}")
+    rows = out.tolist()
+    check(all(0 <= t < vocab for r in rows for t in r), f"generate {what}: token out of range")
+    return rows, counts, seconds
+
+
+def _rate(rows, seconds):
+    new = len(rows[0])
+    return {"ms_per_token": seconds * 1e3 / new,
+            "tokens_per_s": len(rows) * new / seconds, "seconds": seconds}
+
+
+def spied_generate(model, run, ids, want, what, **kw):
+    """``generate_pass`` that also keeps the logits every step selected
+    from (``_last_logits``, f32 copies): for the eager body and the naive
+    cache, which run every step in Python."""
+    seen, orig = [], model._last_logits
+
+    def spy(h):
+        out = orig(h)
+        seen.append(out.float().clone())
+        return out
+
+    model._last_logits = spy
+    try:
+        rows, counts, seconds = generate_pass(run, ids, want, what, **kw)
+    finally:
+        del model._last_logits  # the method again
+    return rows, seen, seconds
+
+
+def check_sampled_against(model, got, got_logits, want, want_logits, margin, what):
+    """Sampled streams of the two caches: every token of each run is the
+    Gumbel-max of its own run's filtered logits at that step (the spied
+    ``_last_logits``), and the streams are equal or part first at a token
+    where the two runs' logits, at that step and every step before,
+    differ by less than ``margin`` (phase 3c's tie margin).  Top-k and
+    top-p cut bf16 logits, which tie in runs of a few tokens, so a
+    difference below the margin can move a token across a cut (module
+    docstring, phase 3f).  Returns each row's first difference and the
+    tokens checked."""
+    from paddle_tpu_torch.models.llama import filter_logits
+    from paddle_tpu_torch.serving import _request_seed, sampling
+
+    t, k, p = GEN_SAMPLED["temperature"], GEN_SAMPLED["top_k"], GEN_SAMPLED["top_p"]
+    vhash = sampling.vocab_hash(model.config.vocab_size, DEVICE)
+    keys = torch.tensor([_request_seed(GEN_SAMPLED["seed"], r) for r in range(len(got))],
+                        device=DEVICE)
+    kept = {}
+    for tag, lgs, streams in (("got", got_logits, got), ("want", want_logits, want)):
+        check(len(lgs) == len(streams[0]), f"{what}: {len(lgs)} spied steps for "
+                                           f"{len(streams[0])} tokens")
+        for i, lg in enumerate(lgs):
+            u = sampling.uniforms(keys, torch.full_like(keys, i), vhash)
+            f = filter_logits(lg, t, k, p)
+            drawn = torch.argmax(f + -torch.log(-torch.log(u)), dim=-1).tolist()
+            bad = [r for r, row in enumerate(streams) if row[i] != drawn[r]]
+            check(not bad, f"{what}: the {tag} run's token {i} of rows {bad} is not the "
+                           "Gumbel-max of its own filtered logits")
+            kept.setdefault(tag, []).append(torch.isfinite(f).sum(dim=-1).tolist())
+    out = []
+    for r, (g, w) in enumerate(zip(got, want)):
+        pos = next((i for i, (a, b) in enumerate(zip(g, w)) if a != b), None)
+        if pos is None:
+            out.append(None)
+            continue
+        diff = max(float((got_logits[i][r] - want_logits[i][r]).abs().max())
+                   for i in range(pos + 1))
+        check(diff < margin, f"{what}: row {r} parts at token {pos} ({g[pos]} vs {w[pos]}), "
+                             f"where the runs' logits differ by {diff} >= {margin}")
+        out.append({"token": pos, "logits_max_abs_diff": diff,
+                    "kept": {tag: kept[tag][pos][r] for tag in kept}})
+    return {"partings": out, "tokens_checked_each_run": len(got) * len(got[0])}
+
+
+def check_top_k1(k1, greedy, logits):
+    """top_k = 1 keeps every token tied at the top (the JAX package's
+    ``lg >= kth``), and bf16 logits tie there now and then: the sampled
+    stream equals greedy, or parts first at a step whose top two logits
+    (greedy's own, ``logits``) are equal and at a token of that value.
+    Returns each row's first difference."""
+    out = []
+    for r, (a, b) in enumerate(zip(k1, greedy)):
+        pos = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if pos is not None:
+            lg = logits[pos][r]
+            top = float(lg.max())
+            ties = int((lg == top).sum())
+            check(ties > 1 and float(lg[a[pos]]) == top,
+                  f"generate top_k=1: row {r} parts from greedy at {pos} ({a[pos]} vs "
+                  f"{b[pos]}) with {ties} tokens at the top")
+            pos = {"token": pos, "tied_at_top": ties}
+        out.append(pos)
+    return out
+
+
+def recording_break_even(model, ids, layers):
+    """The paged greedy call at D = GEN_CHUNK through the eager body and
+    recorded (one recording, replayed by every later D chunk) at each
+    length of GEN_SWEEP, in that order; the recorded streams equal the
+    eager ones.  Returns the rows, the shortest length at which the
+    recorded call was no slower, and the replays needed to pay back the
+    recording from the two longest lengths' per-chunk costs."""
+    rows = []
+    for n in GEN_SWEEP:
+        want = generate_counts(layers, n, 1)
+        kw = dict(max_new_tokens=n, decode_chunk=GEN_CHUNK)
+        eager, _, e_s = generate_pass(model._generate_eager, ids, want, f"eager {n}", **kw)
+        got, _, r_s = generate_pass(model.generate, ids, want, f"recorded {n}", **kw)
+        check(got == eager, f"generate {n} new tokens: recorded streams differ from eager")
+        rec = model._decode_recordings[GEN_CHUNK]
+        rows.append({"new_tokens": n, "eager_s": e_s, "recorded_s": r_s,
+                     "eager_ms_per_token": e_s * 1e3 / n, "recorded_ms_per_token": r_s * 1e3 / n,
+                     "replays": rec["replays"], "recording_s": rec["capture_s"]})
+    a, b = rows[-2], rows[-1]
+    chunks = (b["new_tokens"] - a["new_tokens"]) / GEN_CHUNK
+    eager_chunk_s = (b["eager_s"] - a["eager_s"]) / chunks
+    replay_chunk_s = (b["recorded_s"] - a["recorded_s"]) / chunks
+    saved = eager_chunk_s - replay_chunk_s
+    return {"rows": rows,
+            "shortest_no_slower": next((r["new_tokens"] for r in rows
+                                        if r["recorded_s"] <= r["eager_s"]), None),
+            "eager_chunk_ms": eager_chunk_s * 1e3, "replay_chunk_ms": replay_chunk_s * 1e3,
+            "replays_to_pay_back": (b["recording_s"] / saved) if saved > 0 else None}
+
+
+def serve_generate(card, model, plain):
+    """Phase 3f: the model-level ``generate`` on phase 3's model (module
+    docstring).  ``plain``: phase 3's first-token logit error against the
+    plain versions, whose double is the bf16 tie margin.  Returns each
+    mode's launches."""
+    from paddle_tpu_torch.serving import GenerationEngine
+
+    cfg = model.config
+    layers, new = cfg.num_hidden_layers, SERVE_NEW
+    margin = 2 * plain["logits_err"]
+    ids = generate_prompts(cfg).to(DEVICE)
+    prompts = {f"g{i}": row for i, row in enumerate(ids.tolist())}
+    paged_want = generate_counts(layers, new, 1)
+    naive_want = generate_counts(layers, new, new)
+    modes, paths = {}, {}
+
+    # paged greedy at D = GEN_CHUNK: the eager body, then the recorded chunks
+    paged = dict(max_new_tokens=new, decode_chunk=GEN_CHUNK)
+    eager, g_logits, e_s = spied_generate(model, model._generate_eager, ids, paged_want,
+                                          "paged eager", **paged)
+    greedy, counts, g_s = generate_pass(model.generate, ids, paged_want, "paged", **paged)
+    check(greedy == eager, f"generate: recorded paged streams differ from the eager body's: "
+                           f"{_stream_diff(dict(enumerate(greedy)), dict(enumerate(eager)))}")
+    rec = model._decode_recordings
+    check(set(rec) == {GEN_CHUNK} and rec[GEN_CHUNK]["replays"] == (new - 1) // GEN_CHUNK - 1,
+          f"generate: recordings {rec}")
+    paths["generate_paged"] = counts
+    rec_s = sum(r["capture_s"] for r in rec.values())
+    modes["paged_greedy"] = {**_rate(greedy, g_s), "recordings": rec, "recording_s": rec_s,
+                             "ms_per_token_less_recording": (g_s - rec_s) * 1e3 / new,
+                             "eager": _rate(eager, e_s), "streams_equal_eager": True,
+                             "recording_pays": recording_break_even(model, ids, layers)}
+
+    # naive greedy, then phase 3's default engine over the same prompts:
+    # each equal to the paged streams, or parting at a bf16 tie
+    naive, counts, n_s = generate_pass(model.generate, ids, naive_want, "naive",
+                                       max_new_tokens=new, cache="naive")
+    paged_streams = {rid: s for rid, s in zip(prompts, greedy)}
+    parted_naive = check_against_plain(model, prompts, dict(zip(prompts, naive)),
+                                       paged_streams, margin, "generate naive")
+    paths["generate_naive"] = counts
+    modes["naive_greedy"] = {**_rate(naive, n_s), "parted_from_paged": parted_naive}
+    engine = GenerationEngine(model, **ENGINE_KW, device=DEVICE)
+    engine.warmup()
+    for rid, p in prompts.items():
+        engine.add_request(rid, p, max_new_tokens=new)
+    while engine.has_work():
+        engine.step()
+    parted_engine = check_against_plain(model, prompts, paged_streams,
+                                        {rid: engine.result(rid) for rid in prompts}, margin,
+                                        "generate paged against the default engine")
+    modes["paged_greedy"]["parted_from_default_engine"] = parted_engine
+    del engine
+    gc.collect()
+
+    # sampled: D = 1 and D = GEN_CHUNK bit for bit; naive against paged
+    # (another attention: the flash kernel against the plain paged
+    # gather) equal or parting at a drawn tie; top_k = 1 is greedy
+    sampled, counts, s_s = generate_pass(model.generate, ids, paged_want, "sampled",
+                                         **paged, **GEN_SAMPLED)
+    one, _, _ = generate_pass(model.generate, ids, paged_want, "sampled D 1",
+                              max_new_tokens=new, decode_chunk=1, **GEN_SAMPLED)
+    check(one == sampled, "generate sampled: D 1 and D 8 streams differ")
+    s_eager, e_logits, _ = spied_generate(model, model._generate_eager, ids, paged_want,
+                                          "sampled eager", **paged, **GEN_SAMPLED)
+    check(s_eager == sampled, "generate sampled: recorded and eager streams differ")
+    s_naive, n_logits, _ = spied_generate(model, model.generate, ids, naive_want,
+                                          "sampled naive", max_new_tokens=new, cache="naive",
+                                          **GEN_SAMPLED)
+    parted_sampled = check_sampled_against(model, s_naive, n_logits, sampled, e_logits,
+                                           margin, "generate sampled naive")
+    del e_logits, n_logits
+    k1, _, _ = generate_pass(model.generate, ids, paged_want, "top_k 1", **paged,
+                             do_sample=True, top_k=1, seed=5)
+    top_k1_ties = check_top_k1(k1, greedy, g_logits)
+    paths["generate_sampled"] = counts
+    modes["paged_sampled"] = {**_rate(sampled, s_s), **GEN_SAMPLED,
+                              "d1_equal_d8": True, "top_k1_parted_at_ties": top_k1_ties,
+                              "naive_parted_from_paged": parted_sampled,
+                              "distinct_from_greedy": sum(a != b for a, b in
+                                                          zip(sampled, greedy))}
+
+    # beam search on the naive cache: a B * K frontier of one-row steps
+    beam_ids = ids[:GEN_BEAM_PROMPTS]
+    beams, counts, b_s = generate_pass(
+        model.generate, beam_ids, generate_counts(layers, GEN_BEAM_NEW, GEN_BEAM_NEW),
+        "beam search", max_new_tokens=GEN_BEAM_NEW, num_beams=GEN_BEAMS)
+    scores = model._beam_scores.float()
+    check(bool(torch.isfinite(scores).all()) and scores.shape == (GEN_BEAM_PROMPTS, GEN_BEAMS),
+          f"beam scores {scores}")
+    paths["generate_beam"] = counts
+    modes["beam_search"] = {**_rate(beams, b_s), "num_beams": GEN_BEAMS,
+                            "prompts": GEN_BEAM_PROMPTS, "scores": scores.tolist()}
+
+    # speculative: phase 3c's early-exit draft, one prompt, greedy
+    from paddle_tpu_torch import ops
+
+    draft = early_exit_draft(model, SPEC_DRAFT_LAYERS)
+    d_layers = SPEC_DRAFT_LAYERS
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    spec = model.generate(ids[:1], max_new_tokens=new, draft_model=draft,
+                          num_speculative_tokens=SPEC_K).tolist()
+    torch.cuda.synchronize()
+    spec_s = time.perf_counter() - t0
+    counts, st = ops.launch_counts(), dict(model._spec_stats)
+    tf, df = st["target_forwards"], st["draft_forwards"]
+    want = dict.fromkeys(counts, 0)
+    flash = layers * tf + d_layers * df
+    want.update({"fused_rms_norm": (2 * layers + 1) * tf + (2 * d_layers + 1) * df,
+                 "swiglu": flash, "flash_attention_fwd": flash,
+                 "flash_attention_fwd_sm90": flash})
+    check(counts == want, f"generate speculative: launch counts {counts} != expected {want}")
+    parted_spec = check_against_plain(model, {"g0": prompts["g0"]}, {"g0": spec[0]},
+                                      {"g0": naive[0]}, margin, "generate speculative")
+    paths["generate_speculative"] = counts
+    modes["speculative"] = {**_rate(spec, spec_s), "draft_layers": d_layers, "k": SPEC_K,
+                            "spec_stats": st, "parted_from_naive": parted_spec}
+    del draft
+    emit({"generate": f"llama_7b {cfg.dtype} {layers} layers, LlamaForCausalLM.generate",
+          "card": card, "prompts": GEN_PROMPTS, "prompt_len": GEN_PROMPT_LEN,
+          "new_tokens_each": new, "decode_chunk": GEN_CHUNK, "tie_margin": margin,
+          "modes": modes, "launches": paths})
+    return paths
+
+
 def train_config():
     """The flagship training configuration of bench.py (its on-accelerator
     branch): full width and depth."""
@@ -2912,10 +3269,11 @@ def _rel_l2(a, b):
     return float((a.float() - b.float()).norm() / b.float().norm())
 
 
-def check_first_step(model, ids, labels):
+def check_first_step(model, ids, labels, scale=1.0):
     """The first step's loss and gradients through the kernels against a
     backward through a forward built only from the plain versions, from
-    the same weights."""
+    the same weights; both backwards from the loss times ``scale`` (a
+    loss scaler's, which keeps f16 gradients from underflowing)."""
     from paddle_tpu_torch.nn import functional as tF
 
     names = ["model.embed_tokens.weight", "model.layers.0.self_attn.q_proj.weight",
@@ -2930,7 +3288,7 @@ def check_first_step(model, ids, labels):
             logits = plain_forward(model, ids)
             loss = tF.cross_entropy(logits.float().reshape(-1, model.config.vocab_size),
                                     labels.reshape(-1))
-        loss.backward()
+        (loss * scale).backward()
         results.append((float(loss.detach()), {n: params[n].grad.clone() for n in names}))
     model.zero_grad(set_to_none=True)
     (k_loss, k_grads), (p_loss, p_grads) = results
@@ -2995,7 +3353,8 @@ def _train_steps(step, run, ids, labels, n, per_step, what):
 
 
 def train(card):
-    """Phase 4; returns the launches of the graphed and of the eager steps."""
+    """Phase 4; returns the launches of the graphed and of the eager steps,
+    and the graphed step's ms."""
     from paddle_tpu_torch import ops
     from paddle_tpu_torch.jit import TrainStep
     from paddle_tpu_torch.models import LlamaForCausalLM
@@ -3090,7 +3449,7 @@ def train(card):
     gc.collect()
     torch.cuda.empty_cache()
     paths.update(train_lora(card, model, ids, labels, per_step, graphed_ms))
-    return paths
+    return paths, graphed_ms
 
 
 LORA_TRAIN_LR = 1e-3  # phase 4b: AdamW over the adapters
@@ -3143,6 +3502,180 @@ def train_lora(card, model, ids, labels, per_step, full_step_ms):
           "optimizer_state_tensors": len(step.optimizer.opt_state_tensors()),
           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9})
     return {"training_lora": totals, "training_lora_eager": eager_totals}
+
+
+AMP_WARM, AMP_TIMED = 3, 10  # phase 4c: eager steps, then graphed and eager steps from one state
+AMP_OVERFLOW_SCALE = 2.0 ** 40
+
+
+def _amp_loss_fn(dtype):
+    from paddle_tpu_torch import amp
+
+    def loss_fn(model, ids, labels):
+        with amp.auto_cast(dtype=dtype):
+            return model(ids, labels=labels)[0]
+
+    return loss_fn
+
+
+def _amp_state(step):
+    """``_train_state`` with the scaler's scale and counts after it."""
+    tensors, count = _train_state(step)
+    scaler = [] if step.scaler is None else [t.clone() for t in step.scaler.state_tensors()]
+    return tensors + scaler, count
+
+
+@torch.no_grad()
+def _set_amp_state(step, state):
+    tensors, count = state
+    opt = step.optimizer
+    scaler = [] if step.scaler is None else step.scaler.state_tensors()
+    for t, v in zip(list(opt._parameter_list) + opt.opt_state_tensors() + scaler, tensors,
+                    strict=True):
+        t.copy_(v)
+    opt._step_count = count
+
+
+def _amp_steps(step, run, ids, labels, n, per_step, what):
+    """``_train_steps`` that also keeps each step's scale and found flag (as
+    device copies, read after the last step)."""
+    scales = []
+    if step.scaler is not None:
+        inner = run
+
+        def run(a, b):
+            loss = inner(a, b)
+            scales.append((step.scaler._scale_t.clone(), step.scaler._found_t.clone()))
+            return loss
+
+    losses, ms, totals = _train_steps(step, run, ids, labels, n, per_step, what)
+    return losses, ms, totals, [(float(s), bool(f)) for s, f in scales]
+
+
+def _kernel_dtypes(model):
+    """Hooks on layer 0 that record the dtype each kernel ran in: the
+    input RMSNorm's input, the flash forward's output (what o_proj reads)
+    and SwiGLU's output (what down_proj reads).  Returns the record and the
+    hooks' handles."""
+    layer, seen = model.model.layers[0], {}
+
+    def hook(name, of_output=False):
+        def record(mod, args, out):
+            seen.setdefault(name, set()).add((out if of_output else args[0]).dtype)
+        return record
+
+    handles = [layer.input_layernorm.register_forward_hook(hook("rms_norm", True)),
+               layer.self_attn.o_proj.register_forward_hook(hook("flash_attention_fwd")),
+               layer.mlp.down_proj.register_forward_hook(hook("swiglu"))]
+    return seen, handles
+
+
+def train_amp(card, bf16_step_ms):
+    """Phase 4c: AMP O1 on phase 4's configuration built in f32 (module
+    docstring).  Returns each run's launches."""
+    import dataclasses
+
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import LlamaForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW
+
+    cfg = dataclasses.replace(train_config(), dtype="float32")
+    batch, seq = 4, 1024
+    torch.cuda.reset_peak_memory_stats()
+    model = LlamaForCausalLM(cfg, device=DEVICE,
+                             generator=torch.Generator(device=DEVICE).manual_seed(1))
+    n_params = sum(p.numel() for p in model.parameters())
+    check(all(p.dtype == torch.float32 for p in model.parameters()), "the AMP model is not f32")
+    g = torch.Generator(device=DEVICE).manual_seed(6)
+    ids = torch.randint(0, cfg.vocab_size, (batch, seq), generator=g, device=DEVICE)
+    labels = torch.randint(0, cfg.vocab_size, (batch, seq), generator=g, device=DEVICE)
+    layers = cfg.num_hidden_layers
+    per_step = {"fused_rms_norm": 2 * layers + 1, "swiglu": layers, "flash_attention_fwd": layers,
+                "flash_attention_fwd_sm90": layers, "flash_attention_bwd_dq": layers,
+                "flash_attention_bwd_dkv": layers, "flash_attention_bwd_dq_sm90": layers,
+                "flash_attention_bwd_dkv_sm90": layers, "decode_chain_batch": 0,
+                "decode_chain_rows": 0, "decode_chain_batch_sm90": 0, "decode_chain_rows_sm90": 0,
+                "prefill_chain": 0, "prefill_chain_sm90": 0,
+                "fused_layer_norm": 0, "matmul_epilogue": 0, "matmul_epilogue_sm90": 0,
+                "vpu_chain": 0, "sched_chain": 0, "sched_chain_ktiled": 0}
+    with amp.auto_cast(dtype="bfloat16"):
+        first = check_first_step(model, ids, labels)
+    # fp16 as the scaler trains it: the loss scaled by its initial scale
+    f16_scale = amp.GradScaler(device=DEVICE).get_loss_scaling()
+    with amp.auto_cast(dtype="float16"):
+        first_f16 = {**check_first_step(model, ids, labels, f16_scale), "loss_scale": f16_scale}
+    paths, results = {}, {}
+    for tag, dtype in (("bf16", "bfloat16"), ("f16_scaler", "float16")):
+        scaler = amp.GradScaler() if tag == "f16_scaler" else None
+        step = TrainStep(model, AdamW(learning_rate=1e-4, parameters=model.parameters(),
+                                      weight_decay=0.01), _amp_loss_fn(dtype), scaler=scaler)
+        seen, hooks = _kernel_dtypes(model)
+        warm, _, _, warm_scales = _amp_steps(step, step._eager_step, ids, labels, AMP_WARM,
+                                             per_step, f"amp {tag} eager warm-up")
+        for h in hooks:
+            h.remove()
+        want_dt = torch.bfloat16 if dtype == "bfloat16" else torch.float16
+        # the norm follows its f32 input (fused_rms_norm is in no list);
+        # attention and SwiGLU run on the white-listed products' dtype
+        check(seen == {"rms_norm": {torch.float32}, "flash_attention_fwd": {want_dt},
+                       "swiglu": {want_dt}}, f"amp {tag}: kernels ran in {seen}")
+        saved = _amp_state(step)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step.warmup(ids, labels)
+        torch.cuda.synchronize()
+        warmup_s = time.perf_counter() - t0
+        moved, _ = _state_differing(_amp_state(step), saved)
+        check(moved == 0 and all(p.grad is None for p in model.parameters()),
+              f"amp {tag}: warmup() changed {moved} state elements or left a grad")
+        g_losses, graphed_ms, totals, g_scales = _amp_steps(step, step, ids, labels, AMP_TIMED,
+                                                            per_step, f"amp {tag} graphed")
+        graphed_state = _amp_state(step)
+        _set_amp_state(step, saved)
+        e_losses, eager_ms, e_totals, e_scales = _amp_steps(
+            step, step._eager_step, ids, labels, AMP_TIMED, per_step, f"amp {tag} eager")
+        differing, max_err = _state_differing(graphed_state, _amp_state(step))
+        check(g_losses == e_losses and g_scales == e_scales and differing == 0,
+              f"amp {tag}: graphed steps differ from eager steps from the same state: losses "
+              f"{g_losses} vs {e_losses}, scales {g_scales} vs {e_scales}, {differing} state "
+              f"elements (max abs {max_err})")
+        losses = warm + g_losses
+        check(all(math.isfinite(x) for x in losses), f"amp {tag}: non-finite loss {losses}")
+        result = {"steps": AMP_WARM + AMP_TIMED, "losses": losses, "eager_losses": e_losses,
+                  "graphed_equal_eager": True, "step_ms": graphed_ms, "eager_step_ms": eager_ms,
+                  "warmup_s": warmup_s,
+                  "kernel_dtypes": {k: str(next(iter(v))) for k, v in seen.items()}}
+        if scaler is not None:
+            result["scale_and_skip_by_step"] = warm_scales + g_scales
+            # (c) a forced overflow: one recorded step at 2**40 is skipped
+            before = _amp_state(step)
+            scaler.set_init_loss_scaling(AMP_OVERFLOW_SCALE)
+            ops_before = step.optimizer._step_count
+            step(ids, labels)
+            torch.cuda.synchronize()
+            after = _amp_state(step)
+            unchanged, _ = _state_differing((after[0][:-3], 0), (before[0][:-3], 0))
+            check(unchanged == 0 and bool(scaler._found_t)
+                  and scaler.get_loss_scaling() == AMP_OVERFLOW_SCALE / 2,
+                  f"amp overflow: {unchanged} state elements moved, found "
+                  f"{bool(scaler._found_t)}, scale {scaler.get_loss_scaling()}")
+            result["overflow"] = {"scale_set": AMP_OVERFLOW_SCALE,
+                                  "scale_after": scaler.get_loss_scaling(),
+                                  "state_elements_moved": unchanged,
+                                  "step_count": [ops_before, step.optimizer._step_count]}
+        results[tag] = result
+        paths[f"training_amp_{tag}"] = totals
+        paths[f"training_amp_{tag}_eager"] = e_totals
+        del step, saved, graphed_state
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit({"trainer": f"bench.py flagship built in float32 ({n_params} parameters), AMP O1, "
+                     f"batch {batch} x {seq}", "card": card, "first_step_bf16": first,
+          "first_step_f16_scaled": first_f16,
+          "launches_per_step": per_step, **results, "bf16_model_step_ms": bf16_step_ms,
+          "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9})
+    return paths
 
 
 BERT_BATCH, BERT_SEQ = 32, 128   # benchmarks/bench_bert.py's batch for BERT-base
@@ -3587,7 +4120,11 @@ def main() -> int:
     del timer
     gc.collect()  # the 7B engines are gone with serve(); return their memory
     torch.cuda.empty_cache()
-    paths.update(train(card))
+    train_paths, bf16_step_ms = train(card)
+    paths.update(train_paths)
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths.update(train_amp(card, bf16_step_ms))
     gc.collect()
     torch.cuda.empty_cache()
     paths["static_bert"], bert = static_bert(card)
@@ -3615,12 +4152,12 @@ def main() -> int:
         check(counts["flash_attention_fwd_sm90"] == counts["flash_attention_fwd"],
               f"{path}: flash forward launches {counts['flash_attention_fwd']}, of them "
               f"{counts['flash_attention_fwd_sm90']} on the sm90 route")
-    for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
-        # the training step's backward: launched, and every launch on the sm90 route
-        check(paths["training"][name] > 0
-              and paths["training"][f"{name}_sm90"] == paths["training"][name],
-              f"training: {name} launches {paths['training'][name]}, of them "
-              f"{paths['training'][f'{name}_sm90']} on the sm90 route")
+    for path in ("training", "training_amp_bf16", "training_amp_f16_scaler"):
+        for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+            # each training step's backward: launched, and every launch on the sm90 route
+            check(paths[path][name] > 0 and paths[path][f"{name}_sm90"] == paths[path][name],
+                  f"{path}: {name} launches {paths[path][name]}, of them "
+                  f"{paths[path][f'{name}_sm90']} on the sm90 route")
     for kv in CHAINED:
         counts = paths[f"serving_{kv}_chained"]
         check(counts["prefill_chain"] > 0 and counts["decode_chain_batch"]

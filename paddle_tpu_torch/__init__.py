@@ -13,12 +13,14 @@ It imports neither JAX nor anything of paddle_tpu.  Entry points
 ``device.time_step_ms``) run on the CUDA card unless the caller passes
 ``device="cpu"`` (``place="cpu"`` for the Executor).  Training runs
 ``jit.TrainStep`` over ``LlamaForCausalLM(ids, labels=)`` with
-``optimizer.AdamW``; ``static.program_guard`` captures a model into a
+``optimizer.AdamW``, in mixed precision under ``amp.auto_cast`` (with an
+``amp.GradScaler`` for f16); ``LlamaForCausalLM.generate`` decodes
+without an engine; ``static.program_guard`` captures a model into a
 ``static.Program`` that ``static.Executor`` runs through the fusion pass.
 """
 
-from . import (_core, convert, device, jit, models, nn, ops, optimizer, serving,  # noqa: F401
-               static)
+from . import (_core, amp, convert, device, jit, models, nn, ops, optimizer,  # noqa: F401
+               serving, static)
 from ._core.flags import get_flags, set_flags  # noqa: F401
 
 __version__ = "0.1.0"

@@ -21,7 +21,10 @@ JAX package's ``_batch_sig``):
 After a replay the visible state is the eager step's: grads are None
 and ``state_dict()["step_count"]`` counts the steps run.  On the CPU the
 same step runs eagerly at every call, as everywhere in this package.
-AMP's ``scaler`` is not ported yet.
+With an enabled ``amp.GradScaler`` (``scaler=``) the body is
+``scaler.scale(loss).backward(); scaler.step(optimizer)``, and the
+scaler's scale and step counts join the state at fixed addresses: a
+skipped step is a select on the device, the same eager and recorded.
 """
 
 from __future__ import annotations
@@ -108,13 +111,10 @@ class TrainStep:
     only)."""
 
     def __init__(self, model, optimizer, loss_fn, scaler=None):
-        if scaler is not None:
-            raise NotImplementedError(
-                "TrainStep(scaler=): amp (auto_cast, GradScaler) is not ported yet "
-                "(ROADMAP.md A.3.1)")
         self.model = model
         self.optimizer = optimizer
         self.loss_fn = loss_fn
+        self.scaler = scaler if scaler is not None and scaler.is_enable() else None
         self._steps: dict = {}  # batch signature -> _CapturedStep
         self.captures = 0  # steps recorded, re-recordings included
 
@@ -128,8 +128,10 @@ class TrainStep:
 
     def _state(self):
         """Every tensor a recorded step reads at a fixed address: the
-        parameters, then the optimizer's accumulators and rate."""
-        return self._params() + self.optimizer.opt_state_tensors()
+        parameters, then the optimizer's accumulators and rate, then the
+        scaler's scale and counts."""
+        scaler = [] if self.scaler is None else self.scaler.state_tensors()
+        return self._params() + self.optimizer.opt_state_tensors() + scaler
 
     def _state_key(self):
         return (tuple(self.optimizer._accumulators),
@@ -155,8 +157,12 @@ class TrainStep:
     # ------------------------------------------------------------------ step
     def _eager_step(self, *batch):
         loss = self.loss_fn(self.model, *batch)
-        loss.backward()
-        self.optimizer.step()
+        if self.scaler is not None:
+            self.scaler.scale(loss).backward()
+            self.scaler.step(self.optimizer)
+        else:
+            loss.backward()
+            self.optimizer.step()
         self.optimizer.clear_grad()
         return loss.detach()
 

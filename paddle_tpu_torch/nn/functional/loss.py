@@ -4,6 +4,8 @@ from __future__ import annotations
 
 import torch
 
+from paddle_tpu_torch.static.program import apply
+
 __all__ = ["cross_entropy"]
 
 
@@ -21,6 +23,14 @@ def cross_entropy(input, label, weight=None, ignore_index=-100, reduction="mean"
     if soft_label or (label.dim() == input.dim() and label.shape == input.shape):
         raise NotImplementedError(
             "cross_entropy: soft labels are not ported yet (ROADMAP.md A.3.3)")
+    # one "cross_entropy" op, as in the JAX package, so AMP's cast hook sees it
+    return apply("cross_entropy", _cross_entropy, input, label, weight,
+                 ignore_index=ignore_index, reduction=reduction, axis=axis,
+                 use_softmax=use_softmax, label_smoothing=label_smoothing)
+
+
+def _cross_entropy(input, label, weight, *, ignore_index, reduction, axis, use_softmax,
+                   label_smoothing):
     axis = axis % input.dim()
     if use_softmax:
         logp = torch.log_softmax(input, dim=axis)

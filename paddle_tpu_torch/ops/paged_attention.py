@@ -27,6 +27,7 @@ __all__ = [
     "paged_write_chunk",
     "paged_pour_blocks",
     "paged_pour_block",
+    "paged_pour_prefill",
     "paged_gather",
     "gathered_attention",
     "paged_decode_attention",
@@ -291,6 +292,18 @@ def paged_pour_block(cache, kv, block_id):
     per-head scale is the amax of exactly this block's content, the same
     scale, and so the same int8 bytes, the batched pour computes."""
     return paged_pour_blocks(cache, kv[None], [int(block_id)])
+
+
+def paged_pour_prefill(cache, kv, block_tables):
+    """Pour each sequence's prefill K or V ``kv [B, S, Nkv, H]`` into the
+    first ``ceil(S / bs)`` blocks of its row of ``block_tables [B, W]``,
+    in place; the last block's tail is zero.  Returns the pool."""
+    b, s, nkv, h = kv.shape
+    bs = _payload(cache).shape[2]
+    n = -(-s // bs)
+    kv = torch.nn.functional.pad(kv.transpose(1, 2), (0, 0, 0, n * bs - s))  # [B, Nkv, n bs, H]
+    blocks = kv.reshape(b, nkv, n, bs, h).transpose(1, 2).reshape(b * n, nkv, bs, h)
+    return paged_pour_blocks(cache, blocks, block_tables[:, :n].reshape(-1))
 
 
 def rope_rotate_chunk(t, cos, sin, positions):

@@ -81,6 +81,10 @@ class Optimizer:
         self._grad_clip = grad_clip
         self._accumulators: dict = {}
         self._step_count = 0
+        # a 0-d bool device tensor while amp.GradScaler.step runs the update
+        # (its found-inf flag): where it is set, every state write keeps
+        # the old value (_put)
+        self._skip = None
 
     def _unpack(self, item):
         """A parameter, or a ``(name, param)`` pair whose name is kept."""
@@ -122,6 +126,13 @@ class Optimizer:
         return self._accumulators[key]
 
     # ---------------------------------------------------------------- update
+    def _put(self, t, new):
+        """``t <- new`` in place; under a scaler's skip flag a select on the
+        device keeps ``t`` where the flag is set (no host sync)."""
+        if self._skip is not None:
+            new = torch.where(self._skip, t, new)
+        t.copy_(new)
+
     def _single_update(self, p, value, g, lr):
         """The updated value of ``p`` from its current ``value`` (the f32
         master for low-precision parameters), its gradient ``g`` and the
@@ -161,13 +172,13 @@ class Optimizer:
                 reg = self._reg_grad_term(master)
                 if reg is not None:
                     gv = gv.float() + reg
-                master.copy_(self._single_update(p, master, gv, lr))
-                p.copy_(master)
+                self._put(master, self._single_update(p, master, gv, lr))
+                self._put(p, master)
             else:
                 reg = self._reg_grad_term(p)
                 if reg is not None:
                     gv = gv + reg
-                p.copy_(self._single_update(p, p, gv, lr))
+                self._put(p, self._single_update(p, p, gv, lr))
         self._step_count += 1
 
     def _journaled_step(self, params):

@@ -45,10 +45,16 @@ class Adam(Optimizer):
         b1p = self._acc("beta1_pow", p, init=one)
         b2p = self._acc("beta2_pow", p, init=one)
         g32 = g.float()
-        m.mul_(self._beta1).add_((1 - self._beta1) * g32)
-        v.mul_(self._beta2).add_((1 - self._beta2) * g32.square())
-        b1p.mul_(self._beta1)
-        b2p.mul_(self._beta2)
+        if self._skip is None:
+            m.mul_(self._beta1).add_((1 - self._beta1) * g32)
+            v.mul_(self._beta2).add_((1 - self._beta2) * g32.square())
+            b1p.mul_(self._beta1)
+            b2p.mul_(self._beta2)
+        else:  # the same arithmetic, each write a select (a GradScaler's step)
+            self._put(m, m * self._beta1 + (1 - self._beta1) * g32)
+            self._put(v, v * self._beta2 + (1 - self._beta2) * g32.square())
+            self._put(b1p, b1p * self._beta1)
+            self._put(b2p, b2p * self._beta2)
         return m / (1 - b1p), v / (1 - b2p)
 
     def _single_update(self, p, value, g, lr):

@@ -47,6 +47,8 @@ from torch import nn
 from torch.overrides import TorchFunctionMode
 from torch.utils import _pytree as pytree
 
+from paddle_tpu_torch import amp as _amp
+
 __all__ = [
     "Variable",
     "Operator",
@@ -336,9 +338,18 @@ def apply(type_, fn, *args, **kwargs):
     """``fn(*args, **kwargs)``, or, while a Program is being captured and
     an input is a Variable or an nn.Parameter, one recorded op of type
     ``type_`` (the counterpart of the JAX package's ``_core.autograd.apply``).
-    ``kwargs`` are static attributes: recorded on the op and bound in it."""
+    ``kwargs`` are static attributes: recorded on the op and bound in it.
+    Run eagerly under ``amp.auto_cast``, the op's floating tensor
+    arguments are first cast by its type's place in the AMP lists (the JAX
+    package's ``_maybe_amp_cast``)."""
     if in_static_capture() and _captured(args):
+        if _amp._state.enabled:
+            raise NotImplementedError(_amp.CAPTURE_REFUSED)
         return _st.main_program.record(type_, fn, args, kwargs)
+    if _amp._state.enabled:
+        # the op's own body sees no hook: ops it calls inside are its parts
+        with _amp.op_body():
+            return fn(*_amp.cast_args(type_, args), **kwargs)
     return fn(*args, **kwargs)
 
 

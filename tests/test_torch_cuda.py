@@ -2113,3 +2113,101 @@ def test_graphed_lora_train_step_leaves_the_base_unchanged(cuda):
             assert p.grad is None and torch.equal(p, base[n]), n
     adapters = {id(p) for p in graphed.model.parameters() if p.requires_grad}
     assert {pid for _, pid in graphed.optimizer._accumulators} == adapters
+
+
+# ---------------------------------------------------- generate() and AMP (A.2.3, A.3.1)
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("h,nkv", [(128, 8), (64, 2)])
+@pytest.mark.parametrize("sk", [17, 64, 129, 700])
+@pytest.mark.parametrize("sq,causal", [(1, False), (5, True)])
+def test_flash_fwd_sm90_decode_shapes(cuda, sq, causal, sk, h, nkv, dtype):
+    """The forward at the shapes generate() gives it: one query row
+    against a naive cache (non-causal), and a speculative verify's K + 1
+    = 5 rows, bottom-right causal; most of a 64-row tile is padding.  Both
+    on the TMA/wgmma route, against the plain version within 2e-2."""
+    g = torch.Generator(device=cuda).manual_seed(60)
+    q = torch.randn(4, sq, 8, h, generator=g, device=cuda).to(dtype)
+    k, v = (torch.randn(4, sk, nkv, h, generator=g, device=cuda).to(dtype) for _ in range(2))
+    added = _flash_against_plain(q, k, v, causal, TOL)
+    assert added["flash_attention_fwd_sm90"] == 1 and added["flash_attention_fwd"] == 1
+
+
+def _amp_trainer(cuda, seed, scaler):
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import LlamaForCausalLM, llama_tiny
+    from paddle_tpu_torch.optimizer import AdamW
+
+    model = LlamaForCausalLM(llama_tiny(dtype="float32"), device=cuda,
+                             generator=torch.Generator(device=cuda).manual_seed(seed))
+    dtype = "float16" if scaler else "bfloat16"
+
+    def loss_fn(m, ids, labels):
+        with amp.auto_cast(dtype=dtype):
+            return m(ids, labels=labels)[0]
+
+    opt = AdamW(1e-3, parameters=model.parameters())
+    return TrainStep(model, opt, loss_fn,
+                     scaler=amp.GradScaler(init_loss_scaling=2.0 ** 16, incr_every_n_steps=2)
+                     if scaler else None)
+
+
+@pytest.mark.parametrize("scaler", [False, True], ids=["bf16", "f16_scaler"])
+def test_amp_train_step_graphed_equals_eager(cuda, scaler):
+    """An f32 llama_tiny under auto_cast O1 (bf16; f16 with a GradScaler):
+    every flash forward and backward launch on the sm90 route in the AMP
+    dtype; three graphed steps (the first records) equal three eager
+    steps from the same weights, losses, every state tensor and the
+    scaler's scale and counts bit for bit; then a forced overflow
+    (set_init_loss_scaling(2**40)) replays a skipped step: the state
+    unchanged, the scale halved."""
+    g = torch.Generator(device=cuda).manual_seed(61)
+    ids = torch.randint(0, 1024, (2, 128), generator=g, device=cuda)
+    graphed, eager = _amp_trainer(cuda, 8, scaler), _amp_trainer(cuda, 8, scaler)
+    losses = {"graphed": [], "eager": []}
+    for _ in range(3):
+        for mode, step in (("graphed", graphed), ("eager", eager)):
+            ops.reset_launch_counts()
+            run = step if mode == "graphed" else step._eager_step
+            losses[mode].append(float(run(ids, ids)))
+            torch.cuda.synchronize()
+            counts = ops.launch_counts()
+            for name in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                         "flash_attention_bwd_dkv"):
+                assert counts[name] == counts[f"{name}_sm90"] == 2, (mode, counts)
+    assert losses["graphed"] == losses["eager"] and graphed.captures == 1
+    got, want = _train_state(graphed)[0], _train_state(eager)[0]
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    if not scaler:
+        return
+    assert [float(t) for t in graphed.scaler.state_tensors()] == [
+        float(t) for t in eager.scaler.state_tensors()]
+    graphed.scaler.set_init_loss_scaling(2.0 ** 40)
+    before = _train_state(graphed)[0]
+    graphed(ids, ids)
+    torch.cuda.synchronize()
+    assert bool(graphed.scaler._found_t) and graphed.scaler.get_loss_scaling() == 2.0 ** 39
+    assert all(torch.equal(a, b) for a, b in zip(before, _train_state(graphed)[0]))
+
+
+@pytest.mark.parametrize("sampled", [False, True])
+def test_generate_recorded_chunks_equal_the_eager_body(cuda, tiny_bf16_llama, sampled):
+    """generate(cache="paged") at D 4 over 10 new tokens: the recorded
+    4-token chunk (recorded at the first, replayed at the second; the
+    1-token tail runs once, unrecorded) gives the eager body's stream; sampled streams are bit-identical across D 1 and 4.  (The
+    naive cache attends through the flash kernel, the paged one through
+    the plain gather, so on the card their streams may part where bf16
+    logits tie: chip_smoke.py phase 3f holds them by its tie rules.)"""
+    m = tiny_bf16_llama
+    g = torch.Generator(device=cuda).manual_seed(62)
+    ids = torch.randint(0, 1024, (3, 40), generator=g, device=cuda)
+    kw = dict(do_sample=True, temperature=1.5, top_k=50, top_p=0.9, seed=3) if sampled else {}
+    got = m.generate(ids, max_new_tokens=10, decode_chunk=4, **kw)
+    rec = m._decode_recordings
+    assert set(rec) == {4} and rec[4]["replays"] == 1
+    assert rec[4]["capture_s"] > 0
+    eager = m._generate_eager(ids, max_new_tokens=10, decode_chunk=4, **kw)
+    assert torch.equal(got, eager)
+    if sampled:
+        assert torch.equal(m.generate(ids, max_new_tokens=10, decode_chunk=1, **kw), got)

@@ -43,7 +43,8 @@ def test_import_loads_no_jax_and_no_paddle_tpu():
             " paddle_tpu_torch.static, paddle_tpu_torch.models.bert,"
             " paddle_tpu_torch.ops.matmul_epilogue, paddle_tpu_torch.static.codegen,"
             " paddle_tpu_torch.static.rewrite, paddle_tpu_torch.serving.snapshot,"
-            " paddle_tpu_torch.nn.lora, paddle_tpu_torch.distributed.checkpoint.manager;"
+            " paddle_tpu_torch.nn.lora, paddle_tpu_torch.distributed.checkpoint.manager,"
+            " paddle_tpu_torch.amp, paddle_tpu_torch.models.llama;"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'paddle_tpu'));"
             "print(bad); sys.exit(1 if bad else 0)")
