@@ -45,10 +45,13 @@ Phases, each of which raises (exit code != 0) on failure:
    strides that are not 16-byte multiples), then at phase 3f's decode
    shapes (one query row against 129 and 159 cached keys, non-causal,
    the beam frontier's 8 rows, the verify's 5 rows bottom-right causal;
-   bf16 and f16), each row naming its route;
+   bf16 and f16), and at phase 4d's GPT-2 shape ([8, 1024, 12, 64] causal:
+   f32 on the general route, bf16 on the sm90 route), each row naming its
+   route;
    the flash backward likewise: the TMA/wgmma pair at the training shape
    causal and not, and in f16 (phase 4c's shape; with the general kernels' times on the same inputs and
-   delta's share of the whole), GQA, a ragged length, Sq < Sk, f16 and
+   delta's share of the whole), phase 4d's GPT-2 shape in f32 (general)
+   and bf16 (sm90, with the general pair's times beside it), GQA, a ragged length, Sq < Sk, f16 and
    H 64, the general pair in bf16, f16 and f32 at head dims 32 to 256 and
    strided; f32 cases within 1e-4; both pairs on causal rows that see no
    key (Sq > Sk) against the plain version on every row.  Then llama_tiny in f32 takes a
@@ -237,6 +240,32 @@ Phases, each of which raises (exit code != 0) on failure:
    route; (c) (b)'s scaler set to 2^40, one graphed step: the found flag
    set, every parameter, moment and beta power bit for bit, the scale
    2^39.  Prints ms a step graphed and eager beside phase 4's.
+4d. GPT-2 small (GPTConfig(): 124,475,904 parameters, f32, dropout 0.1,
+   seeded random weights, one seeded batch of 8 x 1024 tokens), trained
+   by TrainStep with AdamW, LinearWarmup into CosineAnnealingDecay and
+   ClipGradByGlobalNorm(1.0): (a) the first step's loss and gradients
+   against a backward through a forward of plain versions from the same
+   RNG state (the same dropout masks), in f32 and under auto_cast O1
+   bf16; (b) f32: 3 eager steps, ``warmup()`` (every state tensor as it
+   was, the RNG counter included), 10 graphed steps, then 10 eager steps
+   from a copy of that state: losses, every state tensor and the
+   scheduler bit for bit, 25 dropouts a step, each eager step's mask unlike
+   the step before's, every flash launch on the general route; (c) the
+   same under auto_cast O1 bf16, every flash launch on the sm90 route (H
+   64); (d) a dropout mask drawn on the card equals the CPU's from the
+   same state.  Prints ms a step graphed and eager, tokens/s, the
+   model-FLOP share (6N + 12 L H S a token, against 67 TFLOP/s f32 and
+   989 TFLOP/s for O1) and dropout's share of the step (25 dropouts'
+   forward and backward timed alone at [8, 1024, 768]).
+4e. The optimizer tier on phase 4d's model under O1 bf16: Momentum (L2Decay,
+   ClipGradByGlobalNorm), Adagrad (L1Decay), Adadelta (ClipGradByValue),
+   RMSProp (centered, momentum, ClipGradByNorm), Lamb (the decay excluded
+   by name), Adamax, NAdam, RAdam (its rectified branch first taken inside
+   a replay), ASGD and Rprop, the LayerNorms' parameters with need_clip
+   False and a zero L2Decay of their own, each rate from OneCycleLR: 2
+   eager steps, ``warmup()`` (state unchanged), 3 graphed steps reading a
+   new rate each, then 3 eager steps from a copy of the state: losses and
+   every state tensor bit for bit, every loss finite.
 5. Run BERT-base (12 layers, hidden 768, bf16, seeded random weights)
    through the static Program tier: capture
    BertForSequenceClassification under static.program_guard, run
@@ -266,8 +295,8 @@ Phases, each of which raises (exit code != 0) on failure:
 7. Print the ``kernels`` JSON line (all thirteen kernels, launches by main
    path, phase 3b's two checked engines, phase 3c's three spec engines,
    phase 3d's adapter engines, phase 3e's snapshot engines, phase 3f's
-   generate modes and phases 4, 4b and 4c's graphed and eager steps
-   among them; the flash forward,
+   generate modes, phases 4, 4b, 4c and 4d's graphed and eager steps and
+   phase 4e's optimizers among them; the flash forward,
    the two backward kernels, the prefill chain and the matmul epilogue
    with their launches by route), then the result line.
 
@@ -607,6 +636,9 @@ FLASH_CASES = [
     (4, 1024, 1024, 16, 16, 128, False, torch.bfloat16, "contiguous"),
     (1, 640, 640, 32, 32, 128, True, torch.float16, "contiguous"),
     (4, 1024, 1024, 16, 16, 128, True, torch.float16, "contiguous"),
+    # phase 4d's GPT-2 small: f32 on the general route, O1 bf16 on the sm90
+    (8, 1024, 1024, 12, 12, 64, True, torch.float32, "contiguous"),
+    (8, 1024, 1024, 12, 12, 64, True, torch.bfloat16, "contiguous"),
     (2, 256, 256, 4, 4, 64, True, torch.float32, "contiguous"),
     (2, 256, 256, 4, 4, 32, True, torch.bfloat16, "contiguous"),
     (2, 256, 256, 4, 2, 96, True, torch.bfloat16, "contiguous"),
@@ -708,6 +740,9 @@ def _encode_us(q, k, v, iters=2000):
 # 16-byte multiples)
 FLASH_BWD_CASES = [
     (4, 1024, 1024, 16, 16, 128, True, torch.bfloat16, "contiguous"),
+    # phase 4d's GPT-2 small: f32 on the general route, O1 bf16 on the sm90
+    (8, 1024, 1024, 12, 12, 64, True, torch.float32, "contiguous"),
+    (8, 1024, 1024, 12, 12, 64, True, torch.bfloat16, "contiguous"),
     (4, 1024, 1024, 16, 16, 128, False, torch.bfloat16, "contiguous"),
     (4, 1024, 1024, 16, 16, 128, True, torch.float16, "contiguous"),
     (2, 1024, 1024, 16, 4, 128, True, torch.bfloat16, "contiguous"),
@@ -809,7 +844,7 @@ def check_flash_bwd(timer, F):
         # (the torch passes on the general route; below 0 on the sm90 route,
         # whose second kernel finds its inputs in L2 only within the whole)
         row["delta_ms"] = row["ms"] - row["dq_ms"] - row["dkv_ms"]
-        if route == "sm90" and (bsz, sq, n) == (4, 1024, 16):
+        if route == "sm90" and (bsz, sq, n) in ((4, 1024, 16), (8, 1024, 12)):
             # the same inputs on the general kernels, delta included in
             # general_ms
             row["general_dq_ms"] = timer(general[0])
@@ -3678,6 +3713,380 @@ def train_amp(card, bf16_step_ms):
     return paths
 
 
+# ------------------------------------------------------- phases 4d and 4e: GPT-2
+
+GPT_BATCH, GPT_SEQ = 8, 1024       # phase 4d: one seeded batch of 8 x 1024 tokens
+GPT_WARM, GPT_TIMED = 3, 10        # phase 4d: eager steps, then graphed and eager steps
+GPT_F32_LOSS_TOL = 1e-4            # first f32 loss, kernels vs plain versions: the general
+                                   # (FMA) flash kernels sum in other orders than the plain
+GPT_F32_GRAD_TOL = 1e-3            # relative L2 of an f32 gradient through 12 layers, the same
+OPT_TIER_STEPS = (2, 3)            # phase 4e: eager steps, then graphed and eager steps
+
+
+def gpt_config():
+    """GPT-2 small (openai-community/gpt2: n_embd 768, n_layer 12, n_head
+    12, n_positions 1024; the vocabulary padded to 50304), GPTConfig()'s
+    defaults, dropout 0.1."""
+    from paddle_tpu_torch.models import GPTConfig
+
+    return GPTConfig()
+
+
+def gpt_plain_forward(model, ids):
+    """GPT's forward built only from plain versions: the flash kernels'
+    plain version, and the port's dropouts called in the model's order, so
+    from the same RNG state they draw the same masks."""
+    from paddle_tpu_torch.nn import functional as tF
+    from paddle_tpu_torch.ops import flash_attention_reference
+    from paddle_tpu_torch.static.program import apply
+
+    g, p = model.gpt, model.config.dropout
+    b, s = ids.shape
+    pos = torch.arange(s, dtype=torch.int32, device=ids.device).unsqueeze(0).expand(b, s)
+    h = tF.dropout(g.wte(ids) + g.wpe(pos), p, training=model.training)
+    for blk in g.h:
+        a, x = blk.attn, blk.ln_1(h)
+        q, k, v = (lin(x).reshape(b, s, a.num_heads, a.head_dim)
+                   for lin in (a.q_proj, a.k_proj, a.v_proj))
+        o = tF.dropout(flash_attention_reference(q, k, v, causal=True), p,
+                       training=model.training)
+        h = h + a.out_proj(o.reshape(b, s, a.embed_dim))
+        h = h + tF.dropout(blk.fc_out(tF.gelu(blk.fc_in(blk.ln_2(h)))), p,
+                           training=model.training)
+    return apply("matmul", torch.matmul, g.ln_f(h), g.wte.weight.t())
+
+
+def check_gpt_first_step(model, ids, labels, loss_tol, grad_tol):
+    """The first step's loss and gradients through the kernels against a
+    backward through ``gpt_plain_forward``, each from the same RNG state
+    (so the same dropout masks) and the same weights."""
+    from paddle_tpu_torch._core import random as trandom
+    from paddle_tpu_torch.nn import functional as tF
+
+    names = ["gpt.wte.weight", "gpt.h.0.attn.q_proj.weight", "gpt.h.11.fc_out.weight",
+             "gpt.ln_f.weight"]
+    params = dict(model.named_parameters())
+    rng = trandom.state_tensor(DEVICE)
+    start = rng.clone()
+    results = []
+    for path in ("kernels", "plain"):
+        rng.copy_(start)
+        model.zero_grad(set_to_none=True)
+        if path == "kernels":
+            loss = _loss_fn(model, ids, labels)
+        else:
+            logits = gpt_plain_forward(model, ids)
+            loss = tF.cross_entropy(logits[:, :-1].reshape(-1, model.config.vocab_size).float(),
+                                    labels[:, 1:].reshape(-1))
+        loss.backward()
+        results.append((float(loss.detach()), {n: params[n].grad.clone() for n in names}))
+    model.zero_grad(set_to_none=True)
+    (k_loss, k_grads), (p_loss, p_grads) = results
+    loss_rel = abs(k_loss - p_loss) / abs(p_loss)
+    check(loss_rel <= loss_tol, f"GPT first loss {k_loss} vs plain {p_loss}")
+    rels = {}
+    for n in names:
+        check(bool(torch.isfinite(k_grads[n]).all()), f"GPT: non-finite gradient of {n}")
+        rels[n] = _rel_l2(k_grads[n], p_grads[n])
+        check(rels[n] <= grad_tol, f"GPT first-step gradient of {n}: relative L2 {rels[n]} "
+              f"> {grad_tol}")
+    return {"loss": k_loss, "plain_loss": p_loss, "loss_rel_diff": loss_rel,
+            "grad_rel_l2": rels, "tolerance": {"loss": loss_tol, "grad": grad_tol}}
+
+
+def _gpt_per_step(layers, sm90):
+    """One GPT step's launches: the flash forward and backward once a layer,
+    on the sm90 route (bf16 at H 64) or the general one (f32); nothing else."""
+    from paddle_tpu_torch import ops
+
+    per = dict.fromkeys(ops.launch_counts(), 0)
+    for name in ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+        per[name] = layers
+        per[f"{name}_sm90"] = layers if sm90 else 0
+    return per
+
+
+def _gpt_state(step):
+    """Copies of every tensor the step reads and writes (TrainStep._state:
+    parameters, optimizer state, the rate, the RNG state), the step count
+    and the scheduler's state."""
+    opt = step.optimizer
+    return ([t.detach().clone() for t in step._state()], opt._step_count,
+            copy.deepcopy(opt._lr_scheduler.state_dict()))
+
+
+@torch.no_grad()
+def _set_gpt_state(step, state):
+    tensors, count, sched = state
+    for t, v in zip(step._state(), tensors, strict=True):
+        t.copy_(v)
+    step.optimizer._step_count = count
+    step.optimizer._lr_scheduler.set_state_dict(copy.deepcopy(sched))
+
+
+def _gpt_steps(step, run, ids, labels, n, per_step, what, rates=None):
+    """``_train_steps`` with the scheduler stepped on the host after each
+    step (``rates`` collects the rate each step read)."""
+    sched = step.optimizer._lr_scheduler
+
+    def one(a, b):
+        if rates is not None:
+            rates.append(sched.get_lr())
+        loss = run(a, b)
+        sched.step()
+        return loss
+
+    return _train_steps(step, one, ids, labels, n, per_step, what)
+
+
+def _gpt_differing(a, b):
+    differing, err = _state_differing((a[0], a[1]), (b[0], b[1]))
+    return differing + (a[2] != b[2]), err
+
+
+def _mask_marks(model):
+    """A forward hook on the embedding dropout that keeps each eager
+    forward's mask (where its output is 0) as a bool tensor."""
+    marks = []
+    handle = model.gpt.drop.register_forward_hook(lambda m, a, out: marks.append(out.eq(0)))
+    return marks, handle
+
+
+def dropout_cost(timer, dtype):
+    """One dropout at GPT-2's [8, 1024, 768]: the forward (the mask drawn
+    and applied) and its backward (the kept gradient divided), device ms
+    under chip_smoke's timer."""
+    from paddle_tpu_torch.nn import functional as tF
+
+    g = torch.Generator(device=DEVICE).manual_seed(40)
+    x = torch.randn(GPT_BATCH, GPT_SEQ, 768, generator=g, device=DEVICE).to(dtype)
+    keep = tF.dropout(x, 0.1) != 0
+    grad, scale = torch.randn_like(x), torch.full((), 0.9, dtype=dtype, device=DEVICE)
+    zero = torch.zeros((), dtype=dtype, device=DEVICE)
+    return {"dtype": str(dtype).replace("torch.", ""),
+            "forward_ms": timer(lambda: tF.dropout(x, 0.1)),
+            "backward_ms": timer(lambda: torch.where(keep, grad / scale, zero))}
+
+
+def check_mask_devices():
+    """(d) A mask drawn on the card equals the CPU's from the same state."""
+    from paddle_tpu_torch._core import random as trandom
+    from paddle_tpu_torch.nn import functional as tF
+
+    x = torch.ones(GPT_BATCH, GPT_SEQ, 768)
+    masks = {}
+    for dev in ("cpu", DEVICE):
+        state = trandom.state_tensor(dev)
+        saved = state.clone()
+        state.copy_(torch.tensor([1234, 56789]))
+        masks[dev] = tF.dropout(x.to(dev), 0.1).eq(0).cpu()
+        state.copy_(saved)
+    differing = int((masks["cpu"] != masks[DEVICE]).sum())
+    check(differing == 0, f"dropout masks differ between the CPU and the card: {differing}")
+    return {"elements": masks["cpu"].numel(), "dropped": int(masks["cpu"].sum()),
+            "differing": differing}
+
+
+def _gpt_run(model, step, ids, labels, per_step, tag):
+    """(b)/(c): GPT_WARM eager steps, ``warmup()`` (every state tensor as
+    it was, the RNG counter included), GPT_TIMED graphed steps, then
+    GPT_TIMED eager steps from a copy of that state: losses, every state
+    tensor and the scheduler bit for bit; the eager steps' masks differ
+    from step to step."""
+    from paddle_tpu_torch._core import random as trandom
+
+    warm, _, _ = _gpt_steps(step, step._eager_step, ids, labels, GPT_WARM, per_step,
+                            f"gpt {tag} eager warm-up")
+    saved = _gpt_state(step)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    check(step.warmup(ids, labels) is step, "TrainStep.warmup did not return the step")
+    torch.cuda.synchronize()
+    warmup_s = time.perf_counter() - t0
+    moved, _ = _gpt_differing(_gpt_state(step), saved)
+    check(moved == 0 and all(p.grad is None for p in model.parameters()),
+          f"gpt {tag}: warmup() changed {moved} state elements or left a grad")
+    counter0 = int(trandom.state_tensor(DEVICE)[1])
+    rates = []
+    g_losses, graphed_ms, totals = _gpt_steps(step, step, ids, labels, GPT_TIMED, per_step,
+                                              f"gpt {tag} graphed", rates)
+    dropouts = (int(trandom.state_tensor(DEVICE)[1]) - counter0) / GPT_TIMED
+    graphed_state = _gpt_state(step)
+    _set_gpt_state(step, saved)
+    marks, hook = _mask_marks(model)
+    try:
+        e_losses, eager_ms, e_totals = _gpt_steps(step, step._eager_step, ids, labels,
+                                                  GPT_TIMED, per_step, f"gpt {tag} eager")
+    finally:
+        hook.remove()
+    differing, max_err = _gpt_differing(graphed_state, _gpt_state(step))
+    check(g_losses == e_losses and differing == 0,
+          f"gpt {tag}: graphed steps differ from eager steps from the same state: losses "
+          f"{g_losses} vs {e_losses}, {differing} state elements (max abs {max_err})")
+    same_masks = sum(bool(torch.equal(a, b)) for a, b in zip(marks, marks[1:]))
+    check(len(marks) == GPT_TIMED and same_masks == 0,
+          f"gpt {tag}: {same_masks} steps drew their predecessor's embedding mask")
+    layers = model.config.num_hidden_layers
+    check(dropouts == 1 + 2 * layers, f"gpt {tag}: {dropouts} dropouts a step")
+    losses = warm + g_losses
+    check(all(math.isfinite(x) for x in losses), f"gpt {tag}: non-finite loss {losses}")
+    check(len(set(rates)) == len(rates), f"gpt {tag}: the rate did not change each step")
+    captured = step._steps[((tuple(ids.shape), ids.dtype), (tuple(labels.shape), labels.dtype))]
+    return ({"losses": losses, "eager_losses": e_losses, "graphed_equal_eager": True,
+             "rates_read": rates, "dropouts_per_step": dropouts,
+             "embedding_masks_distinct": len(marks), "step_ms": graphed_ms,
+             "eager_step_ms": eager_ms, "warmup_s": warmup_s,
+             "capture_s": captured.step.capture_s, "graph_bytes": captured.step.graph_bytes},
+            totals, e_totals)
+
+
+def train_gpt(card):
+    """Phase 4d: GPT-2 small (module docstring).  Returns the launches of
+    each run and the model, for phase 4e."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import GPTForCausalLM
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW, lr
+
+    cfg = gpt_config()
+    torch.cuda.reset_peak_memory_stats()
+    model = GPTForCausalLM(cfg, device=DEVICE,
+                           generator=torch.Generator(device=DEVICE).manual_seed(21))
+    n_params = sum(p.numel() for p in model.parameters())
+    check(n_params == 124_475_904 and all(p.dtype == torch.float32 for p in model.parameters()),
+          f"GPT-2 small: {n_params} parameters")
+    g = torch.Generator(device=DEVICE).manual_seed(22)
+    ids = torch.randint(0, cfg.vocab_size, (GPT_BATCH, GPT_SEQ), generator=g, device=DEVICE)
+    labels = torch.randint(0, cfg.vocab_size, (GPT_BATCH, GPT_SEQ), generator=g, device=DEVICE)
+    layers, tokens = cfg.num_hidden_layers, GPT_BATCH * GPT_SEQ
+    flops = (6 * n_params + 12 * layers * cfg.hidden_size * GPT_SEQ) * tokens
+    timer = Timer()
+    cost = {"f32": dropout_cost(timer, torch.float32),
+            "bf16": dropout_cost(timer, torch.bfloat16)}
+    del timer
+    masks = check_mask_devices()
+    first = {"f32": check_gpt_first_step(model, ids, labels, GPT_F32_LOSS_TOL, GPT_F32_GRAD_TOL)}
+    with amp.auto_cast(dtype="bfloat16"):
+        first["o1_bf16"] = check_gpt_first_step(model, ids, labels, LOSS_REL_TOL, GRAD_REL_TOL)
+    paths, runs = {}, {}
+    for tag, loss_fn, sm90, peak, drop in (("f32", _loss_fn, False, F32_FLOPS, cost["f32"]),
+                                           ("o1", _amp_loss_fn("bfloat16"), True, BF16_TC_FLOPS,
+                                            cost["bf16"])):
+        sched = lr.LinearWarmup(lr.CosineAnnealingDecay(3e-4, T_max=40), 10, 0.0, 3e-4)
+        step = TrainStep(model, AdamW(sched, parameters=model.parameters(), weight_decay=0.01,
+                                      grad_clip=ClipGradByGlobalNorm(1.0)), loss_fn)
+        per_step = _gpt_per_step(layers, sm90)
+        run, totals, e_totals = _gpt_run(model, step, ids, labels, per_step, tag)
+        # the 25 dropouts' isolated forward and backward against the step
+        # (the embeddings' is f32 under O1 too; counted in the dtype of the rest)
+        drop_ms = run["dropouts_per_step"] * (drop["forward_ms"] + drop["backward_ms"])
+        run.update({"launches_per_step": per_step,
+                    "tokens_per_s": tokens / (run["step_ms"] / 1e3),
+                    "eager_tokens_per_s": tokens / (run["eager_step_ms"] / 1e3),
+                    "model_flop_share": flops / (run["step_ms"] / 1e3) / peak,
+                    "eager_model_flop_share": flops / (run["eager_step_ms"] / 1e3) / peak,
+                    "peak_flops": peak, "dropout_ms_per_step": drop_ms,
+                    "dropout_share_of_step": drop_ms / run["step_ms"]})
+        runs[tag] = run
+        paths[f"gpt_{tag}"], paths[f"gpt_{tag}_eager"] = totals, e_totals
+        del step
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit({"trainer": f"GPT-2 small ({n_params} parameters, f32, dropout {cfg.dropout}), "
+                     f"AdamW, LinearWarmup into CosineAnnealingDecay, ClipGradByGlobalNorm(1.0), "
+                     f"batch {GPT_BATCH} x {GPT_SEQ}", "card": card, "first_step": first,
+          "mask_card_vs_cpu": masks, "dropout_cost": cost, "model_flops_per_step": flops,
+          **runs, "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9})
+    return paths, model, ids, labels
+
+
+def _opt_tier():
+    """Phase 4e's optimizers: (name, base rate, make(named params, rate
+    scheduler)), some with a regularizer or a clip form."""
+    from paddle_tpu_torch import optimizer as O
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue
+    from paddle_tpu_torch.regularizer import L1Decay, L2Decay
+
+    def no_decay(name):
+        return ".ln_" in name or name.endswith(".bias")
+
+    return [
+        ("Momentum", 1e-3, lambda ps, s: O.Momentum(s, 0.9, ps, weight_decay=L2Decay(1e-4),
+                                                    grad_clip=ClipGradByGlobalNorm(1.0))),
+        ("Adagrad", 1e-3, lambda ps, s: O.Adagrad(s, parameters=ps,
+                                                  weight_decay=L1Decay(1e-6))),
+        ("Adadelta", 1.0, lambda ps, s: O.Adadelta(s, parameters=ps,
+                                                   grad_clip=ClipGradByValue(0.1))),
+        ("RMSProp", 1e-4, lambda ps, s: O.RMSProp(s, parameters=ps, momentum=0.9, centered=True,
+                                                  grad_clip=ClipGradByNorm(1.0))),
+        ("Lamb", 1e-3, lambda ps, s: O.Lamb(s, parameters=ps,
+                                            exclude_from_weight_decay_fn=no_decay)),
+        ("Adamax", 1e-3, lambda ps, s: O.Adamax(s, parameters=ps)),
+        ("NAdam", 1e-4, lambda ps, s: O.NAdam(s, parameters=ps)),
+        ("RAdam", 1e-4, lambda ps, s: O.RAdam(s, parameters=ps)),
+        ("ASGD", 1e-3, lambda ps, s: O.ASGD(s, parameters=ps)),
+        ("Rprop", 1e-4, lambda ps, s: O.Rprop(s, parameters=ps)),
+    ]
+
+
+def train_optimizers(card, model, ids, labels):
+    """Phase 4e: each of the ten optimizers on phase 4d's model under O1
+    bf16, its rate from OneCycleLR (a new rate every step): OPT_TIER_STEPS
+    eager steps, ``warmup()``, graphed steps, then eager steps from a copy
+    of the state, bit for bit.  The LayerNorms' parameters take
+    ``ParamAttr``'s effects (need_clip False, a zero L2Decay of their own).
+    Returns the launches of the graphed and of the eager steps."""
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.optimizer.lr import OneCycleLR
+    from paddle_tpu_torch.regularizer import L2Decay
+
+    for name, p in model.named_parameters():
+        if ".ln_" in name:
+            p.need_clip, p.regularizer = False, L2Decay(0.0)
+    warm_n, timed_n = OPT_TIER_STEPS
+    per_step = _gpt_per_step(model.config.num_hidden_layers, True)
+    totals = dict.fromkeys(per_step, 0)
+    e_totals = dict.fromkeys(per_step, 0)
+    results = {}
+    for name, base, make in _opt_tier():
+        sched = OneCycleLR(base, total_steps=warm_n + timed_n, end_learning_rate=base / 100)
+        step = TrainStep(model, make(list(model.named_parameters()), sched),
+                         _amp_loss_fn("bfloat16"))
+        warm, _, _ = _gpt_steps(step, step._eager_step, ids, labels, warm_n, per_step,
+                                f"{name} eager warm-up")
+        saved = _gpt_state(step)
+        step.warmup(ids, labels)
+        moved, _ = _gpt_differing(_gpt_state(step), saved)
+        check(moved == 0, f"{name}: warmup() changed {moved} state elements")
+        rates = []
+        g_losses, g_ms, g_counts = _gpt_steps(step, step, ids, labels, timed_n, per_step,
+                                              f"{name} graphed", rates)
+        graphed_state = _gpt_state(step)
+        _set_gpt_state(step, saved)
+        e_losses, e_ms, e_counts = _gpt_steps(step, step._eager_step, ids, labels, timed_n,
+                                              per_step, f"{name} eager")
+        differing, max_err = _gpt_differing(graphed_state, _gpt_state(step))
+        check(g_losses == e_losses and differing == 0,
+              f"{name}: graphed steps differ from eager steps from the same state: losses "
+              f"{g_losses} vs {e_losses}, {differing} state elements (max abs {max_err})")
+        check(all(math.isfinite(x) for x in warm + g_losses), f"{name}: loss {warm + g_losses}")
+        check(len(set(rates)) == timed_n, f"{name}: replays read the rates {rates}")
+        results[name] = {"losses": warm + g_losses, "rates_read_by_replays": rates,
+                         "state_tensors": len(saved[0]), "step_ms": g_ms,
+                         "eager_step_ms": e_ms}
+        totals = {k: totals[k] + g_counts[k] for k in totals}
+        e_totals = {k: e_totals[k] + e_counts[k] for k in e_totals}
+        del step, saved, graphed_state
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit({"optimizer_tier": "phase 4d's GPT-2 small under O1 bf16, OneCycleLR",
+          "card": card, "steps": {"eager": warm_n, "graphed_then_eager": timed_n},
+          "graphed_equal_eager": True, **results,
+          "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9})
+    return {"gpt_optimizers": totals, "gpt_optimizers_eager": e_totals}
+
+
 BERT_BATCH, BERT_SEQ = 32, 128   # benchmarks/bench_bert.py's batch for BERT-base
 BERT_LOGITS_REL_TOL = 5e-2       # relative L2 of bf16 logits against the f32 forward of the
                                  # same weights and against each other: the eager bf16
@@ -4127,12 +4536,27 @@ def main() -> int:
     paths.update(train_amp(card, bf16_step_ms))
     gc.collect()
     torch.cuda.empty_cache()
+    gpt_paths, gpt_model, gpt_ids, gpt_labels = train_gpt(card)
+    paths.update(gpt_paths)
+    paths.update(train_optimizers(card, gpt_model, gpt_ids, gpt_labels))
+    del gpt_model, gpt_ids, gpt_labels
+    gc.collect()
+    torch.cuda.empty_cache()
     paths["static_bert"], bert = static_bert(card)
     paths["static_codegen"] = static_codegen(card, *bert)
     del bert
     llama_kernels = ("fused_rms_norm", "swiglu", "flash_attention_fwd", "flash_attention_fwd_sm90")
     codegen_kernels = ("vpu_chain", "sched_chain", "sched_chain_ktiled")
     for path, counts in paths.items():
+        if path.startswith("gpt_"):
+            # GPT: the flash kernels alone (LayerNorm and GELU are plain),
+            # f32 on the general route, O1 bf16 at H 64 on the sm90 route
+            flash = ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+            sm90 = 0 if path.startswith("gpt_f32") else 1
+            check(all(counts[k] > 0 and counts[f"{k}_sm90"] == sm90 * counts[k] for k in flash)
+                  and sum(counts.values()) == sum(counts[k] * (1 + sm90) for k in flash),
+                  f"{path}: launches {counts}")
+            continue
         if path.startswith("static_"):
             check(counts["fused_layer_norm"] > 0 and counts["matmul_epilogue"] > 0
                   and not any(counts[k] for k in llama_kernels),

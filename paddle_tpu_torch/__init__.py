@@ -8,19 +8,24 @@ kernels written by hand for Hopper (``ops``), each beside a plain
 PyTorch version that the CPU tests hold against the JAX package.
 
 It imports neither JAX nor anything of paddle_tpu.  Entry points
-(``models.LlamaForCausalLM``, ``models.BertForSequenceClassification``,
+(``models.LlamaForCausalLM``, ``models.GPTForCausalLM``,
+``models.BertForSequenceClassification``,
 ``serving.GenerationEngine``, ``static.Executor``,
 ``device.time_step_ms``) run on the CUDA card unless the caller passes
 ``device="cpu"`` (``place="cpu"`` for the Executor).  Training runs
-``jit.TrainStep`` over ``LlamaForCausalLM(ids, labels=)`` with
-``optimizer.AdamW``, in mixed precision under ``amp.auto_cast`` (with an
+``jit.TrainStep`` over ``LlamaForCausalLM(ids, labels=)`` or
+``GPTForCausalLM(ids, labels=)`` (dropout in training, its masks drawn
+from the device RNG state that ``seed`` resets) with ``optimizer.AdamW``
+or any of the other optimizers, in mixed precision under ``amp.auto_cast`` (with an
 ``amp.GradScaler`` for f16); ``LlamaForCausalLM.generate`` decodes
 without an engine; ``static.program_guard`` captures a model into a
 ``static.Program`` that ``static.Executor`` runs through the fusion pass.
 """
 
 from . import (_core, amp, convert, device, jit, models, nn, ops, optimizer,  # noqa: F401
-               serving, static)
+               regularizer, serving, static)
 from ._core.flags import get_flags, set_flags  # noqa: F401
+from ._core.random import get_rng_state, seed, set_rng_state  # noqa: F401
+from .nn import ParamAttr  # noqa: F401
 
 __version__ = "0.1.0"

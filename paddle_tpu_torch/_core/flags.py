@@ -198,3 +198,11 @@ define_flag(
     "only).  Snapshots are written at macro-step boundaries, never while "
     "a step runs",
 )
+define_flag(
+    "FLAGS_scan_layers",
+    False,
+    "Force the LayerStack scan-over-layers layout for models with a "
+    "fuse_layer_stack config knob (the JAX package's models/llama.py and "
+    "models/gpt.py); not ported: a model built while it is on raises "
+    "(ROADMAP.md A.3.4)",
+)

@@ -12,11 +12,13 @@ JAX package's ``_batch_sig``):
 - every later call copies the batch into the buffers, syncs the
   learning rate into the optimizer's rate tensor and replays, and returns
   a fresh loss tensor (a replay overwrites the graph's own);
-- the parameters, their grads, the f32 masters, moments, beta powers and
-  the rate stay at fixed addresses, updated in place.  A state tensor
-  rebound between calls (``p.data = ...``, an accumulator created by
-  ``set_state_dict``) makes the step record again, never replay stale
-  addresses.
+- the parameters, their grads, the f32 masters, moments, beta powers,
+  the rate and the device RNG state that dropout draws from
+  (``_core/random.py``) stay at fixed addresses, updated in place, so
+  each replay draws fresh masks, the eager step's from the same state.
+  A state tensor rebound between calls (``p.data = ...``, an accumulator
+  created by ``set_state_dict``) makes the step record again, never
+  replay stale addresses.
 
 After a replay the visible state is the eager step's: grads are None
 and ``state_dict()["step_count"]`` counts the steps run.  On the CPU the
@@ -32,6 +34,7 @@ from __future__ import annotations
 import torch
 
 from paddle_tpu_torch._core import graphs
+from paddle_tpu_torch._core import random as rng
 
 __all__ = ["TrainStep"]
 
@@ -129,9 +132,10 @@ class TrainStep:
     def _state(self):
         """Every tensor a recorded step reads at a fixed address: the
         parameters, then the optimizer's accumulators and rate, then the
-        scaler's scale and counts."""
+        scaler's scale and counts, then the device's RNG state."""
         scaler = [] if self.scaler is None else self.scaler.state_tensors()
-        return self._params() + self.optimizer.opt_state_tensors() + scaler
+        return (self._params() + self.optimizer.opt_state_tensors() + scaler
+                + [rng.state_tensor(self.device)])
 
     def _state_key(self):
         return (tuple(self.optimizer._accumulators),

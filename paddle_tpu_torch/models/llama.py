@@ -228,6 +228,10 @@ def _check_ported(config: LlamaConfig):
             raise NotImplementedError(
                 f"LlamaConfig.{name}={getattr(config, name)!r} is not ported yet "
                 f"(ROADMAP.md {item}); the port builds {name}={default!r}")
+    if _flags.flag("FLAGS_scan_layers"):
+        raise NotImplementedError(
+            "FLAGS_scan_layers (the LayerStack layout) is not ported yet "
+            "(ROADMAP.md A.3.4); the port builds the unrolled layer list")
 
 
 class LlamaModel(nn.Module):

@@ -1,18 +1,28 @@
-"""Gradient clipping by global norm (counterpart of paddle_tpu/nn/clip.py).
+"""Gradient clipping (counterpart of paddle_tpu/nn/clip.py).
 
-``ClipGradByGlobalNorm`` is the ``grad_clip`` an optimizer takes: it maps a
+The clip classes are the ``grad_clip`` an optimizer takes: each maps a
 list of ``(param, grad)`` pairs to the same list with every clipped grad
-scaled by ``clip_norm / max(global_norm, clip_norm)``.  A parameter with
-``need_clip = False`` is neither counted nor scaled.  The norm is taken in
-f32 whatever the grads' dtype; each scaled grad keeps its dtype.  The
-other clip classes are not ported yet (ROADMAP.md A.3.3).
+replaced.  A parameter with ``need_clip = False`` (``ParamAttr``) is
+neither counted nor changed by any of the three.
+
+- ``ClipGradByValue(max, min=-max)``: each element clamped;
+- ``ClipGradByNorm(clip_norm)``: each grad scaled by ``clip_norm / norm``
+  where its own norm exceeds ``clip_norm``;
+- ``ClipGradByGlobalNorm(clip_norm)``: every grad scaled by
+  ``clip_norm / max(global_norm, clip_norm)``.
+
+Norms are taken in f32 whatever the grads' dtype; each result keeps its
+grad's dtype.  The scales stay on the device, so a recorded step clips
+without a host read.  ``clip_grad_norm_`` and ``clip_grad_value_`` act on
+``.grad`` in place.
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["ClipGradBase", "ClipGradByGlobalNorm", "clip_grad_norm_"]
+__all__ = ["ClipGradBase", "ClipGradByValue", "ClipGradByNorm", "ClipGradByGlobalNorm",
+           "clip_grad_norm_", "clip_grad_value_"]
 
 
 class ClipGradBase:
@@ -25,6 +35,30 @@ class ClipGradBase:
 
 def _clipped(p, g):
     return g is not None and getattr(p, "need_clip", True)
+
+
+class ClipGradByValue(ClipGradBase):
+    def __init__(self, max, min=None):  # noqa: A002
+        self.max = float(max)
+        self.min = float(min) if min is not None else -self.max
+
+    def _clip(self, params_grads):
+        return [(p, torch.clamp(g, self.min, self.max) if _clipped(p, g) else g)
+                for p, g in params_grads]
+
+
+class ClipGradByNorm(ClipGradBase):
+    def __init__(self, clip_norm):
+        self.clip_norm = float(clip_norm)
+
+    def _one(self, g):
+        norm = g.float().square().sum().sqrt()
+        scale = torch.where(norm > self.clip_norm,
+                            self.clip_norm / torch.clamp(norm, min=1e-12), 1.0)
+        return (g.float() * scale).to(g.dtype)
+
+    def _clip(self, params_grads):
+        return [(p, self._one(g) if _clipped(p, g) else g) for p, g in params_grads]
 
 
 class ClipGradByGlobalNorm(ClipGradBase):
@@ -61,3 +95,13 @@ def clip_grad_norm_(parameters, max_norm, norm_type=2.0, error_if_nonfinite=Fals
         for g in grads:
             g.copy_(g.float() * scale)
     return total
+
+
+def clip_grad_value_(parameters, clip_value):
+    """Clamp the ``.grad`` of ``parameters`` to ``[-clip_value, clip_value]``,
+    in place."""
+    params = [parameters] if isinstance(parameters, torch.Tensor) else list(parameters)
+    with torch.no_grad():
+        for p in params:
+            if p.grad is not None:
+                p.grad.clamp_(-clip_value, clip_value)

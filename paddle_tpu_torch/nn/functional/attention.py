@@ -8,7 +8,9 @@ import torch
 
 from paddle_tpu_torch.static.program import apply
 
-__all__ = ["scaled_dot_product_attention"]
+from .common import dropout
+
+__all__ = ["scaled_dot_product_attention", "flash_attention"]
 
 
 def _masked_attention(q, k, v, attn_mask, is_causal, scale):
@@ -49,9 +51,20 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None, dropout_p=0.
 
     With no mask this is ``ops.flash_attention``: the hand-written kernel
     on the card, its plain version on the CPU.  With a mask it takes the
-    plain masked path.  One op while a static Program is captured."""
-    if dropout_p > 0.0 and training:
-        raise NotImplementedError(
-            "attention dropout is not ported yet (ROADMAP.md A.3.2)")
+    plain masked path.  One op while a static Program is captured.
+    ``dropout_p`` in training drops elements of the attention's OUTPUT
+    (``dropout`` after the op), as the JAX package does, not of the
+    probabilities: the flash kernels take no mask."""
     args = (query, key, value) if attn_mask is None else (query, key, value, attn_mask)
-    return apply("scaled_dot_product_attention", _sdpa, *args, is_causal=bool(is_causal))
+    out = apply("scaled_dot_product_attention", _sdpa, *args, is_causal=bool(is_causal))
+    if dropout_p > 0.0 and training:
+        out = dropout(out, dropout_p, training=training)
+    return out
+
+
+def flash_attention(query, key, value, dropout=0.0, causal=False, return_softmax=False,
+                    fixed_seed_offset=None, rng_name="", training=True):
+    """``paddle.nn.functional.flash_attention``: ``(out, None)``, the softmax
+    lse's place left empty, as in the JAX package."""
+    out = scaled_dot_product_attention(query, key, value, None, dropout, causal, training)
+    return out, None

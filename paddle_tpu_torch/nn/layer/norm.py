@@ -8,6 +8,8 @@ from torch import nn
 from paddle_tpu_torch import ops
 from paddle_tpu_torch.nn import functional as F
 
+from .layers import set_param_attr
+
 __all__ = ["RMSNorm", "LayerNorm"]
 
 
@@ -48,6 +50,9 @@ class LayerNorm(nn.Module):
                        if weight_attr is not False else None)
         self.bias = (nn.Parameter(torch.zeros(shape, device=device, dtype=dtype))
                      if bias_attr is not False else None)
+        for param, attr in ((self.weight, weight_attr), (self.bias, bias_attr)):
+            if param is not None:
+                set_param_attr(param, attr)
 
     def forward(self, x):
         return F.layer_norm(x, self._normalized_shape, self.weight, self.bias, self._epsilon)

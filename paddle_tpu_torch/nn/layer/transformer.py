@@ -17,6 +17,7 @@ from torch import nn
 from paddle_tpu_torch.nn import functional as F
 
 from .common import Dropout, Linear
+from .layers import copy_param_attrs
 from .norm import LayerNorm
 
 __all__ = ["MultiHeadAttention", "TransformerEncoderLayer", "TransformerEncoder"]
@@ -110,8 +111,10 @@ class TransformerEncoder(nn.Module):
 
     def __init__(self, encoder_layer, num_layers, norm=None):
         super().__init__()
-        self.layers = nn.ModuleList([encoder_layer] + [copy.deepcopy(encoder_layer)
-                                                       for _ in range(num_layers - 1)])
+        copies = [copy.deepcopy(encoder_layer) for _ in range(num_layers - 1)]
+        for layer in copies:
+            copy_param_attrs(encoder_layer, layer)
+        self.layers = nn.ModuleList([encoder_layer] + copies)
         self.num_layers = num_layers
         self.norm = norm
 

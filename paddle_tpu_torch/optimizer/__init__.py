@@ -2,4 +2,5 @@
 
 from . import lr  # noqa: F401
 from .optimizer import Optimizer  # noqa: F401
-from .optimizers import SGD, Adam, AdamW  # noqa: F401
+from .optimizers import (ASGD, LBFGS, SGD, Adadelta, Adagrad, Adam, Adamax, AdamW,  # noqa: F401
+                         Lamb, Momentum, NAdam, RAdam, RMSProp, Rprop)

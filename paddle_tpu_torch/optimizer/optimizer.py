@@ -11,9 +11,12 @@ What is kept from the JAX package:
 - f32 master weights, always on for bf16 and fp16 parameters: the update
   reads and writes the f32 master and the parameter gets its cast, so
   updates below the bf16 ulp are not lost;
-- ``weight_decay`` as a float is L2 decay added to the gradient (taken
-  from the master for low-precision parameters); decoupled optimizers
-  (AdamW) apply their own decay instead;
+- ``weight_decay`` as a float is ``L2Decay``, or an ``L1Decay`` /
+  ``L2Decay`` (``regularizer.py``): its gradient term is added to the
+  gradient (taken from the master for low-precision parameters).  A
+  parameter's own ``regularizer`` (``ParamAttr``) comes first, a
+  coefficient of 0 disables the term, and decoupled optimizers (AdamW)
+  skip the optimizer-level term and apply their own decay;
 - ``grad_clip`` sees the ``(param, grad)`` pairs before the update;
 - ``state_dict`` keys ``f"{name}_{param_index}"``, ``LR_Scheduler`` and
   ``step_count``; ``opt_state_tensors()`` lists the accumulators and the
@@ -38,6 +41,8 @@ weights and names its state otherwise.
 from __future__ import annotations
 
 import torch
+
+from paddle_tpu_torch.regularizer import L2Decay, WeightDecayRegularizer
 
 from .lr import LRScheduler
 
@@ -72,12 +77,14 @@ class Optimizer:
         self._lr = None if self._lr_scheduler is not None else float(learning_rate)
         device = self._parameter_list[0].device if self._parameter_list else None
         self._lr_t = torch.tensor(self.get_lr(), dtype=torch.float32, device=device)
-        if weight_decay is None or isinstance(weight_decay, (int, float)):
-            self._weight_decay = float(weight_decay or 0.0)
+        # the optimizer-level decay is always a regularizer (a float is L2Decay)
+        if isinstance(weight_decay, WeightDecayRegularizer):
+            self._regularizer = weight_decay
+        elif weight_decay is None or isinstance(weight_decay, (int, float)):
+            self._regularizer = L2Decay(float(weight_decay)) if weight_decay else None
         else:
-            raise NotImplementedError(
-                f"weight_decay {type(weight_decay).__name__}: regularizer objects are not "
-                "ported yet (ROADMAP.md A.3.3); pass a float (L2 decay)")
+            raise TypeError(f"weight_decay must be a float or a regularizer (L1Decay, "
+                            f"L2Decay), got {type(weight_decay).__name__}")
         self._grad_clip = grad_clip
         self._accumulators: dict = {}
         self._step_count = 0
@@ -142,10 +149,18 @@ class Optimizer:
     def _decoupled_wd(self) -> bool:
         return False
 
-    def _reg_grad_term(self, value):
-        if self._decoupled_wd() or not self._weight_decay:
+    def _reg_grad_term(self, p, value):
+        """The penalty gradient of ``p`` at ``value``, or None: its own
+        regularizer first, else the optimizer's (not for decoupled decay);
+        a zero coefficient is none."""
+        reg = getattr(p, "regularizer", None)
+        if reg is None:
+            if self._decoupled_wd():
+                return None
+            reg = self._regularizer
+        if reg is None or not reg.coeff:
             return None
-        return self._weight_decay * value
+        return reg._grad_term(value)
 
     @torch.no_grad()
     def step(self):
@@ -169,13 +184,13 @@ class Optimizer:
             gv = g.float() if g.dtype == torch.float16 else g
             if p.dtype in _LOW_PRECISION:
                 master = self._acc("master_weight", p, init=lambda p=p: p.detach().float())
-                reg = self._reg_grad_term(master)
+                reg = self._reg_grad_term(p, master)
                 if reg is not None:
                     gv = gv.float() + reg
                 self._put(master, self._single_update(p, master, gv, lr))
                 self._put(p, master)
             else:
-                reg = self._reg_grad_term(p)
+                reg = self._reg_grad_term(p, p)
                 if reg is not None:
                     gv = gv + reg
                 self._put(p, self._single_update(p, p, gv, lr))

@@ -9,7 +9,8 @@ tokens it has generated, so its stream depends on nothing else: not on the
 decode chunk D, the lane it lands in, or whether it was queued.
 
 The uniform of vocab entry v at (key, counter) is an integer hash of the
-three, written in int64 torch ops on 32-bit values: every product is a
+three, the one dropout draws from (``_core/random.py``), written in int64
+torch ops on 32-bit values: every product is a
 value below 2^32 times a constant below 2^31, under 2^63, masked back to
 32 bits, so no op depends on how int64 overflow behaves, and the CPU and
 the card give the same bits.  The top 24 bits, made odd, over 2^24 give a
@@ -24,37 +25,20 @@ from __future__ import annotations
 
 import torch
 
+from paddle_tpu_torch._core.random import index_hash, key_of, mix32, to_uniform
+
 __all__ = ["sample", "uniforms", "vocab_hash"]
-
-_M32 = 0xFFFFFFFF
-_MUL_A = 0x7FEB352D  # multipliers below 2^31: a product of a 32-bit value stays under 2^63
-_MUL_B = 0x5BD1E995
-_SALT_KEY = 0x9E3779B9
-_SALT_VOCAB = 0x85EBCA6B
-
-
-def _mix32(x):
-    """A 32-bit avalanche (xor-shift, multiply, xor-shift, multiply,
-    xor-shift) of int64 values in [0, 2^32)."""
-    x = x ^ (x >> 16)
-    x = (x * _MUL_A) & _M32
-    x = x ^ (x >> 15)
-    x = (x * _MUL_B) & _M32
-    return x ^ (x >> 16)
 
 
 def vocab_hash(vocab_size: int, device) -> torch.Tensor:
     """The per-entry half of the hash, ``[V]`` int64: made once per engine."""
-    return _mix32(torch.arange(vocab_size, dtype=torch.int64, device=device) ^ _SALT_VOCAB)
+    return index_hash(vocab_size, device)
 
 
 def uniforms(keys, counters, vhash):
     """``[B, V]`` float32 uniforms in (0, 1) of keys ``[B]`` (int64, below
     2^63) at counters ``[B]`` (int64, below 2^32)."""
-    keys, counters = keys.long(), counters.long()
-    row = _mix32(_mix32(_mix32((keys & _M32) ^ _SALT_KEY) ^ (keys >> 32)) ^ counters)
-    bits = _mix32(row[:, None] ^ vhash[None, :])
-    return ((bits >> 8) | 1).to(torch.float32) * (2.0 ** -24)
+    return to_uniform(mix32(key_of(keys, counters)[:, None] ^ vhash[None, :]))
 
 
 def sample(logits, temps, keys, counters, vhash):

@@ -109,12 +109,19 @@ def _auto_cast_in_capture():
         pass
 
 
+def _dropout_in_capture(tF, tstatic):
+    with tstatic.program_guard(tstatic.Program()):
+        tF.dropout(tstatic.data("x", [2, 4], "float32"), p=0.5, training=True)
+
+
 def _raiser(case):
     """A call of the port that raises NotImplementedError naming a ROADMAP
     item (the message's item, then the call)."""
     from paddle_tpu_torch import static as tstatic
     from paddle_tpu_torch.nn import functional as tF
+    from paddle_tpu_torch.nn import Linear, ParamAttr
     from paddle_tpu_torch.nn.layer.common import Embedding
+    from paddle_tpu_torch.regularizer import L1Decay
     from paddle_tpu_torch.nn.lora import adapter_prefill_scope
     from paddle_tpu_torch.serving import GenerationEngine
     from paddle_tpu_torch.static.passes import apply_pass
@@ -128,11 +135,15 @@ def _raiser(case):
         "serving_adapters": ("A.3.4", lambda: adapter_prefill_scope(object(), None, 1)
                              .__enter__()),
         "serving_mesh": ("A.6", lambda: GenerationEngine(None, mesh=object())),
-        "dropout": ("A.3.2", lambda: tF.dropout(x, p=0.5, training=True)),
-        "regularizer": ("A.3.3", lambda: topt.SGD(0.1, parameters=[torch.nn.Parameter(x)],
-                                                  weight_decay=object())),
-        "adamw_regularizer": ("A.3.3", lambda: topt.AdamW(
-            0.1, parameters=[torch.nn.Parameter(x)], weight_decay=object())),
+        # dropout in training is ported (A.3.2); inside a static capture
+        # it is static training
+        "dropout": ("A.5.2", lambda: _dropout_in_capture(tF, tstatic)),
+        # regularizers and ParamAttr are ported (A.3.3); ParamAttr's
+        # initializer is nn/initializer, and LBFGS is A.3.3's last item
+        "regularizer": ("A.7", lambda: Linear(4, 2, weight_attr=ParamAttr(
+            regularizer=L1Decay(0.1), initializer=object()), device="cpu")),
+        "adamw_regularizer": ("A.3.3", lambda: topt.LBFGS(
+            0.1, parameters=[torch.nn.Parameter(x)])),
         "sparse_embedding": ("A.3.5", lambda: Embedding(8, 4, sparse=True)),
         "static_pass": ("A.5.6", lambda: apply_pass(tstatic.Program(), "weight_only_quant")),
         "mesh_pass": ("A.6", lambda: apply_pass(tstatic.Program(), "auto_parallel_sharding")),
@@ -146,9 +157,9 @@ def _raiser(case):
                                   "mesh_pass"])
 def test_unported_calls_name_the_current_roadmap_item(case):
     """Each message names the item of ROADMAP.md's queue A that ports it
-    (training A.3 with dropout A.3.2, regularizers and the
-    other optimizers A.3.3, the LayerStack layout A.3.4, sparse A.3.5;
-    static A.5; distributed A.6), never a retired "queue A item" number."""
+    (training A.3 with LBFGS A.3.3, the LayerStack layout A.3.4, sparse
+    A.3.5; static A.5, dropout in a captured Program A.5.2; distributed
+    A.6; initializers A.7), never a retired "queue A item" number."""
     item, call = _raiser(case)
     with pytest.raises(NotImplementedError) as err:
         call()

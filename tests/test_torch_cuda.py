@@ -2211,3 +2211,141 @@ def test_generate_recorded_chunks_equal_the_eager_body(cuda, tiny_bf16_llama, sa
     assert torch.equal(got, eager)
     if sampled:
         assert torch.equal(m.generate(ids, max_new_tokens=10, decode_chunk=1, **kw), got)
+
+
+# ------------------------------------------------ GPT with dropout, the optimizer tier
+
+def _gpt_trainer(cuda, make_opt, amp_dtype=None):
+    """GPT-2 width (hidden 768, 12 heads, head_dim 64), 2 layers, dropout
+    0.1, built in f32; ``amp_dtype`` runs the loss under auto_cast O1."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+
+    cfg = GPTConfig(vocab_size=4096, num_hidden_layers=2, max_position_embeddings=256)
+    model = GPTForCausalLM(cfg, device=cuda,
+                           generator=torch.Generator(device=cuda).manual_seed(71))
+
+    def loss_fn(m, ids, labels):
+        if amp_dtype is None:
+            return m(ids, labels=labels)[0]
+        with amp.auto_cast(dtype=amp_dtype):
+            return m(ids, labels=labels)[0]
+
+    return TrainStep(model, make_opt(list(model.named_parameters())), loss_fn)
+
+
+def _recorded_against_eager(step, ids, n):
+    """``n`` graphed steps after ``warmup()``, then ``n`` eager steps from a
+    copy of the state (RNG state included): (losses, losses, states)."""
+    step.warmup(ids, ids)
+    saved = [t.detach().clone() for t in step._state()]
+    count = step.optimizer._step_count
+    graphed = [float(step(ids, ids)) for _ in range(n)]
+    after = [t.detach().clone() for t in step._state()]
+    with torch.no_grad():
+        for t, v in zip(step._state(), saved):
+            t.copy_(v)
+    step.optimizer._step_count = count
+    eager = [float(step._eager_step(ids, ids)) for _ in range(n)]
+    return graphed, eager, after, [t.detach().clone() for t in step._state()]
+
+
+@pytest.mark.parametrize("amp_dtype", [None, "bfloat16"])
+def test_gpt_dropout_train_step_graphed_equals_eager(cuda, amp_dtype):
+    """GPT at GPT-2 width with dropout 0.1: three graphed steps equal three
+    eager steps from the same state bit for bit (the RNG counter among
+    the state: 5 dropouts a step), the losses differ step to step, and
+    every flash launch takes the route of its dtype (f32 general, O1 bf16
+    sm90 at head_dim 64)."""
+    from paddle_tpu_torch._core import random as trandom
+    from paddle_tpu_torch.optimizer import AdamW
+
+    step = _gpt_trainer(cuda, lambda ps: AdamW(1e-3, parameters=ps), amp_dtype)
+    ids = torch.randint(0, 4096, (2, 256), generator=torch.Generator(device=cuda).manual_seed(72),
+                        device=cuda)
+    ops.reset_launch_counts()
+    step._eager_step(ids, ids)
+    counts = ops.launch_counts()
+    sm90 = 2 if amp_dtype else 0
+    for name in ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+        assert counts[name] == 2 and counts[f"{name}_sm90"] == sm90, counts
+    before = int(trandom.state_tensor(cuda)[1])
+    graphed, eager, a, b = _recorded_against_eager(step, ids, 3)
+    assert graphed == eager and len(set(graphed)) == 3
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    assert int(trandom.state_tensor(cuda)[1]) - before == 3 * 5
+
+
+def test_dropout_masks_on_the_card_equal_the_cpu(cuda):
+    """The counter hash gives the CPU's bits on the card: dropout, alpha
+    dropout and the sampler's uniforms from one state."""
+    from paddle_tpu_torch._core import random as trandom
+    from paddle_tpu_torch.nn import functional as tF
+
+    x = torch.randn(8, 1024, 768, generator=torch.Generator().manual_seed(73))
+    out = {}
+    for dev in ("cpu", cuda):
+        trandom.state_tensor(dev).copy_(torch.tensor([99, 7]))
+        out[str(dev)] = [tF.dropout(x.to(dev), 0.1).cpu(), tF.alpha_dropout(x.to(dev), 0.3).cpu(),
+                         tF.dropout(x.to(dev).bfloat16(), 0.5).cpu()]
+    for a, b in zip(out["cpu"], out[str(cuda)]):
+        assert torch.equal(a.eq(0), b.eq(0)) and torch.equal(a, b)
+
+
+def _tier(name):
+    from paddle_tpu_torch import optimizer as O
+    from paddle_tpu_torch.nn import ClipGradByNorm, ClipGradByValue
+    from paddle_tpu_torch.regularizer import L1Decay, L2Decay
+
+    sched = O.lr.OneCycleLR(1e-3, total_steps=8, end_learning_rate=1e-5)
+    return {
+        "Momentum": lambda ps: O.Momentum(sched, 0.9, ps, weight_decay=L2Decay(1e-4)),
+        "Adagrad": lambda ps: O.Adagrad(sched, parameters=ps, weight_decay=L1Decay(1e-6)),
+        "Adadelta": lambda ps: O.Adadelta(sched, parameters=ps, grad_clip=ClipGradByValue(0.1)),
+        "RMSProp": lambda ps: O.RMSProp(sched, parameters=ps, centered=True, momentum=0.9,
+                                        grad_clip=ClipGradByNorm(1.0)),
+        "Lamb": lambda ps: O.Lamb(sched, parameters=ps,
+                                  exclude_from_weight_decay_fn=lambda n: n.endswith("bias")),
+        "Adamax": lambda ps: O.Adamax(sched, parameters=ps),
+        "NAdam": lambda ps: O.NAdam(sched, parameters=ps),
+        "RAdam": lambda ps: O.RAdam(sched, parameters=ps),
+        "ASGD": lambda ps: O.ASGD(sched, parameters=ps),
+        "Rprop": lambda ps: O.Rprop(sched, parameters=ps),
+    }[name]
+
+
+@pytest.mark.parametrize("name", ["Momentum", "Adagrad", "Adadelta", "RMSProp", "Lamb",
+                                  "Adamax", "NAdam", "RAdam", "ASGD", "Rprop"])
+def test_gpt_optimizer_tier_recorded_equals_eager(cuda, name):
+    """Each of the ten optimizers on the GPT-2-width model under O1 bf16,
+    its rate from OneCycleLR stepped between steps: two eager steps, then
+    three graphed steps equal three eager steps from the same state bit
+    for bit, each reading its step's rate (RAdam past its rho_t > 4
+    boundary at t = 5), every loss finite."""
+    step = _gpt_trainer(cuda, _tier(name), "bfloat16")
+    sched = step.optimizer._lr_scheduler
+    ids = torch.randint(0, 4096, (2, 256), generator=torch.Generator(device=cuda).manual_seed(74),
+                        device=cuda)
+    for _ in range(2):
+        step._eager_step(ids, ids)
+        sched.step()
+    step.warmup(ids, ids)
+    saved = [t.detach().clone() for t in step._state()]
+    count, sched_state = step.optimizer._step_count, sched.state_dict()
+    graphed = []
+    for _ in range(3):
+        graphed.append(float(step(ids, ids)))
+        sched.step()
+    after = [t.detach().clone() for t in step._state()]
+    with torch.no_grad():
+        for t, v in zip(step._state(), saved):
+            t.copy_(v)
+    step.optimizer._step_count = count
+    sched.set_state_dict(sched_state)
+    eager = []
+    for _ in range(3):
+        eager.append(float(step._eager_step(ids, ids)))
+        sched.step()
+    assert graphed == eager and all(torch.isfinite(torch.tensor(graphed)))
+    assert all(torch.equal(x, y) for x, y in zip(after, step._state()))

@@ -88,15 +88,17 @@ def _assert_margins(tm, ids, stream):
 @pytest.mark.parametrize("heads", ["mha", "gqa"])
 def test_greedy_naive_and_paged_match_reference(pairs, heads):
     """The JAX package's test_paged_matches_naive_decode, held across the
-    two packages: naive and paged greedy tokens, each equal to JAX's."""
+    two packages: naive and paged greedy tokens, each equal to JAX's (6
+    new tokens after a 5-token prompt: the paged cache crosses into its
+    second 8-slot block)."""
     jm, tm = pairs[heads]
     ids = _ids()
-    want = _jgen(jm, ids, max_new_tokens=8, cache="naive")
-    np.testing.assert_array_equal(_jgen(jm, ids, max_new_tokens=8, block_size=8), want)
+    want = _jgen(jm, ids, max_new_tokens=6, cache="naive")
+    np.testing.assert_array_equal(_jgen(jm, ids, max_new_tokens=6, block_size=8), want)
     _assert_margins(tm, ids, want)
-    naive = _tgen(tm, ids, max_new_tokens=8, cache="naive")
-    paged = _tgen(tm, ids, max_new_tokens=8, block_size=8)
-    assert naive.shape == (2, 8) and naive.dtype == np.int64
+    naive = _tgen(tm, ids, max_new_tokens=6, cache="naive")
+    paged = _tgen(tm, ids, max_new_tokens=6, block_size=8)
+    assert naive.shape == (2, 6) and naive.dtype == np.int64
     np.testing.assert_array_equal(naive, want)
     np.testing.assert_array_equal(paged, want)
 
@@ -273,19 +275,25 @@ def test_beam_length_penalty_warns_and_divides(pairs):
 @pytest.mark.parametrize("draft", ["self", "cross"])
 def test_speculative_matches_reference(pairs, draft):
     """Self-draft and a cross-model draft (the GQA model of the same
-    vocabulary), K 3, 12 tokens: tokens and _spec_stats equal the JAX
-    package's, and the tokens equal the port's naive greedy."""
+    vocabulary), K 3, 4 tokens from a 5-token prompt: the self-draft's one
+    tick accepts every proposal, the cross draft is rejected at each of
+    its 4 ticks.  Tokens and _spec_stats equal the JAX package's, and the
+    tokens equal the port's naive greedy.  The reference's cost is one
+    XLA compile per op and cache length, so the streams are kept short."""
     jm, tm = pairs["mha"]
     jd, td = (jm, tm) if draft == "self" else pairs["gqa"]
-    ids = _ids(rows=1, seed=4, s=9)
-    want = _jgen(jm, ids, max_new_tokens=12, draft_model=jd, num_speculative_tokens=3)
+    new = 4
+    ids = _ids(rows=1, seed=4, s=5)
+    want = _jgen(jm, ids, max_new_tokens=new, draft_model=jd, num_speculative_tokens=3)
     _assert_margins(tm, ids, want)
-    got = _tgen(tm, ids, max_new_tokens=12, draft_model=td, num_speculative_tokens=3)
+    got = _tgen(tm, ids, max_new_tokens=new, draft_model=td, num_speculative_tokens=3)
     np.testing.assert_array_equal(got, want)
     assert tm._spec_stats == jm._spec_stats
-    np.testing.assert_array_equal(got, _tgen(tm, ids, max_new_tokens=12, cache="naive"))
+    np.testing.assert_array_equal(got, _tgen(tm, ids, max_new_tokens=new, cache="naive"))
     if draft == "self":
-        assert tm._spec_stats["accepted"] == tm._spec_stats["proposed"]
+        assert tm._spec_stats["accepted"] == tm._spec_stats["proposed"] > 0
+    else:
+        assert tm._spec_stats["accepted"] < tm._spec_stats["proposed"]
 
 
 def _errors():

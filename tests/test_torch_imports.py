@@ -3,7 +3,7 @@
 - importing paddle_tpu_torch loads neither jax nor any paddle_tpu module;
 - no module of the package imports them (AST scan);
 - the package never calls torch's scaled_dot_product_attention,
-  rms_norm or layer_norm, nor torch.compile (AST scan, and CPU runs with
+  rms_norm, layer_norm or dropouts, nor torch.compile (AST scan, and CPU runs with
   those entry points, and torch._addmm_activation, made to raise);
 - the training path uses no torch.optim (AST scan, and a CPU TrainStep
   run with torch.optim's optimizers made to raise);
@@ -20,7 +20,8 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "paddle_tpu_torch"
-FORBIDDEN_CALLS = {"scaled_dot_product_attention", "rms_norm", "layer_norm"}
+FORBIDDEN_CALLS = {"scaled_dot_product_attention", "rms_norm", "layer_norm", "dropout",
+                   "alpha_dropout", "feature_alpha_dropout", "dropout2d", "dropout3d"}
 
 
 def _sources():
@@ -44,7 +45,10 @@ def test_import_loads_no_jax_and_no_paddle_tpu():
             " paddle_tpu_torch.ops.matmul_epilogue, paddle_tpu_torch.static.codegen,"
             " paddle_tpu_torch.static.rewrite, paddle_tpu_torch.serving.snapshot,"
             " paddle_tpu_torch.nn.lora, paddle_tpu_torch.distributed.checkpoint.manager,"
-            " paddle_tpu_torch.amp, paddle_tpu_torch.models.llama;"
+            " paddle_tpu_torch.amp, paddle_tpu_torch.models.llama,"
+            " paddle_tpu_torch.models.gpt, paddle_tpu_torch.regularizer,"
+            " paddle_tpu_torch._core.random, paddle_tpu_torch.nn.layer.layers,"
+            " paddle_tpu_torch.optimizer.optimizers;"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'paddle_tpu'));"
             "print(bad); sys.exit(1 if bad else 0)")
@@ -110,8 +114,12 @@ def test_train_step_never_reaches_torch_optim(monkeypatch):
     def _refuse(*args, **kwargs):
         raise AssertionError("the port used torch.optim")
 
-    for name in ("SGD", "Adam", "AdamW"):
+    for name in ("SGD", "Adam", "AdamW", "Adagrad", "Adadelta", "Adamax", "ASGD", "NAdam",
+                 "RAdam", "RMSprop", "Rprop", "LBFGS"):
         monkeypatch.setattr(torch.optim, name, _refuse)
+    for mod, name in ((torch.nn.functional, "dropout"), (torch, "dropout"),
+                      (torch, "bernoulli"), (torch.nn.functional, "alpha_dropout")):
+        monkeypatch.setattr(mod, name, _refuse)
     from paddle_tpu_torch.jit import TrainStep
     from paddle_tpu_torch.models import LlamaForCausalLM, llama_tiny
     from paddle_tpu_torch.optimizer import AdamW
@@ -124,6 +132,19 @@ def test_train_step_never_reaches_torch_optim(monkeypatch):
     ids = torch.randint(0, 1024, (1, 8), generator=g)
     losses = [float(step(ids, ids)) for _ in range(2)]
     assert losses[1] < losses[0]
+    # GPT with dropout, under each of the other optimizers
+    from paddle_tpu_torch import optimizer as topt
+    from paddle_tpu_torch.models import GPTForCausalLM, gpt_tiny
+
+    gpt = GPTForCausalLM(gpt_tiny(hidden_size=32, intermediate_size=64, vocab_size=64,
+                                  max_position_embeddings=8, num_hidden_layers=1,
+                                  dropout=0.1), device="cpu", generator=g)
+    ids = torch.randint(0, 64, (1, 8), generator=g)
+    for name in ("Momentum", "Adagrad", "Adadelta", "RMSProp", "Lamb", "Adamax", "NAdam",
+                 "RAdam", "ASGD", "Rprop"):
+        opt = getattr(topt, name)(1e-3, parameters=gpt.parameters())
+        step = TrainStep(gpt, opt, lambda m, i, l: m(i, labels=l)[0])
+        assert torch.isfinite(step(ids, ids)), name
 
 
 def test_cpu_run_never_reaches_library_kernels(monkeypatch):
@@ -177,6 +198,10 @@ def test_entry_points_default_to_cuda():
         time_step_ms(lambda: None)
     with pytest.raises(RuntimeError, match="CUDA"):
         synchronize()
+    from paddle_tpu_torch.models import GPTForCausalLM, gpt_tiny
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        GPTForCausalLM(gpt_tiny(num_hidden_layers=1))
     from paddle_tpu_torch import static
     from paddle_tpu_torch.models import BertForSequenceClassification, bert_tiny
 
@@ -265,6 +290,10 @@ def test_static_bert_cpu_run_never_reaches_library_kernels(monkeypatch):
                       (torch.nn.functional, "scaled_dot_product_attention"),
                       (torch, "_addmm_activation")):
         monkeypatch.setattr(mod, name, _refuse)
+    from paddle_tpu_torch.models import GPTForCausalLM, gpt_tiny
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        GPTForCausalLM(gpt_tiny(num_hidden_layers=1))
     from paddle_tpu_torch import static
     from paddle_tpu_torch.models import BertForSequenceClassification, bert_tiny
 

@@ -87,8 +87,11 @@ def test_cross_entropy_all_ignored_and_soft_labels():
     logits, labels, _ = _ce_inputs()
     got = tF.cross_entropy(torch.from_numpy(logits), torch.full((12,), -100))
     assert float(got) == 0.0  # mean over max(count, 1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tF.cross_entropy(torch.from_numpy(logits), torch.from_numpy(logits), soft_label=True)
+    # soft labels are ported: the softmax of other logits as the target
+    soft = np.exp(logits[::-1]) / np.exp(logits[::-1]).sum(-1, keepdims=True)
+    want = jF.cross_entropy(Tensor(_jnp(logits)), Tensor(_jnp(soft)), soft_label=True)
+    got = tF.cross_entropy(torch.from_numpy(logits), torch.from_numpy(soft), soft_label=True)
+    np.testing.assert_allclose(float(got), float(want._value), rtol=F32_TOL)
 
 
 # ---------------------------------------------------------------- optimizers
@@ -361,6 +364,8 @@ def test_unported_options_raise_naming_the_roadmap():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         topt.SGD(0.1, parameters=[p]).step()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
+        topt.LBFGS(0.1, parameters=[p])
+    with pytest.raises(TypeError):  # regularizers are ported; an object is neither
         topt.Adam(0.1, parameters=[p], weight_decay=object())
 
 

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the port's training time goes on the card.
 
-    python3 tools/profile_torch_training.py [--lora]
+    python3 tools/profile_torch_training.py [--lora | --gpt [--o1]]
 
 Builds the ``chip_smoke.py`` phase-4 configuration (bench.py's flagship
 LLaMA, bf16, 8 layers, batch 4 x 1024) with ``TrainStep`` and AdamW,
@@ -24,7 +24,13 @@ prints four JSON lines:
 
 With ``--lora`` the model first takes ``chip_smoke.py`` phase 4b's
 adapters (``apply_lora``, rank 16, the base frozen) and AdamW trains
-them alone, at phase 4b's rate.  Needs one CUDA card.
+them alone, at phase 4b's rate.  With ``--gpt`` the model is phase 4d's
+GPT-2 small (f32, dropout 0.1, batch 8 x 1024; ``--o1`` under auto_cast
+O1 bf16) with AdamW and ``ClipGradByGlobalNorm(1.0)``, and a fifth line
+gives dropout's share: one eager step with each dropout's forward in its
+own ``record_function`` range, the device time of the events launched
+inside them (the mask's hash and the select) against the step's.  Needs
+one CUDA card.
 """
 
 from __future__ import annotations
@@ -118,6 +124,45 @@ def profile_phases(model, opt, loss_fn, ids, labels):
     return {"profile": "one step by phase", "phases": out}
 
 
+def profile_dropout(model, opt, loss_fn, ids, labels):
+    """One eager step with every dropout forward inside a ``dropout``
+    range: device ms and events launched there, against the whole step's
+    device ms.  The backward's share (one select a dropout) is not in it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from paddle_tpu_torch.nn.functional import common
+
+    plain = common._dropout
+
+    def ranged(v, **kw):
+        with record_function("dropout"):
+            return plain(v, **kw)
+
+    common._dropout = ranged
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            loss_fn(model, ids, labels).backward()
+            opt.step()
+            opt.clear_grad()
+            torch.cuda.synchronize()
+    finally:
+        common._dropout = plain
+    ranges = [e.time_range for e in prof.events()
+              if e.name == "dropout" and e.device_type == DeviceType.CPU]
+    events = serving_profile.device_events(prof, exclude=("dropout",))
+    launched = launch_times(prof)
+    inside = [e for e in events if launched.get(e.id) is not None
+              and any(r.start <= launched[e.id] < r.end for r in ranges)]
+    step_busy = serving_profile.busy_us(events) / 1e3
+    drop_busy = serving_profile.busy_us(inside) / 1e3
+    return {"profile": "dropout's forward in one eager step", "dropouts": len(ranges),
+            "dropout_device_ms": drop_busy, "dropout_device_events": len(inside),
+            "step_device_busy_ms": step_busy, "dropout_share_of_busy": drop_busy / step_busy,
+            "top_kernels": serving_profile.top_kernels(inside, 8)}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("profile_torch_training: no CUDA device", file=sys.stderr)
@@ -129,6 +174,8 @@ def main() -> int:
     from paddle_tpu_torch.optimizer import AdamW
 
     print(serving_profile.card_line(), flush=True)
+    if "--gpt" in sys.argv[1:]:
+        return gpt_main(chip_smoke, "--o1" in sys.argv[1:])
     cfg = chip_smoke.train_config()
     model = LlamaForCausalLM(cfg, device="cuda",
                              generator=torch.Generator(device="cuda").manual_seed(1))
@@ -152,6 +199,34 @@ def main() -> int:
     print(json.dumps(profile_steps(step, ids, labels)), flush=True)
     print(json.dumps(profile_steps(step._eager_step, ids, labels, what="eager body")), flush=True)
     print(json.dumps(profile_phases(model, opt, chip_smoke._loss_fn, ids, labels)), flush=True)
+    return 0
+
+
+def gpt_main(chip_smoke, o1) -> int:
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import GPTForCausalLM
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+
+    cfg = chip_smoke.gpt_config()
+    model = GPTForCausalLM(cfg, device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(21))
+    g = torch.Generator(device="cuda").manual_seed(22)
+    shape = (chip_smoke.GPT_BATCH, chip_smoke.GPT_SEQ)
+    ids = torch.randint(0, cfg.vocab_size, shape, generator=g, device="cuda")
+    labels = torch.randint(0, cfg.vocab_size, shape, generator=g, device="cuda")
+    loss_fn = chip_smoke._amp_loss_fn("bfloat16") if o1 else chip_smoke._loss_fn
+    opt = AdamW(learning_rate=1e-4, parameters=model.parameters(), weight_decay=0.01,
+                grad_clip=ClipGradByGlobalNorm(1.0))
+    step = TrainStep(model, opt, loss_fn)
+    step_ms(step, ids, labels, n=3)  # warm-up
+    config = (f"chip_smoke.py phase 4d: GPT-2 small, {'O1 bf16' if o1 else 'f32'}, dropout "
+              f"{cfg.dropout}, batch {shape[0]} x {shape[1]}")
+    print(json.dumps({"config": config, "step_ms": step_ms(step, ids, labels)}), flush=True)
+    print(json.dumps(profile_steps(step, ids, labels)), flush=True)
+    print(json.dumps(profile_steps(step._eager_step, ids, labels, what="eager body")), flush=True)
+    print(json.dumps(profile_phases(model, opt, loss_fn, ids, labels)), flush=True)
+    print(json.dumps(profile_dropout(model, opt, loss_fn, ids, labels)), flush=True)
     return 0
 
 
