@@ -266,6 +266,25 @@ Phases, each of which raises (exit code != 0) on failure:
    eager steps, ``warmup()`` (state unchanged), 3 graphed steps reading a
    new rate each, then 3 eager steps from a copy of the state: losses and
    every state tensor bit for bit, every loss finite.
+4f. ResNet-50 (vision.models.resnet50(): 25,557,032 parameters, f32,
+   seeded random weights; one seeded batch of 256 x 3 x 224 x 224 f32
+   images with int32 labels over 1,000 classes, as
+   benchmarks/bench_resnet.py feeds), TrainStep with Momentum(0.1) and
+   CrossEntropyLoss: (a) the f32 first step's loss, gradients and new
+   running statistics on the card against the port's CPU run of the same
+   step from the same weights, at 8 images (TF32 off); (b) under
+   auto_cast O1 bf16 with cudnn.deterministic: 3 eager steps,
+   ``warmup()`` (every state tensor as it was, the running statistics
+   included), 10 graphed steps, then 10 eager steps from a copy of that
+   state: losses and every state tensor bit for bit; then two eager
+   steps with cuDNN's default algorithms, twice from one state (their ms
+   and whether they agree); (c) eval() logits at the same batch, finite,
+   from the running statistics, which the eval forward leaves as they
+   were.  No kernel of the port's runs here (0 launches of each).
+   Prints ms a step graphed and eager, images/s, the model-FLOP share
+   (the convolutions' and the head's multiply-adds from their shapes, x 3
+   for a training step, against 989 TFLOP/s), the device busy share
+   (torch.profiler over two steps) and peak memory.
 5. Run BERT-base (12 layers, hidden 768, bf16, seeded random weights)
    through the static Program tier: capture
    BertForSequenceClassification under static.program_guard, run
@@ -295,8 +314,9 @@ Phases, each of which raises (exit code != 0) on failure:
 7. Print the ``kernels`` JSON line (all thirteen kernels, launches by main
    path, phase 3b's two checked engines, phase 3c's three spec engines,
    phase 3d's adapter engines, phase 3e's snapshot engines, phase 3f's
-   generate modes, phases 4, 4b, 4c and 4d's graphed and eager steps and
-   phase 4e's optimizers among them; the flash forward,
+   generate modes, phases 4, 4b, 4c and 4d's graphed and eager steps,
+   phase 4e's optimizers and phase 4f's ResNet-50 (0 each) among them;
+   the flash forward,
    the two backward kernels, the prefill chain and the matmul epilogue
    with their launches by route), then the result line.
 
@@ -4087,6 +4107,253 @@ def train_optimizers(card, model, ids, labels):
     return {"gpt_optimizers": totals, "gpt_optimizers_eager": e_totals}
 
 
+RESNET_BATCH = 256             # phase 4f: one of benchmarks/bench_resnet.py's batch sizes
+RESNET_CHECK_BATCH = 8         # phase 4f (a): the f32 first step held against the CPU
+RESNET_WARM, RESNET_TIMED = 3, 10  # phase 4f (b): eager steps, then graphed and eager steps
+RESNET_PARAMS = 25_557_032     # resnet50(): the torchvision / Paddle ResNet-50 count
+RESNET_LOSS_TOL = 1e-5         # (a) relative: an f32 mean over 8 rows of 1,000 logits
+RESNET_STAT_TOL = 1e-4         # (a) relative L2 of each new running statistic (f32 sums over
+                               # up to 8 x 112 x 112 values a channel, in other orders)
+RESNET_GRAD_TOL = 5e-2         # (a) relative L2 of each gradient: ResNet-50's f32 gradients
+                               # at batch 8 move by up to a few % when the input moves by
+                               # one rounding (ReLU kinks flip; the spread is printed beside)
+
+
+def _resnet_loss_fn(o1):
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.nn import CrossEntropyLoss
+
+    ce = CrossEntropyLoss()
+
+    def loss_fn(model, images, labels):
+        with amp.auto_cast(enable=o1, dtype="bfloat16"):
+            return ce(model(images), labels)
+
+    return loss_fn
+
+
+def resnet_flops(model, images):
+    """The forward's FLOPs from the convolutions' and the head's shapes
+    (2 x multiply-adds), counted by forward hooks on one image in eval
+    mode (nothing of the running statistics moves), times the batch."""
+    from paddle_tpu_torch.nn import Conv2D, Linear
+
+    total = [0]
+
+    def conv(mod, args, out):
+        total[0] += 2 * out.numel() * math.prod(mod.weight.shape[1:])
+
+    def fc(mod, args, out):
+        total[0] += 2 * out.numel() * mod.weight.shape[0]
+
+    hooks = [m.register_forward_hook(conv if isinstance(m, Conv2D) else fc)
+             for m in model.modules() if isinstance(m, (Conv2D, Linear))]
+    model.eval()
+    try:
+        with torch.no_grad():
+            model(images[:1])
+    finally:
+        model.train()
+        for h in hooks:
+            h.remove()
+    return total[0] * images.shape[0]
+
+
+def _resnet_grads_stats(model, images, labels):
+    """One f32 forward and backward in training mode: the loss, every
+    gradient and the new running statistics (the model's grads and
+    statistics are put back as they were)."""
+    saved = {k: v.clone() for k, v in model.state_dict().items() if "._" in k}
+    model.zero_grad(set_to_none=True)
+    loss = _resnet_loss_fn(False)(model, images, labels)
+    loss.backward()
+    grads = {n: p.grad.detach().double().cpu() for n, p in model.named_parameters()}
+    stats = {k: v.detach().double().cpu() for k, v in model.state_dict().items() if "._" in k}
+    model.zero_grad(set_to_none=True)
+    with torch.no_grad():
+        for k, v in model.state_dict().items():
+            if k in saved:
+                v.copy_(saved[k])
+    return float(loss.detach()), grads, stats
+
+
+def _worst_rel(a, b):
+    return max(float((a[k] - b[k]).norm() / b[k].norm().clamp_min(1e-30)) for k in b)
+
+
+def check_resnet_first_step(model, images, labels):
+    """(a): the f32 first step's loss, gradients and new running statistics
+    on the card against the port's CPU run of the same step from the same
+    weights, at RESNET_CHECK_BATCH images; beside them the card's own
+    spread when every image moves by one f32 rounding (x (1 + 2^-23))."""
+    from paddle_tpu_torch.vision.models import resnet50
+
+    x, y = images[:RESNET_CHECK_BATCH].clone(), labels[:RESNET_CHECK_BATCH].clone()
+    card = _resnet_grads_stats(model, x, y)
+    nudged = _resnet_grads_stats(model, x * (1 + 2.0 ** -23), y)
+    cpu_model = resnet50(device="cpu")
+    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    t0 = time.perf_counter()
+    cpu = _resnet_grads_stats(cpu_model, x.cpu(), y.cpu())
+    cpu_s = time.perf_counter() - t0
+    loss_rel = abs(card[0] - cpu[0]) / abs(cpu[0])
+    grad_rel, stat_rel = _worst_rel(card[1], cpu[1]), _worst_rel(card[2], cpu[2])
+    check(loss_rel <= RESNET_LOSS_TOL, f"resnet50 f32 first loss {card[0]} vs CPU {cpu[0]}")
+    check(all(bool(torch.isfinite(g).all()) for g in card[1].values()),
+          "resnet50: a non-finite gradient on the card")
+    check(grad_rel <= RESNET_GRAD_TOL, f"resnet50 f32 gradients: worst relative L2 {grad_rel} "
+          f"from the CPU's > {RESNET_GRAD_TOL}")
+    check(stat_rel <= RESNET_STAT_TOL, f"resnet50 running statistics: worst relative L2 "
+          f"{stat_rel} from the CPU's > {RESNET_STAT_TOL}")
+    return {"batch": RESNET_CHECK_BATCH, "loss": card[0], "cpu_loss": cpu[0],
+            "loss_rel_diff": loss_rel, "grad_worst_rel_l2": grad_rel,
+            "grad_median_rel_l2": statistics.median(
+                float((card[1][k] - cpu[1][k]).norm() / cpu[1][k].norm()) for k in cpu[1]),
+            "stat_worst_rel_l2": stat_rel,
+            "one_rounding_spread": {"grad_worst_rel_l2": _worst_rel(nudged[1], card[1]),
+                                    "stat_worst_rel_l2": _worst_rel(nudged[2], card[2])},
+            "cpu_s": cpu_s,
+            "tolerances": {"loss": RESNET_LOSS_TOL, "grad": RESNET_GRAD_TOL,
+                           "stat": RESNET_STAT_TOL}}
+
+
+def _resnet_state(step):
+    """Copies of every tensor the step reads and writes (TrainStep._state:
+    parameters, the running statistics, velocities, the rate, the RNG
+    state) and the step count."""
+    return [t.detach().clone() for t in step._state()], step.optimizer._step_count
+
+
+@torch.no_grad()
+def _set_resnet_state(step, state):
+    tensors, count = state
+    for t, v in zip(step._state(), tensors, strict=True):
+        t.copy_(v)
+    step.optimizer._step_count = count
+
+
+def _busy_share(run, n=2):
+    """``n`` calls of ``run`` under torch.profiler: the card's busy time
+    (kernels, copies, memsets; overlaps once) over the profiled wall."""
+    import profile_torch_serving as prof_tools
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / n
+    events = prof_tools.device_events(prof)
+    busy_ms = prof_tools.busy_us(events) / 1e3 / n
+    return {"profiled_wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "busy_share": busy_ms / wall_ms, "device_events": len(events) / n}
+
+
+def train_resnet(card):
+    """Phase 4f: ResNet-50 (module docstring).  Returns the launches of the
+    graphed and of the eager steps (every kernel's 0)."""
+    from paddle_tpu_torch import amp, ops
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.vision.models import resnet50
+
+    torch.cuda.reset_peak_memory_stats()
+    model = resnet50(device=DEVICE, generator=torch.Generator(device=DEVICE).manual_seed(31))
+    n_params = sum(p.numel() for p in model.parameters())
+    check(n_params == RESNET_PARAMS, f"resnet50: {n_params} parameters")
+    g = torch.Generator(device=DEVICE).manual_seed(32)
+    images = torch.randn(RESNET_BATCH, 3, 224, 224, generator=g, device=DEVICE)
+    labels = torch.randint(0, 1000, (RESNET_BATCH,), generator=g, device=DEVICE,
+                           dtype=torch.int32)
+    flops = 3 * resnet_flops(model, images)  # forward, and the backward's two products
+    first = check_resnet_first_step(model, images, labels)
+    per_step = dict.fromkeys(ops.launch_counts(), 0)  # no kernel of the port's on this path
+    step = TrainStep(model, Momentum(0.1, parameters=model.parameters()), _resnet_loss_fn(True))
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True  # (b) compares bit for bit
+    try:
+        warm, warm_ms, _ = _train_steps(step, step._eager_step, images, labels, RESNET_WARM,
+                                        per_step, "resnet50 eager warm-up")
+        saved = _resnet_state(step)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step.warmup(images, labels)
+        torch.cuda.synchronize()
+        warmup_s = time.perf_counter() - t0
+        moved, _ = _state_differing(_resnet_state(step), saved)
+        check(moved == 0 and all(p.grad is None for p in model.parameters()),
+              f"resnet50: warmup() changed {moved} state elements or left a grad")
+        g_losses, graphed_ms, totals = _train_steps(step, step, images, labels, RESNET_TIMED,
+                                                    per_step, "resnet50 graphed")
+        graphed_state = _resnet_state(step)
+        busy = _busy_share(lambda: step(images, labels))
+        captured = step._steps[((tuple(images.shape), images.dtype),
+                                (tuple(labels.shape), labels.dtype))]
+        capture = {"capture_s": captured.step.capture_s,
+                   "graph_bytes": captured.step.graph_bytes}
+        peak_graphed = torch.cuda.max_memory_allocated() / 1e9
+        step._steps.clear()  # the graph's pool back before the eager steps
+        del captured
+        gc.collect()
+        torch.cuda.empty_cache()
+        _set_resnet_state(step, saved)
+        e_losses, eager_ms, e_totals = _train_steps(step, step._eager_step, images, labels,
+                                                    RESNET_TIMED, per_step, "resnet50 eager")
+        differing, max_err = _state_differing(graphed_state, _resnet_state(step))
+        check(g_losses == e_losses and differing == 0,
+              f"resnet50: graphed steps differ from eager steps from the same state: losses "
+              f"{g_losses} vs {e_losses}, {differing} state elements (max abs {max_err})")
+        eager_busy = _busy_share(lambda: step._eager_step(images, labels))
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    # the default (non-deterministic) cuDNN algorithms: their eager ms, and
+    # whether two eager steps from one state agree bit for bit
+    _set_resnet_state(step, graphed_state)
+    default_losses, default_ms, _ = _train_steps(step, step._eager_step, images, labels, 2,
+                                                 per_step, "resnet50 eager, cuDNN default")
+    first_default = _resnet_state(step)
+    _set_resnet_state(step, graphed_state)
+    again, _, _ = _train_steps(step, step._eager_step, images, labels, 2, per_step,
+                               "resnet50 eager, cuDNN default, again")
+    default_differing, _ = _state_differing(first_default, _resnet_state(step))
+    losses = warm + g_losses
+    check(all(math.isfinite(x) for x in losses), f"resnet50: non-finite loss {losses}")
+    # (c) the eval forward reads the running statistics and leaves them
+    stats = {k: v.clone() for k, v in model.state_dict().items() if "._" in k}
+    moved_stats = sum(int((v != 0).any()) for k, v in stats.items() if k.endswith("._mean"))
+    model.eval()
+    with torch.no_grad(), amp.auto_cast(dtype="bfloat16"):
+        logits = model(images)
+    model.train()
+    check(tuple(logits.shape) == (RESNET_BATCH, 1000) and bool(torch.isfinite(logits).all()),
+          f"resnet50 eval logits: shape {tuple(logits.shape)} or not finite")
+    check(all(torch.equal(v, model.state_dict()[k]) for k, v in stats.items()),
+          "resnet50: the eval forward moved a running statistic")
+    check(moved_stats == 53, f"resnet50: {moved_stats} of 53 BatchNorms' means moved")
+    emit({"trainer": f"ResNet-50 ({n_params} parameters, f32 weights), Momentum(0.1), "
+                     f"CrossEntropyLoss, auto_cast O1 bf16, batch {RESNET_BATCH} x 3 x 224 x 224",
+          "card": card, "first_step_f32_vs_cpu": first, "model_flops_per_step": flops,
+          "losses": losses, "eager_losses": e_losses, "graphed_equal_eager": True,
+          "cudnn_deterministic_for_the_comparison": True,
+          "step_ms": graphed_ms, "eager_step_ms": eager_ms, "warm_eager_step_ms": warm_ms,
+          "images_per_s": RESNET_BATCH / (graphed_ms / 1e3),
+          "eager_images_per_s": RESNET_BATCH / (eager_ms / 1e3),
+          "model_flop_share": flops / (graphed_ms / 1e3) / BF16_TC_FLOPS,
+          "eager_model_flop_share": flops / (eager_ms / 1e3) / BF16_TC_FLOPS,
+          "graphed_profile": busy, "eager_profile": eager_busy,
+          "cudnn_default": {"eager_step_ms": default_ms, "losses": default_losses + again,
+                            "state_elements_differing_between_two_runs": default_differing},
+          "warmup_s": warmup_s, **capture, "eval_logits_abs_max": float(logits.abs().max()),
+          "peak_memory_gb_graphed": peak_graphed,
+          "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9})
+    del step, model, images, labels, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"resnet50_o1": totals, "resnet50_o1_eager": e_totals}
+
+
 BERT_BATCH, BERT_SEQ = 32, 128   # benchmarks/bench_bert.py's batch for BERT-base
 BERT_LOGITS_REL_TOL = 5e-2       # relative L2 of bf16 logits against the f32 forward of the
                                  # same weights and against each other: the eager bf16
@@ -4542,12 +4809,17 @@ def main() -> int:
     del gpt_model, gpt_ids, gpt_labels
     gc.collect()
     torch.cuda.empty_cache()
+    paths.update(train_resnet(card))
     paths["static_bert"], bert = static_bert(card)
     paths["static_codegen"] = static_codegen(card, *bert)
     del bert
     llama_kernels = ("fused_rms_norm", "swiglu", "flash_attention_fwd", "flash_attention_fwd_sm90")
     codegen_kernels = ("vpu_chain", "sched_chain", "sched_chain_ktiled")
     for path, counts in paths.items():
+        if path.startswith("resnet50"):
+            # vision: convolutions (cuDNN), BatchNorm and pooling are plain torch
+            check(not any(counts.values()), f"{path}: launches {counts}")
+            continue
         if path.startswith("gpt_"):
             # GPT: the flash kernels alone (LayerNorm and GELU are plain),
             # f32 on the general route, O1 bf16 at H 64 on the sm90 route

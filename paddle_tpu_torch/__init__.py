@@ -18,12 +18,14 @@ It imports neither JAX nor anything of paddle_tpu.  Entry points
 from the device RNG state that ``seed`` resets) with ``optimizer.AdamW``
 or any of the other optimizers, in mixed precision under ``amp.auto_cast`` (with an
 ``amp.GradScaler`` for f16); ``LlamaForCausalLM.generate`` decodes
-without an engine; ``static.program_guard`` captures a model into a
+without an engine; ``vision.models.resnet50`` (and the rest of the
+ResNet family) trains through the same ``TrainStep``, its BatchNorms'
+running statistics part of the recorded step; ``static.program_guard`` captures a model into a
 ``static.Program`` that ``static.Executor`` runs through the fusion pass.
 """
 
 from . import (_core, amp, convert, device, jit, models, nn, ops, optimizer,  # noqa: F401
-               regularizer, serving, static)
+               regularizer, serving, static, vision)
 from ._core.flags import get_flags, set_flags  # noqa: F401
 from ._core.random import get_rng_state, seed, set_rng_state  # noqa: F401
 from .nn import ParamAttr  # noqa: F401

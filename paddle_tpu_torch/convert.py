@@ -3,9 +3,11 @@
 ``load_jax_state_dict(model, arrays)`` takes ``{key: np.ndarray}`` with the
 same keys as the JAX model's ``state_dict()`` (for example
 ``model.layers.0.mlp.gate_up_proj.weight``) and copies each array into the
-port's parameter of that name, with no transpose: both packages keep
-Paddle's ``[in_features, out_features]`` Linear layout (a model after
-``apply_lora`` has the JAX model's ``lora_A`` / ``lora_B`` keys too).
+port's parameter or buffer of that name, with no transpose: both packages
+keep Paddle's ``[in_features, out_features]`` Linear layout and the
+``[out, in / groups, *kernel]`` convolution layout (a model after
+``apply_lora`` has the JAX model's ``lora_A`` / ``lora_B`` keys too; a
+ResNet's BatchNorms carry ``_mean`` / ``_variance``).
 ``load_jax_adapter(arrays, dtype=, device=)`` carries an adapter-only
 state dict (the JAX package's ``lora_state_dict``) across, for
 ``GenerationEngine.register_adapter``.

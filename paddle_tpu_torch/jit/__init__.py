@@ -12,13 +12,14 @@ JAX package's ``_batch_sig``):
 - every later call copies the batch into the buffers, syncs the
   learning rate into the optimizer's rate tensor and replays, and returns
   a fresh loss tensor (a replay overwrites the graph's own);
-- the parameters, their grads, the f32 masters, moments, beta powers,
-  the rate and the device RNG state that dropout draws from
+- the parameters, their grads, the model's buffers (BatchNorm's running
+  statistics, which the step writes in place), the f32 masters, moments,
+  beta powers, the rate and the device RNG state that dropout draws from
   (``_core/random.py``) stay at fixed addresses, updated in place, so
   each replay draws fresh masks, the eager step's from the same state.
-  A state tensor rebound between calls (``p.data = ...``, an accumulator
-  created by ``set_state_dict``) makes the step record again, never
-  replay stale addresses.
+  A state tensor rebound between calls (``p.data = ...``, a buffer
+  reassigned, an accumulator created by ``set_state_dict``) makes the
+  step record again, never replay stale addresses.
 
 After a replay the visible state is the eager step's: grads are None
 and ``state_dict()["step_count"]`` counts the steps run.  On the CPU the
@@ -129,12 +130,20 @@ class TrainStep:
     def _params(self):
         return [p for p in self.optimizer._parameter_list if p.requires_grad]
 
+    def _buffers(self):
+        """The model's buffers in its ``state_dict`` (BatchNorm's running
+        statistics), as the JAX package's step state holds the whole
+        state dict; non-persistent ones (caches) are left out."""
+        return [t for t in self.model.state_dict(keep_vars=True).values()
+                if not isinstance(t, torch.nn.Parameter)]
+
     def _state(self):
         """Every tensor a recorded step reads at a fixed address: the
-        parameters, then the optimizer's accumulators and rate, then the
-        scaler's scale and counts, then the device's RNG state."""
+        parameters, the model's buffers, then the optimizer's accumulators
+        and rate, then the scaler's scale and counts, then the device's RNG
+        state."""
         scaler = [] if self.scaler is None else self.scaler.state_tensors()
-        return (self._params() + self.optimizer.opt_state_tensors() + scaler
+        return (self._params() + self._buffers() + self.optimizer.opt_state_tensors() + scaler
                 + [rng.state_tensor(self.device)])
 
     def _state_key(self):

@@ -53,12 +53,11 @@ def _dropout_infer(x, *, keep):
     return x * _scalar(keep, x)
 
 
-def _refuse_in_capture(name):
+def _refuse_in_capture(name, why="the JAX package bakes one key into the captured program"):
     if in_static_capture():
         raise NotImplementedError(
             f"{name} in training while a static Program is captured is not ported yet "
-            "(ROADMAP.md A.5.2, static training): the JAX package bakes one key into the "
-            "captured program")
+            f"(ROADMAP.md A.5.2, static training): {why}")
 
 
 def _check_p(p):

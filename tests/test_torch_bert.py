@@ -49,6 +49,13 @@ def classifier():
                  num_classes=2)
 
 
+def _compiled(layer):
+    """The JAX layer's forward compiled whole (``paddle.jit.to_static``)
+    rather than op by op: the same outputs within 1e-6, in a fraction of
+    the time.  The port's side stays eager."""
+    return paddle.jit.to_static(layer.forward)
+
+
 def _ids(seed, b=2, s=16, lengths=(16, 9)):
     """Token ids with pad id 0 after each sequence's length (ragged)."""
     ids = np.random.default_rng(seed).integers(1, 1024, (b, s)).astype(np.int32)
@@ -69,7 +76,7 @@ def test_state_dict_keys_equal_jax_and_load_carries_the_weights(classifier):
 def test_eager_classifier_matches_jax(classifier):
     jm, tm = classifier
     ids = _ids(0)
-    want = np.asarray(jm(paddle.to_tensor(ids))._value)
+    want = np.asarray(_compiled(jm)(paddle.to_tensor(ids))._value)
     with torch.no_grad():
         got = tm(torch.from_numpy(ids)).numpy()
     assert got.shape == want.shape == (2, 2)
@@ -79,7 +86,7 @@ def test_eager_classifier_matches_jax(classifier):
 def test_eager_classifier_loss_matches_jax(classifier):
     jm, tm = classifier
     ids, labels = _ids(1), np.array([0, 1], np.int64)
-    want, _ = jm(paddle.to_tensor(ids), labels=paddle.to_tensor(labels))
+    want, _ = _compiled(jm)(paddle.to_tensor(ids), labels=paddle.to_tensor(labels))
     with torch.no_grad():
         got, _ = tm(torch.from_numpy(ids), labels=torch.from_numpy(labels))
     np.testing.assert_allclose(float(got), float(np.asarray(want._value)), atol=TOL, rtol=TOL)
@@ -89,7 +96,7 @@ def test_eager_masked_lm_matches_jax():
     jm, tm = _pair(jbert.BertForMaskedLM, tbert.BertForMaskedLM, 4)
     ids = _ids(2)
     labels = np.where(ids > 0, ids, -100).astype(np.int64)
-    jloss, jlogits = jm(paddle.to_tensor(ids), labels=paddle.to_tensor(labels))
+    jloss, jlogits = _compiled(jm)(paddle.to_tensor(ids), labels=paddle.to_tensor(labels))
     with torch.no_grad():
         tloss, tlogits = tm(torch.from_numpy(ids), labels=torch.from_numpy(labels))
     assert tlogits.shape == (2, 16, 1024)
@@ -110,7 +117,7 @@ def test_encoder_layer_matches_jax(normalize_before):
     x = np.random.default_rng(6).standard_normal((2, 10, 64)).astype(np.float32)
     mask = np.zeros((2, 1, 1, 10), np.float32)
     mask[1, ..., 7:] = -1e4
-    want = np.asarray(jl(paddle.to_tensor(x), paddle.to_tensor(mask))._value)
+    want = np.asarray(_compiled(jl)(paddle.to_tensor(x), paddle.to_tensor(mask))._value)
     with torch.no_grad():
         got = tl(torch.from_numpy(x), torch.from_numpy(mask)).numpy()
     np.testing.assert_allclose(got, want, atol=TOL, rtol=TOL)

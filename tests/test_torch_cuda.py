@@ -2349,3 +2349,80 @@ def test_gpt_optimizer_tier_recorded_equals_eager(cuda, name):
         sched.step()
     assert graphed == eager and all(torch.isfinite(torch.tensor(graphed)))
     assert all(torch.equal(x, y) for x, y in zip(after, step._state()))
+
+
+def _resnet_trainer(cuda, o1):
+    """resnet18(num_classes=10) on the card with Momentum(0.1) and
+    CrossEntropyLoss, f32 or under auto_cast O1 bf16."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.nn import CrossEntropyLoss
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.vision.models import resnet18
+
+    model = resnet18(num_classes=10, device=cuda,
+                     generator=torch.Generator(device=cuda).manual_seed(80))
+    ce = CrossEntropyLoss()
+
+    def loss_fn(m, x, y):
+        with amp.auto_cast(enable=o1, dtype="bfloat16"):
+            return ce(m(x), y)
+
+    g = torch.Generator(device=cuda).manual_seed(81)
+    x = torch.randn(16, 3, 64, 64, generator=g, device=cuda)
+    y = torch.randint(0, 10, (16,), generator=g, device=cuda, dtype=torch.int32)
+    return TrainStep(model, Momentum(0.1, parameters=model.parameters()), loss_fn), x, y
+
+
+@pytest.mark.parametrize("o1", [False, True], ids=["f32", "o1_bf16"])
+def test_resnet_train_step_graphed_equals_eager_with_running_statistics(cuda, o1):
+    """resnet18 with cudnn.deterministic: one eager step, ``warmup()``
+    (every state tensor, the running statistics among them, bit for bit
+    as it was), then three graphed steps equal three eager steps from the
+    same state bit for bit, running statistics included, which the
+    replays write in place at their fixed addresses."""
+    step, x, y = _resnet_trainer(cuda, o1)
+    was = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        step._eager_step(x, y)
+        bn = step.model.bn1
+        ptrs = (bn._mean.data_ptr(), bn._variance.data_ptr())
+        assert any(t is bn._mean for t in step._state())
+        saved = [t.detach().clone() for t in step._state()]
+        count = step.optimizer._step_count
+        step.warmup(x, y)
+        assert all(torch.equal(a, b) for a, b in zip(saved, step._state()))
+        graphed = [float(step(x, y)) for _ in range(3)]
+        after = [t.detach().clone() for t in step._state()]
+        assert (bn._mean.data_ptr(), bn._variance.data_ptr()) == ptrs
+        first = len(step._params())  # the buffers follow the parameters in the state
+        stats = range(first, first + len(step._buffers()))
+        assert len(stats) == 2 * 20  # a mean and a variance for each of the 20 BatchNorms
+        assert all(not torch.equal(after[i], saved[i]) for i in stats)
+        with torch.no_grad():
+            for t, v in zip(step._state(), saved):
+                t.copy_(v)
+        step.optimizer._step_count = count
+        eager = [float(step._eager_step(x, y)) for _ in range(3)]
+    finally:
+        torch.backends.cudnn.deterministic = was
+    assert graphed == eager and all(torch.isfinite(torch.tensor(graphed)))
+    assert all(torch.equal(a, b) for a, b in zip(after, step._state()))
+
+
+def test_resnet_rebound_buffer_records_again(cuda):
+    """A running statistic rebound between calls (a new tensor, a new
+    address) makes the step record again rather than replay stale
+    addresses, and the new buffer is the one the replays write."""
+    step, x, y = _resnet_trainer(cuda, True)
+    step(x, y)
+    step(x, y)
+    captures = step.captures
+    bn = step.model.layer1[0].bn1
+    bn._mean = bn._mean.clone()
+    before = bn._mean.clone()
+    step(x, y)
+    assert step.captures == captures + 1
+    step(x, y)  # a replay of the new recording
+    assert step.captures == captures + 1 and not torch.equal(bn._mean, before)

@@ -25,6 +25,7 @@ import pytest
 import torch
 
 import paddle_tpu as paddle
+from paddle_tpu._core.tensor import Tensor
 from paddle_tpu.models import llama as jllama
 
 from paddle_tpu_torch.convert import load_jax_state_dict
@@ -44,6 +45,32 @@ def _one_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(threads)
+
+
+@pytest.fixture(autouse=True)
+def _compiled_reference_forward(monkeypatch):
+    """The JAX package's cached forward (``generate``'s prefill and every
+    naive-cache, beam and speculative step) compiled whole, one XLA
+    program a shape, rather than op by op: the same hidden states within
+    ~1e-6, far inside the MARGIN that every compared greedy step wins by,
+    in a fraction of the time.  Made anew for each test, so no trace
+    outlives the state it was made under."""
+    plain, compiled = jllama._model_forward_cached, {}
+
+    def forward(model, input_ids, caches, position_offset=0):
+        fn = compiled.get(id(model))
+        if fn is None:
+            def pure(ids, cache_values, offset):
+                h, new = plain(model, Tensor(ids),
+                               [(Tensor(k), Tensor(v)) for k, v in cache_values], offset)
+                return h._value, [(k._value, v._value) for k, v in new]
+
+            fn = compiled[id(model)] = jax.jit(pure, static_argnums=2)
+        h, new = fn(input_ids._value, [(k._value, v._value) for k, v in caches],
+                    int(position_offset))
+        return Tensor(h), [(Tensor(k), Tensor(v)) for k, v in new]
+
+    monkeypatch.setattr(jllama, "_model_forward_cached", forward)
 
 
 def _pair(seed, **over):

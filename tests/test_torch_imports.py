@@ -3,8 +3,8 @@
 - importing paddle_tpu_torch loads neither jax nor any paddle_tpu module;
 - no module of the package imports them (AST scan);
 - the package never calls torch's scaled_dot_product_attention,
-  rms_norm, layer_norm or dropouts, nor torch.compile (AST scan, and CPU runs with
-  those entry points, and torch._addmm_activation, made to raise);
+  rms_norm, layer_norm, batch_norm or dropouts, nor torch.compile (AST scan, and CPU
+  runs with those entry points, and torch._addmm_activation, made to raise);
 - the training path uses no torch.optim (AST scan, and a CPU TrainStep
   run with torch.optim's optimizers made to raise);
 - the entry points default to the CUDA card and raise without one.
@@ -21,7 +21,8 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "paddle_tpu_torch"
 FORBIDDEN_CALLS = {"scaled_dot_product_attention", "rms_norm", "layer_norm", "dropout",
-                   "alpha_dropout", "feature_alpha_dropout", "dropout2d", "dropout3d"}
+                   "alpha_dropout", "feature_alpha_dropout", "dropout2d", "dropout3d",
+                   "batch_norm"}
 
 
 def _sources():
@@ -48,7 +49,11 @@ def test_import_loads_no_jax_and_no_paddle_tpu():
             " paddle_tpu_torch.amp, paddle_tpu_torch.models.llama,"
             " paddle_tpu_torch.models.gpt, paddle_tpu_torch.regularizer,"
             " paddle_tpu_torch._core.random, paddle_tpu_torch.nn.layer.layers,"
-            " paddle_tpu_torch.optimizer.optimizers;"
+            " paddle_tpu_torch.optimizer.optimizers, paddle_tpu_torch.vision,"
+            " paddle_tpu_torch.vision.models.resnet, paddle_tpu_torch.nn.layer.container,"
+            " paddle_tpu_torch.nn.layer.conv, paddle_tpu_torch.nn.layer.pooling,"
+            " paddle_tpu_torch.nn.layer.activation, paddle_tpu_torch.nn.layer.loss,"
+            " paddle_tpu_torch.nn.functional.conv, paddle_tpu_torch.nn.functional.pooling;"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'paddle_tpu'));"
             "print(bad); sys.exit(1 if bad else 0)")
@@ -118,7 +123,8 @@ def test_train_step_never_reaches_torch_optim(monkeypatch):
                  "RAdam", "RMSprop", "Rprop", "LBFGS"):
         monkeypatch.setattr(torch.optim, name, _refuse)
     for mod, name in ((torch.nn.functional, "dropout"), (torch, "dropout"),
-                      (torch, "bernoulli"), (torch.nn.functional, "alpha_dropout")):
+                      (torch, "bernoulli"), (torch.nn.functional, "alpha_dropout"),
+                      (torch.nn.functional, "batch_norm"), (torch, "batch_norm")):
         monkeypatch.setattr(mod, name, _refuse)
     from paddle_tpu_torch.jit import TrainStep
     from paddle_tpu_torch.models import LlamaForCausalLM, llama_tiny
@@ -145,6 +151,16 @@ def test_train_step_never_reaches_torch_optim(monkeypatch):
         opt = getattr(topt, name)(1e-3, parameters=gpt.parameters())
         step = TrainStep(gpt, opt, lambda m, i, l: m(i, labels=l)[0])
         assert torch.isfinite(step(ids, ids)), name
+    # ResNet: its BatchNorms are the port's plain arithmetic
+    from paddle_tpu_torch.nn import CrossEntropyLoss
+    from paddle_tpu_torch.vision.models import resnet18
+
+    net = resnet18(num_classes=10, device="cpu", generator=g)
+    ce = CrossEntropyLoss()
+    step = TrainStep(net, topt.Momentum(0.1, parameters=net.parameters()),
+                     lambda m, x, y: ce(m(x), y))
+    assert torch.isfinite(step(torch.randn(2, 3, 32, 32, generator=g),
+                               torch.randint(0, 10, (2,), generator=g, dtype=torch.int32)))
 
 
 def test_cpu_run_never_reaches_library_kernels(monkeypatch):

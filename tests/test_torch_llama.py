@@ -7,6 +7,7 @@ agree within 1e-4 absolute (two layers of matmuls summed in different
 orders; logits are of order 1).
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -85,10 +86,12 @@ def test_decode_layers_paged_step_matches_jax(pair):
     lens = np.array([6, 3], np.int32)
     h = rng.standard_normal((2, 1, cfg.hidden_size)).astype(np.float32)
 
-    jh, jk, jv = jllama._decode_layers_paged(
-        jm.model.layers, Tensor(jnp.asarray(h)), jm.model.rope_cos._value,
-        jm.model.rope_sin._value, [jnp.asarray(k) for k, _ in pools],
-        [jnp.asarray(v) for _, v in pools], jnp.asarray(tables), jnp.asarray(lens))
+    # the JAX step compiled whole (one XLA program) rather than op by op
+    jh, jk, jv = jax.jit(lambda hv, kp, vp, tb, ln: jllama._decode_layers_paged(
+        jm.model.layers, Tensor(hv), jm.model.rope_cos._value, jm.model.rope_sin._value,
+        kp, vp, tb, ln))(jnp.asarray(h), [jnp.asarray(k) for k, _ in pools],
+                         [jnp.asarray(v) for _, v in pools], jnp.asarray(tables),
+                         jnp.asarray(lens))
     with torch.no_grad():
         th, tk, tv = tllama._decode_layers_paged(
             tm.model.layers, torch.from_numpy(h), tm.model.rope_cos, tm.model.rope_sin,
@@ -116,8 +119,10 @@ def test_cached_prefill_then_cached_token_match_full_forward(pair):
         step = tm._logits(h2)
     np.testing.assert_allclose(step.numpy(), full[:, 8:].numpy(), atol=TOL, rtol=TOL)
     jempty = jllama._empty_caches(jm.config, 1)
-    jh, _ = jllama._model_forward_cached(jm.model, paddle.to_tensor(ids[:, :8]), jempty)
-    np.testing.assert_allclose(h.numpy(), np.asarray(jh._value), atol=TOL, rtol=TOL)
+    # the JAX cached forward compiled whole (one XLA program) rather than op by op
+    jh = jax.jit(lambda v: jllama._model_forward_cached(jm.model, Tensor(v), jempty)[0]._value)(
+        jnp.asarray(ids[:, :8]))
+    np.testing.assert_allclose(h.numpy(), np.asarray(jh), atol=TOL, rtol=TOL)
 
 
 def test_load_jax_state_dict_bf16_and_key_checks():

@@ -175,8 +175,10 @@ def test_paged_chunk_layer_matches_jax(models, kv):
     layer, the written pages equal (f32: 1e-6 relative and absolute, the
     projections' last bit; int8: the same bytes, and scales within 1e-6
     relative); a chain config with chunk=True raises."""
+    import jax
     import jax.numpy as jnp
 
+    from paddle_tpu._core.tensor import Tensor
     from paddle_tpu.ops import paged_attention as jpa
 
     jm, tm = models["target"]
@@ -198,16 +200,24 @@ def test_paged_chunk_layer_matches_jax(models, kv):
         jk, jv = jnp.asarray(kv_init), jnp.asarray(kv_init[::-1].copy())
         tk, tv = torch.from_numpy(kv_init.copy()), torch.from_numpy(kv_init[::-1].copy())
     jl, tl = jm.model.layers[0], tm.model.layers[0]
+
+    def jax_layer(hv, k, v, tb, ln):
+        out, k, v = jllama._decode_layer_paged_chunk(
+            jl, Tensor(hv), jm.model.rope_cos._value, jm.model.rope_sin._value, k, v, tb, ln)
+        return out._value, k, v
+
+    # f32: the JAX layer compiled whole (one XLA program) rather than op by
+    # op; int8 stays eager, since its bytes are compared bit for bit and a
+    # jitted quantisation may round a scale's division differently (ROADMAP §C)
     with paddle.no_grad():
-        jh, jk, jv = jllama._decode_layer_paged_chunk(
-            jl, paddle.to_tensor(h), jm.model.rope_cos._value, jm.model.rope_sin._value,
-            jk, jv, jnp.asarray(tables), jnp.asarray(lens))
+        jh, jk, jv = (jax_layer if kv == "int8" else jax.jit(jax_layer))(
+            jnp.asarray(h), jk, jv, jnp.asarray(tables), jnp.asarray(lens))
     with torch.no_grad():
         th, tk2, tv2 = tllama._decode_layer_paged_chunk(
             tl, torch.from_numpy(h), tm.model.rope_cos, tm.model.rope_sin, tk, tv,
             torch.from_numpy(tables).long(), torch.from_numpy(lens).long())
     assert tk2 is tk and tv2 is tv
-    np.testing.assert_allclose(th.numpy(), np.asarray(jh._value), rtol=0, atol=1e-5)
+    np.testing.assert_allclose(th.numpy(), np.asarray(jh), rtol=0, atol=1e-5)
     for tpool, jpool in ((tk, jk), (tv, jv)):
         if kv == "int8":
             assert np.array_equal(tpool.data.numpy(), np.asarray(jpool.data))

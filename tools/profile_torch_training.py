@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the port's training time goes on the card.
 
-    python3 tools/profile_torch_training.py [--lora | --gpt [--o1]]
+    python3 tools/profile_torch_training.py [--lora | --gpt [--o1] | --resnet]
 
 Builds the ``chip_smoke.py`` phase-4 configuration (bench.py's flagship
 LLaMA, bf16, 8 layers, batch 4 x 1024) with ``TrainStep`` and AdamW,
@@ -29,8 +29,12 @@ GPT-2 small (f32, dropout 0.1, batch 8 x 1024; ``--o1`` under auto_cast
 O1 bf16) with AdamW and ``ClipGradByGlobalNorm(1.0)``, and a fifth line
 gives dropout's share: one eager step with each dropout's forward in its
 own ``record_function`` range, the device time of the events launched
-inside them (the mask's hash and the select) against the step's.  Needs
-one CUDA card.
+inside them (the mask's hash and the select) against the step's.  With
+``--resnet`` the model is ``chip_smoke.py`` phase 4f's ResNet-50 under
+auto_cast O1 bf16 (batch 256 x 3 x 224 x 224, Momentum(0.1),
+CrossEntropyLoss; cuDNN's default algorithms), and the recorded graph is
+dropped before the eager profiles, whose activations would not fit beside
+its pool.  Needs one CUDA card.
 """
 
 from __future__ import annotations
@@ -174,6 +178,8 @@ def main() -> int:
     from paddle_tpu_torch.optimizer import AdamW
 
     print(serving_profile.card_line(), flush=True)
+    if "--resnet" in sys.argv[1:]:
+        return resnet_main(chip_smoke)
     if "--gpt" in sys.argv[1:]:
         return gpt_main(chip_smoke, "--o1" in sys.argv[1:])
     cfg = chip_smoke.train_config()
@@ -227,6 +233,35 @@ def gpt_main(chip_smoke, o1) -> int:
     print(json.dumps(profile_steps(step._eager_step, ids, labels, what="eager body")), flush=True)
     print(json.dumps(profile_phases(model, opt, loss_fn, ids, labels)), flush=True)
     print(json.dumps(profile_dropout(model, opt, loss_fn, ids, labels)), flush=True)
+    return 0
+
+
+def resnet_main(chip_smoke) -> int:
+    import gc
+
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.vision.models import resnet50
+
+    model = resnet50(device="cuda", generator=torch.Generator(device="cuda").manual_seed(31))
+    g = torch.Generator(device="cuda").manual_seed(32)
+    batch = chip_smoke.RESNET_BATCH
+    images = torch.randn(batch, 3, 224, 224, generator=g, device="cuda")
+    labels = torch.randint(0, 1000, (batch,), generator=g, device="cuda", dtype=torch.int32)
+    loss_fn = chip_smoke._resnet_loss_fn(True)
+    opt = Momentum(0.1, parameters=model.parameters())
+    step = TrainStep(model, opt, loss_fn)
+    step_ms(step, images, labels, n=3)  # warm-up: the first call records the step
+    config = f"chip_smoke.py phase 4f: ResNet-50, O1 bf16, batch {batch} x 3 x 224 x 224"
+    print(json.dumps({"config": config, "step_ms": step_ms(step, images, labels),
+                      "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}), flush=True)
+    print(json.dumps(profile_steps(step, images, labels)), flush=True)
+    step._steps.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(json.dumps(profile_steps(step._eager_step, images, labels, what="eager body")),
+          flush=True)
+    print(json.dumps(profile_phases(model, opt, loss_fn, images, labels)), flush=True)
     return 0
 
 
