@@ -21,11 +21,16 @@ or any of the other optimizers, in mixed precision under ``amp.auto_cast`` (with
 without an engine; ``vision.models.resnet50`` (and the rest of the
 ResNet family) trains through the same ``TrainStep``, its BatchNorms'
 running statistics part of the recorded step; ``static.program_guard`` captures a model into a
-``static.Program`` that ``static.Executor`` runs through the fusion pass.
+``static.Program`` that ``static.Executor`` runs through the fusion pass,
+and trains it there (``optimizer.minimize``, dropout included);
+``jit.save`` / ``static.save_inference_model`` export a model and
+``inference.create_predictor`` serves it; ``save`` / ``load`` write and
+read state dicts.
 """
 
-from . import (_core, amp, convert, device, jit, models, nn, ops, optimizer,  # noqa: F401
-               regularizer, serving, static, vision)
+from . import (_core, amp, convert, device, framework, inference, jit, models,  # noqa: F401
+               nn, ops, optimizer, regularizer, serving, static, vision)
+from .framework.io_utils import load, save  # noqa: F401
 from ._core.flags import get_flags, set_flags  # noqa: F401
 from ._core.random import get_rng_state, seed, set_rng_state  # noqa: F401
 from .nn import ParamAttr  # noqa: F401

@@ -164,9 +164,10 @@ define_flag(
 define_flag(
     "FLAGS_verify_programs",
     False,
-    "Verify-mode for the static IR (static/verify.py in the JAX package); "
-    "not ported: the port's Executor raises while it is on (ROADMAP.md "
-    "A.5.1)",
+    "Verify-mode for the static IR (static/verify.py): the pass manager and "
+    "the rewrite passes verify before and after, the Executor verifies each "
+    "program it records and differentially checks each rewrite stage on the "
+    "live feed, and save_inference_model checks the clone it exports",
 )
 define_flag(
     "FLAGS_lora_max_adapters",

@@ -27,7 +27,7 @@ from __future__ import annotations
 import torch
 
 __all__ = ["seed", "get_rng_state", "set_rng_state", "state_tensor", "uniform_like",
-           "mix32"]
+           "uniform_from", "mix32"]
 
 _M32 = 0xFFFFFFFF
 _MUL_A = 0x7FEB352D  # multipliers below 2^31: a product of a 32-bit value stays under 2^63
@@ -101,16 +101,30 @@ def state_tensor(device) -> torch.Tensor:
     return state
 
 
+def _uniforms(state, shape):
+    n = 1
+    for s in shape:
+        n *= int(s)
+    row = key_of(state[0:1], state[1:2])
+    return to_uniform(mix32(row ^ _prefix_hash(n, state.device))).reshape(tuple(shape))
+
+
 def uniform_like(shape, device) -> torch.Tensor:
     """float32 uniforms in (0, 1) of ``shape`` from the device's state,
     whose counter advances by one, in place (no host read)."""
     state = state_tensor(device)
-    n = 1
-    for s in shape:
-        n *= int(s)
-    row = key_of(state[0:1], state[1:2])  # computed before the advance below
+    out = _uniforms(state, shape)  # read before the advance below
     state[1:2].add_(1)
-    return to_uniform(mix32(row ^ _prefix_hash(n, state.device))).reshape(tuple(shape))
+    return out
+
+
+def uniform_from(state, shape):
+    """``uniform_like`` as a function of a given ``[seed, counter]``: the
+    same uniforms, and the advanced state as a new tensor (a random op
+    inside a static Program, whose state is a program write)."""
+    new = state.clone()
+    new[1:2].add_(1)
+    return _uniforms(state, shape), new
 
 
 def seed(s: int):
@@ -122,7 +136,12 @@ def seed(s: int):
 
 
 def get_rng_state() -> dict:
-    """``{device: [seed, counter]}``: copies of every device's state."""
+    """``{device: [seed, counter]}``: copies of every device's state.  The
+    CPU's and the current CUDA device's are made here at first use, so a
+    ``set_rng_state`` of the result replays a stream that had not begun."""
+    state_tensor("cpu")
+    if torch.cuda.is_available():
+        state_tensor("cuda")
     return {dev: state.clone() for dev, state in _states.items()}
 
 

@@ -24,6 +24,11 @@ JAX package's ``_batch_sig``):
 After a replay the visible state is the eager step's: grads are None
 and ``state_dict()["step_count"]`` counts the steps run.  On the CPU the
 same step runs eagerly at every call, as everywhere in this package.
+
+``save(layer, path, input_spec=)`` captures the layer's forward in
+``eval()`` mode into a static Program and writes the deploy artifact
+(``static.save_inference_model``); ``load(path)`` returns the
+``inference.Predictor`` serving it (``TranslatedLayer`` names that type).
 With an enabled ``amp.GradScaler`` (``scaler=``) the body is
 ``scaler.scale(loss).backward(); scaler.step(optimizer)``, and the
 scaler's scale and step counts join the state at fixed addresses: a
@@ -36,8 +41,9 @@ import torch
 
 from paddle_tpu_torch._core import graphs
 from paddle_tpu_torch._core import random as rng
+from paddle_tpu_torch.inference import Predictor
 
-__all__ = ["TrainStep"]
+__all__ = ["TrainStep", "save", "load", "TranslatedLayer"]
 
 
 def _batch_sig(batch):
@@ -215,3 +221,82 @@ class TrainStep:
         self._steps[lowered.signature] = lowered.compile()
         self.captures += 1
         return self
+
+
+# the batch sizes a None batch is captured at: three, so that every size
+# the program bakes is checked affine in the batch
+_BATCH_PROBES = (2, 3, 5)
+
+
+def _capture(layer, input_spec, batch):
+    """The layer's forward captured on feeds of ``input_spec`` (a ``None``
+    batch as ``batch``); parameters named by the layer's own names."""
+    from paddle_tpu_torch import static
+
+    main = static.Program()
+    with static.program_guard(main):
+        feeds = [static.data(s.name or f"x{i}",
+                             [batch if (a == 0 and d is None) else d for a, d in enumerate(s.shape)],
+                             s.dtype) for i, s in enumerate(input_spec)]
+        out = layer(*feeds)
+    fetch = list(out) if isinstance(out, (tuple, list)) else [out]
+    block = main.global_block()
+    for name, p in layer.named_parameters():
+        var = main.param_vars.get(id(p))
+        if var is not None:
+            block.vars.pop(var.name, None)
+            var._name = name
+            block.vars[name] = var
+    return main, feeds, fetch
+
+
+def save(layer, path, input_spec=None, **configs):
+    """``paddle.jit.save``: the layer's ``state_dict`` to ``<path>.pdparams``
+    and, with ``input_spec`` (``static.InputSpec``s), its forward in
+    ``eval()`` mode as the deploy artifact (``<path>.pdmodel``,
+    ``.pdiparams``, ``.json``).  A ``None`` batch (the first axis) is
+    captured at three batch sizes and written symbolic; ``None`` elsewhere
+    raises.  ``passes`` / ``precision`` / ``extra_precisions`` go to the
+    export as in ``static.save_inference_model``."""
+    from paddle_tpu_torch.framework.io_utils import save as fsave
+    from paddle_tpu_torch.static import io as static_io
+
+    fsave({"state_dict": dict(layer.state_dict()), "class": type(layer).__name__},
+          path + ".pdparams")
+    if not input_spec:
+        return
+    static_io._check_precision(configs.get("precision"), configs.get("extra_precisions"))
+    if any(d is None for s in input_spec for d in s.shape[1:]):
+        raise NotImplementedError("jit.save: only the batch (the first axis) may be None")
+    dynamic = [(i, 0) for i, s in enumerate(input_spec) if s.shape and s.shape[0] is None]
+    was_training = layer.training
+    layer.eval()
+    try:
+        if dynamic:
+            captures = {b: _capture(layer, input_spec, b) for b in _BATCH_PROBES}
+        else:
+            captures = _capture(layer, input_spec, None)
+    finally:
+        layer.train(was_training)
+    static_io.write_artifact(path, captures, passes=configs.get("passes"), dynamic=dynamic)
+
+
+def load(path, **configs):
+    """The ``inference.Predictor`` of ``<path>.pdmodel`` (on the card unless
+    ``device="cpu"``), or, with no artifact, the saved state payload."""
+    import os
+
+    if os.path.exists(path + ".pdmodel"):
+        from paddle_tpu_torch.inference import Config
+
+        config = Config(path)
+        if configs.get("device") == "cpu":
+            config.disable_gpu()
+        return Predictor(config)
+    from paddle_tpu_torch.framework.io_utils import load as fload
+
+    return fload(path + ".pdparams")
+
+
+# jit.load returns the Predictor: TranslatedLayer names its type
+TranslatedLayer = Predictor

@@ -14,8 +14,13 @@ residual adds + LayerNorms on the fused LayerNorm kernel and each FFN's
 
 Models are built in f32 on ``device`` (``None``: the CUDA card); cast with
 ``.to(torch.bfloat16)`` for bf16.  ``generator`` seeds the random initial
-weights (Xavier-normal, as in the JAX package).  Call ``.eval()`` before
-inference: dropout in training is not ported.
+weights (Xavier-normal, as in the JAX package).  In training mode the
+dropouts draw from the device RNG state, eagerly (``jit.TrainStep``, f32
+or under ``amp.auto_cast``) and inside a captured Program
+(``Optimizer.minimize``); call ``.eval()`` for inference.  The default
+position and token-type ids are made from ``input_ids`` (``expand_as``,
+``zeros_like``), so a captured program bakes no batch size into a const
+and ``jit.save`` can leave the batch ``None``.
 """
 
 from __future__ import annotations
@@ -77,14 +82,14 @@ class BertEmbeddings(nn.Module):
         self.dropout = Dropout(config.hidden_dropout_prob)
 
     def forward(self, input_ids, token_type_ids=None, position_ids=None):
-        b, s = input_ids.shape
+        s = input_ids.shape[1]
         # on the weights' device: under capture input_ids is a Variable
         device = self.word_embeddings.weight.device
         if position_ids is None:
             position_ids = torch.arange(s, dtype=torch.int32, device=device).unsqueeze(0) \
-                .expand(b, s)
+                .expand_as(input_ids)
         if token_type_ids is None:
-            token_type_ids = torch.zeros((b, s), dtype=torch.int32, device=device)
+            token_type_ids = torch.zeros_like(input_ids, dtype=torch.int32)
         emb = (self.word_embeddings(input_ids) + self.position_embeddings(position_ids)
                + self.token_type_embeddings(token_type_ids))
         return self.dropout(self.layer_norm(emb))

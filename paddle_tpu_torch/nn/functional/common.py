@@ -1,14 +1,17 @@
 """Common functionals (counterpart of paddle_tpu/nn/functional/common.py):
 ``linear``, ``embedding`` and the dropouts.  Each records as one op while
-a static Program is captured, but a dropout in training refuses capture
-(static training is ROADMAP.md A.5.2)."""
+a static Program is captured.  A dropout in training records its draw
+from the program's RNG state var (``Program.rng_state``) and hands the
+advanced state back as a program write, so each run of the program draws
+fresh masks, the same bits as the eager dropout from the same state (the
+JAX package bakes one key into the program instead; ROADMAP.md §C)."""
 
 from __future__ import annotations
 
 import torch
 
 from paddle_tpu_torch._core import random as rng
-from paddle_tpu_torch.static.program import apply, in_static_capture
+from paddle_tpu_torch.static.program import apply, current_main_program, in_static_capture
 
 __all__ = ["linear", "embedding", "dropout", "dropout2d", "dropout3d", "alpha_dropout",
            "feature_alpha_dropout"]
@@ -53,7 +56,7 @@ def _dropout_infer(x, *, keep):
     return x * _scalar(keep, x)
 
 
-def _refuse_in_capture(name, why="the JAX package bakes one key into the captured program"):
+def _refuse_in_capture(name, why):
     if in_static_capture():
         raise NotImplementedError(
             f"{name} in training while a static Program is captured is not ported yet "
@@ -73,12 +76,34 @@ def _mask_shape(v, axis):
     return tuple(s if i in axes else 1 for i, s in enumerate(v.shape))
 
 
-def _dropout(v, *, p, axis, mode):
-    keep = rng.uniform_like(_mask_shape(v, axis), v.device) < 1.0 - p
+def _drop(v, u, p, mode):
+    keep = u < 1.0 - p
     # kept values divided in v's dtype, as the JAX package writes it; the
     # backward of where keeps only the bool mask alive
     kept = v / _scalar(1.0 - p, v) if mode == "upscale_in_train" else v
     return torch.where(keep, kept, _scalar(0.0, v))
+
+
+def _dropout(v, *, p, axis, mode):
+    return _drop(v, rng.uniform_like(_mask_shape(v, axis), v.device), p, mode)
+
+
+def _dropout_from(v, state, *, p, axis, mode):
+    """``_dropout`` drawing from a given RNG state: (out, advanced state)."""
+    u, new_state = rng.uniform_from(state, _mask_shape(v, axis))
+    return _drop(v, u, p, mode), new_state
+
+
+def _random_op(type_, eager, from_state, x, **kwargs):
+    """A random op: eagerly ``eager`` draws from the device state;
+    captured, ``from_state`` reads the program's RNG state var and the
+    state it returns becomes the program's write."""
+    if in_static_capture():
+        prog = current_main_program()
+        out, new_state = apply(type_, from_state, x, prog.rng_state(), **kwargs)
+        prog.advance_rng(new_state)
+        return out
+    return apply(type_, eager, x, **kwargs)
 
 
 def dropout(x: torch.Tensor, p=0.5, axis=None, training=True, mode="upscale_in_train"):
@@ -93,8 +118,7 @@ def dropout(x: torch.Tensor, p=0.5, axis=None, training=True, mode="upscale_in_t
         if mode == "downscale_in_infer" and not training:
             return apply("dropout_infer", _dropout_infer, x, keep=1.0 - p)
         return x
-    _refuse_in_capture("dropout")
-    return apply("dropout", _dropout, x, p=float(p), axis=axis, mode=mode)
+    return _random_op("dropout", _dropout, _dropout_from, x, p=float(p), axis=axis, mode=mode)
 
 
 def dropout2d(x, p=0.5, training=True, data_format="NCHW"):
@@ -111,12 +135,22 @@ _SELU_ALPHA = 1.6732632423543772
 _SELU_SCALE = 1.0507009873554805
 
 
-def _alpha_dropout(v, *, p):
+def _alpha_drop(v, u, p):
     alpha_p = -_SELU_ALPHA * _SELU_SCALE
-    keep = rng.uniform_like(v.shape, v.device) < 1.0 - p
+    keep = u < 1.0 - p
     a = (1.0 - p + p * alpha_p ** 2) ** -0.5
     b = -a * p * alpha_p
     return _scalar(a, v) * torch.where(keep, v, _scalar(alpha_p, v)) + _scalar(b, v)
+
+
+def _alpha_dropout(v, *, p):
+    return _alpha_drop(v, rng.uniform_like(v.shape, v.device), p)
+
+
+def _alpha_dropout_from(v, state, *, p):
+    u, new_state = rng.uniform_from(state, v.shape)
+    return _alpha_drop(v, u, p), new_state
+
 
 
 def alpha_dropout(x: torch.Tensor, p=0.5, training=True):
@@ -125,8 +159,7 @@ def alpha_dropout(x: torch.Tensor, p=0.5, training=True):
     _check_p(p)
     if not training or p == 0.0:
         return x
-    _refuse_in_capture("alpha_dropout")
-    return apply("alpha_dropout", _alpha_dropout, x, p=float(p))
+    return _random_op("alpha_dropout", _alpha_dropout, _alpha_dropout_from, x, p=float(p))
 
 
 def feature_alpha_dropout(x, p=0.5, training=True):

@@ -237,6 +237,90 @@ class Optimizer:
                 self._lr_t.copy_(saved_lr)
             self._step_count = saved_count
 
+    def minimize(self, loss, startup_program=None, parameters=None, no_grad_set=None):
+        """Eagerly: ``loss.backward()``, ``step()``, ``clear_grad()``.  While a
+        static Program is captured: ``static.append_backward`` and one
+        ``optimizer_update`` op, whose outputs the program writes back into
+        the parameters' and accumulators' scope copies (the live
+        parameters stay untouched).  Returns ``(None, [(param, grad)])``
+        under capture, ``(None, None)`` eagerly."""
+        from paddle_tpu_torch.static.program import in_static_capture
+
+        if in_static_capture():
+            return self._static_minimize(loss, parameters, no_grad_set)
+        loss.backward()
+        self.step()
+        self.clear_grad()
+        return None, None
+
+    def _static_minimize(self, loss, parameters=None, no_grad_set=None):
+        """append_backward plus the update super-op.  Its body runs this
+        optimizer's own ``step()`` (``_single_update``, ``_put``) on copies
+        of the values it is given: each parameter's storage and each
+        accumulator are swapped for the copies while it runs and restored
+        after, as is the step count (a program's runs are not counted on
+        the host; the beta powers count on the device).  The accumulators
+        are found by a rolled-back dry step (``_journaled_step``), as
+        ``TrainStep.lower`` finds them; the rate is read from ``_lr_t``,
+        which the program's host sync fills from a scheduler before each
+        run."""
+        from paddle_tpu_torch.static.autodiff import append_backward
+        from paddle_tpu_torch.static.program import current_main_program, suspend_capture
+
+        prog = current_main_program()
+        params = [p for p in (parameters or self._parameter_list) if p.requires_grad]
+        pairs = append_backward(loss, parameter_list=params, no_grad_set=no_grad_set)
+        param_vars = [v for v, _ in pairs]
+        grad_vars = [g for _, g in pairs]
+        kept = {v._vid for v in param_vars}  # no_grad_set may have dropped some
+        params = [p for p in params if prog.var_for_parameter(p)._vid in kept]
+
+        with suspend_capture():
+            self._journaled_step(params)
+        ids = {id(p) for p in params}
+        acc_keys = [k for k in self._accumulators if k[1] in ids]
+        acc_vars = [prog.var_for_state(self._accumulators[k],
+                                       name=f"opt_{k[0]}_{self._param_index(k[1])}")
+                    for k in acc_keys]
+        n_p, n_a = len(params), len(acc_keys)
+
+        @torch.no_grad()
+        def update(*vals):
+            new_p = [v.clone() for v in vals[:n_p]]
+            grads = vals[n_p:2 * n_p]
+            new_a = [v.clone() for v in vals[2 * n_p:]]
+            if vals and vals[0].is_meta:  # the verifier's abstract eval: shapes alone
+                return tuple(new_p) + tuple(new_a)
+            saved = [(p, p.data, p.grad) for p in params]
+            saved_acc = [self._accumulators[k] for k in acc_keys]
+            count = self._step_count
+            try:
+                for p, v, g in zip(params, new_p, grads):
+                    p.data = v
+                    p.grad = g
+                for k, v in zip(acc_keys, new_a):
+                    self._accumulators[k] = v
+                self.step()
+            finally:
+                for p, data, g in saved:
+                    p.data = data
+                    p.grad = g
+                for k, t in zip(acc_keys, saved_acc):
+                    self._accumulators[k] = t
+                self._step_count = count
+            return tuple(new_p) + tuple(new_a)
+
+        metas = tuple(torch.empty(v.shape, dtype=v.dtype, device="meta")
+                      for v in param_vars + acc_vars)
+        outs = prog.record("optimizer_update", update, tuple(param_vars + grad_vars + acc_vars),
+                           {}, out_meta=metas)
+        prog.global_block().ops[-1].impl = None  # a closure over this optimizer
+        for var, out in zip(param_vars + acc_vars, outs):
+            prog.add_write(var, out)
+        if self._lr_scheduler is not None and self._sync_lr not in prog.host_syncs:
+            prog.host_syncs.append(self._sync_lr)
+        return None, pairs
+
     def opt_state_tensors(self) -> list:
         """Every mutable optimizer state tensor: the accumulators, then the
         rate."""

@@ -12,12 +12,20 @@ the default pass pipeline (``PallasFusionPass`` while
 ``FLAGS_use_pallas_fusion`` is on, then ``ScheduleSearchPass`` on the
 Executor's device while ``FLAGS_schedule_search`` is on, as in the JAX
 package) rewrites the program, each stage memoised per (program version,
-fetch set).  Persistent state (parameters) lives in a Scope keyed by var
-id; the scope holds each parameter's own storage, except state a program
-writes, which the scope holds in a copy that each run updates in place
-(no program of this tier writes state yet).  A captured run reads the
+fetch set); under ``FLAGS_verify_programs`` each stage that rewrote is
+differentially checked against the program before it on the live feed,
+and each program about to be recorded is verified.
+
+Persistent state lives in a Scope keyed by var id.  The scope holds each
+parameter's own storage, except state a program writes (a training
+program's parameters, the optimizer's accumulators), which it holds in a
+copy that each run updates in place, so the live ``nn.Parameter``s are
+never written; the device RNG state is the exception, shared with eager
+code, so static dropout advances the same stream.  A captured run
+replays those writes at the same addresses.  A captured run reads the
 scope's tensors it was recorded over: if the scope holds others, the key
-is recorded again.
+is recorded again.  ``state_dict(program)`` reads a program's state by
+name.
 """
 
 from __future__ import annotations
@@ -30,7 +38,7 @@ import torch
 from paddle_tpu_torch._core import flags, graphs
 from paddle_tpu_torch._core.device import resolve_device
 
-from .program import Program, Variable, default_main_program
+from .program import Program, Variable, default_main_program, prune_ops
 
 __all__ = ["Executor", "Scope", "global_scope", "scope_guard"]
 
@@ -66,12 +74,6 @@ class scope_guard:
     def __exit__(self, *exc):
         global _global_scope
         _global_scope = self._prev
-
-
-def _unported(what):
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md A.5): the port's Executor "
-        "would skip it, which is a different result")
 
 
 def _fetch_numpy(t: torch.Tensor) -> np.ndarray:
@@ -136,12 +138,22 @@ class Executor:
                              "nothing is moved silently")
 
     def _ensure_state(self, program: Program, scope: Scope):
-        for vid, init in program.param_inits.items():
-            if scope.find_var(vid) is None:
+        for vid in program.param_inits:
+            have = scope.find_var(vid)
+            if vid == program.rng_vid:
+                if have is None:  # the device's own state: dropout's stream
+                    scope.set_var(vid, program.state_init(vid, self.place))
+                continue
+            init = program.param_inits[vid]
+            if have is None:
                 self._check_device(f"parameter {program._var_by_vid[vid].name}", init)
                 # state a program writes is updated in place: the scope's own copy
                 scope.set_var(vid, init.detach().clone() if vid in program.writes
                               else init.detach())
+            elif vid in program.writes and have.untyped_storage().data_ptr() == \
+                    init.untyped_storage().data_ptr():
+                # a program that only read it shared the live tensor: this one writes
+                scope.set_var(vid, init.detach().clone())
 
     def _feed_value(self, var: Variable, value):
         """The feed in its ``static.data`` dtype: a torch tensor on the
@@ -152,30 +164,38 @@ class Executor:
             return value.to(var.dtype)
         return torch.as_tensor(np.asarray(value), dtype=var.dtype)
 
-    @staticmethod
-    def _rewrite_stage(program, fetch_vids, stamp_attr, pass_cls):
+    def _rewrite_stage(self, program, fetch_vids, feed_vals, verify_mode, stamp_attr,
+                       pass_cls):
         """One memoised fusion stage, per (version, fetch set): a SET, so
-        alternating fetch lists do not re-pay the scan on every run."""
+        alternating fetch lists do not re-pay the scan on every run.  In
+        verify mode a stage that rewrote is replayed against the program
+        before it on the live feed; on a mismatch the rewrite is undone,
+        left unstamped, and the error raised."""
         seen = getattr(program, stamp_attr, None)
         if seen is None:
             seen = set()
             setattr(program, stamp_attr, seen)
         if (program.version, fetch_vids) in seen:
             return
-        pass_cls(fetch_vids).apply(program)
+        reference = program.clone() if verify_mode else None
+        fused = pass_cls(fetch_vids).apply(program)
+        if verify_mode and fused:
+            from .verify import DifferentialError, differential_check
+
+            try:
+                differential_check(reference, program, fetch_vids, feeds=feed_vals,
+                                   device=self.place)
+            except DifferentialError:
+                program.global_block().ops[:] = reference.global_block().ops
+                program.version = reference.version
+                raise
         seen.add((program.version, fetch_vids))
 
     def _prune(self, program, fetch_vids):
         """The ops the fetch/write frontier needs (last writer wins), with
         the device of every captured const checked once."""
         live = set(fetch_vids) | set(program.writes) | set(program.writes.values())
-        pruned = []
-        for op in reversed(program.global_block().ops):
-            if any(v in live for v in op.out_vids):
-                pruned.append(op)
-                live.difference_update(op.out_vids)
-                live.update(op.input_vids())
-        pruned.reverse()
+        pruned = prune_ops(program.global_block().ops, live)
         for op in pruned:
             for s in op.arg_spec:
                 if s[0] == "const" and isinstance(s[1], torch.Tensor):
@@ -190,8 +210,6 @@ class Executor:
         scope = scope or global_scope()
         feed = feed or {}
         fetch_list = fetch_list or []
-        if flags.flag("FLAGS_verify_programs"):
-            raise _unported("FLAGS_verify_programs (static/verify.py)")
         if not program.global_block().ops and not program.param_inits and not fetch_list:
             return None
 
@@ -210,24 +228,34 @@ class Executor:
             if v.name not in feed:
                 raise KeyError(f"missing feed '{v.name}'")
             feed_vals.append(self._feed_value(v, feed[v.name]))
+        for sync in program.host_syncs:
+            sync()
 
+        verify_mode = flags.flag("FLAGS_verify_programs")
         if flags.flag("FLAGS_use_pallas_fusion"):
             from .rewrite import PallasFusionPass
 
-            self._rewrite_stage(program, fetch_vids, "_pallas_fused_at", PallasFusionPass)
+            self._rewrite_stage(program, fetch_vids, feed_vals, verify_mode, "_pallas_fused_at",
+                                PallasFusionPass)
         if flags.flag("FLAGS_schedule_search"):
             # discovered reduction-/matmul-rooted subgraphs, searched on this
             # device after the named patterns took theirs; an accepted
             # verdict is served from the autotune cache on later programs
             from .rewrite import ScheduleSearchPass
 
-            self._rewrite_stage(program, fetch_vids, "_sched_searched_at",
+            self._rewrite_stage(program, fetch_vids, feed_vals, verify_mode,
+                                "_sched_searched_at",
                                 functools.partial(ScheduleSearchPass, device=self.place))
         return program, scope, fetch_vids, feed_vals
 
     def _function(self, program, fetch_vids):
         key = (program, program.version, fetch_vids)  # the program itself: its id may recur
         if key not in self._pruned:
+            if flags.flag("FLAGS_verify_programs"):
+                # the program about to run must be valid for this fetch set
+                from .verify import verify_program
+
+                verify_program(program, fetch_vids)
             self._pruned[key] = program.as_function(list(fetch_vids),
                                                     ops=self._prune(program, fetch_vids))
         return self._pruned[key]
@@ -284,3 +312,14 @@ class Executor:
     def close(self):
         self._cache.clear()
         self._pruned.clear()
+
+    def state_dict(self, program: Program, scope=None):
+        """Name -> the scope's value of each parameter and optimizer state
+        var of ``program`` that a run has set (the trained values)."""
+        scope = scope or global_scope()
+        out = {}
+        for var in program.all_parameters() + list(program.state_vars.values()):
+            val = scope.find_var(var._vid)
+            if val is not None:
+                out[var.name] = val
+        return out

@@ -8,13 +8,9 @@ other name raises ``NotImplementedError`` naming its ROADMAP item.
 
 from __future__ import annotations
 
-__all__ = ["ProgramPass", "ProgramPassManager", "dead_code_elimination", "apply_pass"]
+from paddle_tpu_torch.framework.op_registry import base_op_type, side_effect_op_types
 
-# op types never eliminated: the random ops a capture can record (dropping
-# one would shift every later op's random stream)
-_SIDE_EFFECT = frozenset({"torch.rand_like", "torch.randn_like", "torch.randint_like",
-                          "torch.bernoulli", "Tensor.bernoulli", "torch.multinomial",
-                          "Tensor.multinomial", "torch.normal", "torch.dropout"})
+__all__ = ["ProgramPass", "ProgramPassManager", "dead_code_elimination", "apply_pass"]
 
 
 class ProgramPass:
@@ -41,8 +37,10 @@ class DeadCodeEliminationPass(ProgramPass):
         live = set(self._fetch_vids) | set(program.writes) | set(program.writes.values())
         keep = []
         for op in reversed(block.ops):
+            # a random op is never eliminated: dropping one would shift
+            # every later op's random stream
             if any(v in live for v in op.out_vids) or \
-                    op.type.rsplit("::", 1)[-1] in _SIDE_EFFECT:
+                    base_op_type(op.type) in side_effect_op_types():
                 keep.append(op)
                 live.update(op.input_vids())
         removed = len(block.ops) - len(keep)
@@ -59,14 +57,34 @@ def dead_code_elimination(program, fetch_vars=()):
 
 
 class ProgramPassManager:
-    """Runs passes in order and returns the total number of changes."""
+    """Runs passes in order and returns the total number of changes.  Under
+    ``FLAGS_verify_programs`` the program is verified before the first
+    pass and after each one, so the error names the pass that broke it."""
 
     def __init__(self, passes, fetch_vids=()):
         self._passes = list(passes)
         self._fetch_vids = tuple(fetch_vids)
 
+    def _verify(self, program, where):
+        from .verify import VerificationError, verify_program
+
+        try:
+            verify_program(program, self._fetch_vids)
+        except VerificationError as e:
+            raise VerificationError(e.violations, header=f"Program invalid {where}") from None
+
     def run(self, program):
-        return sum(p.apply(program) for p in self._passes)
+        from paddle_tpu_torch._core import flags
+
+        verify = flags.flag("FLAGS_verify_programs")
+        if verify:
+            self._verify(program, "BEFORE pass pipeline")
+        total = 0
+        for p in self._passes:
+            total += p.apply(program)
+            if verify:
+                self._verify(program, f"after pass {getattr(p, 'name', type(p).__name__)!r}")
+        return total
 
 
 def _pallas_fusion_factory(**kwargs):
@@ -104,9 +122,16 @@ _UNPORTED = {
 
 
 def apply_pass(program, name, **kwargs):
+    """Run the pass ``name`` (through the verifying pass manager while
+    ``FLAGS_verify_programs`` is on)."""
+    from paddle_tpu_torch._core import flags
+
     if name in _UNPORTED:
         raise NotImplementedError(
             f"program pass {name!r} is not ported yet (ROADMAP.md {_UNPORTED[name]})")
     if name not in _REGISTRY:
         raise ValueError(f"unknown program pass {name!r}; have {sorted(_REGISTRY)}")
-    return _REGISTRY[name](**kwargs).apply(program)
+    pass_ = _REGISTRY[name](**kwargs)
+    if flags.flag("FLAGS_verify_programs"):
+        return ProgramPassManager([pass_], kwargs.get("fetch_vids") or ()).run(program)
+    return pass_.apply(program)

@@ -25,7 +25,11 @@ funnel.  Every torch call that touches a ``Variable`` or an
   ``Tensor.<name>``), so no call is run on meta tensors and dropped.
 
 A call whose result holds no tensor (``v.shape``, ``v.dim()``) answers
-from the meta tensor and records nothing.  An ``nn.Parameter`` becomes a
+from the meta tensor and records nothing.  Every op keeps the callable it
+was recorded over (``Operator.impl``: the functional's own function, or a
+``TorchCall`` naming the torch callable and its baked arguments), so
+``static/io.py`` can write a program as data and rebuild it through the
+op registry (``framework/op_registry.py``).  An ``nn.Parameter`` becomes a
 state var (its tensor is the init value); any other concrete tensor, such
 as position ids from ``torch.arange``, becomes a const.  In-place ops on a
 Variable raise.  Build (and cast) a model before entering the guard: a
@@ -52,6 +56,10 @@ from paddle_tpu_torch import amp as _amp
 __all__ = [
     "Variable",
     "Operator",
+    "TorchCall",
+    "bind_op",
+    "prune_ops",
+    "RNG_STATE",
     "Block",
     "Program",
     "program_guard",
@@ -63,6 +71,10 @@ __all__ = [
 ]
 
 _vid_counter = itertools.count()
+
+# observers called with every new Program (construction and clone): the
+# verifier's ``track_programs`` sweep (static/verify.py)
+_creation_hooks: list = []
 
 
 class Variable(torch.Tensor):
@@ -79,6 +91,7 @@ class Variable(torch.Tensor):
         v._vid = next(_vid_counter)
         v._name = name or f"var_{v._vid}"
         v._program = program
+        v.dynamic_dims = ()  # axes ``static.data`` was given as None or -1
         return v
 
     def __init__(self, *args, **kwargs):
@@ -105,7 +118,10 @@ class Operator:
     arg_spec entries: ('var', vid) for Variable inputs, ('const', value)
     for captured concrete values and python operands; ``fn`` takes the var
     values in order (consts and kwargs are bound in it).  ``kwargs`` are
-    the op's static attributes, which the rewrite patterns read."""
+    the op's static attributes, which the rewrite patterns read.  ``impl``
+    is the callable ``fn`` calls (``bind_op``) for a recorded call, None
+    for ops the passes and autodiff build; it is what ``static/io.py``
+    writes."""
 
     type: str
     fn: Any
@@ -113,6 +129,7 @@ class Operator:
     kwargs: dict
     out_vids: list
     out_tree: Any
+    impl: Any = None
 
     def input_vids(self):
         return [s[1] for s in self.arg_spec if s[0] == "var"]
@@ -139,21 +156,88 @@ def _has_tensor(tree):
     return any(isinstance(leaf, torch.Tensor) for leaf in pytree.tree_leaves(tree))
 
 
+class TorchCall:
+    """A recorded torch call as data: ``func`` applied to the call's
+    flattened arguments ``leaves`` (structure ``spec``), the op's inputs
+    standing at ``slots``; ``attr`` takes a field of the result
+    (``torch.max(x, dim).values``)."""
+
+    def __init__(self, func, leaves, spec, slots, attr=None):
+        self.func, self.spec, self.slots, self.attr = func, spec, list(slots), attr
+        slot_set = set(self.slots)
+        self.leaves = [None if i in slot_set else leaf for i, leaf in enumerate(leaves)]
+
+    def __call__(self, *inputs):
+        full = list(self.leaves)
+        for i, v in zip(self.slots, inputs):
+            full[i] = v
+        a, kw = pytree.tree_unflatten(full, self.spec)
+        out = self.func(*a, **kw)
+        return getattr(out, self.attr) if self.attr else out
+
+
+def prune_ops(ops, live):
+    """The ops that the vids in ``live`` need, in order; the last writer
+    of a vid wins, so a producer superseded by a later one (autodiff's
+    ``share_loss``) is not kept for it."""
+    live = set(live)
+    kept = []
+    for op in reversed(ops):
+        if any(v in live for v in op.out_vids):
+            kept.append(op)
+            live.difference_update(op.out_vids)
+            live.update(op.input_vids())
+    kept.reverse()
+    return kept
+
+
+def bind_op(impl, arg_spec, kwargs):
+    """An op's ``fn``: ``impl`` on the var values in order, the consts of
+    ``arg_spec`` in their places, and ``kwargs`` (a ``TorchCall`` has its
+    arguments baked, so it takes none: its op's kwargs are metadata)."""
+    kw = {} if isinstance(impl, TorchCall) else dict(kwargs)
+
+    def g(*var_vals):
+        it = iter(var_vals)
+        return impl(*[next(it) if s[0] == "var" else s[1] for s in arg_spec], **kw)
+
+    return g
+
+
+class _RngState:
+    """``param_inits``' entry for the device RNG state: the Executor reads
+    ``_core.random.state_tensor`` of its own device."""
+
+    def __repr__(self):
+        return "RNG_STATE"
+
+
+RNG_STATE = _RngState()
+
+
 class Program:
     """A captured computation: feed vars -> ops -> any var fetchable.
 
     ``param_inits`` maps a state var's vid to its init value (the
-    ``nn.Parameter`` itself); ``writes`` maps vid -> vid (state updates
-    applied to the scope after each run)."""
+    ``nn.Parameter`` itself, an optimizer accumulator, or ``RNG_STATE``
+    for the device RNG state); ``writes`` maps vid -> vid (state updates
+    applied to the scope after each run).  ``host_syncs`` are called
+    before each run (the optimizer's learning-rate sync)."""
 
     def __init__(self):
         self.blocks = [Block(self, 0)]
         self.feed_vars: list[Variable] = []
         self.param_vars: dict[int, Variable] = {}  # id(Parameter) -> Variable
+        self.state_vars: dict[int, Variable] = {}  # id(tensor) -> Variable (optimizer state)
         self.param_inits: dict[int, Any] = {}  # vid -> init value
         self.writes: dict[int, int] = {}  # target vid -> source vid
+        self.rng_vid = None  # the RNG state var's vid, once a dropout is recorded
+        self._rng_cur = None  # the RNG state's latest value (a Variable)
+        self.host_syncs: list = []
         self.version = 0
         self._var_by_vid: dict[int, Variable] = {}
+        for cb in _creation_hooks:
+            cb(self)
 
     # ------------------------------------------------------------- structure
     def global_block(self) -> Block:
@@ -185,6 +269,45 @@ class Program:
             self.param_inits[v._vid] = p
         return self.param_vars[key]
 
+    def var_for_state(self, t: torch.Tensor, name="") -> Variable:
+        """A state var for a tensor that is not a parameter (an optimizer
+        accumulator); its init value is the tensor itself."""
+        key = id(t)
+        if key not in self.state_vars:
+            v = self.new_var(t.shape, t.dtype, name=name or f"state_{len(self.state_vars)}")
+            self.state_vars[key] = v
+            self.param_inits[v._vid] = t
+        return self.state_vars[key]
+
+    def all_parameters(self):
+        return list(self.param_vars.values())
+
+    def rng_state(self) -> Variable:
+        """The device RNG state's latest value in this program: a random op
+        reads it and hands its advanced state to ``advance_rng``."""
+        if self.rng_vid is None:
+            v = self.new_var((2,), torch.int64, name="rng_state")
+            self.rng_vid = v._vid
+            self.param_inits[v._vid] = RNG_STATE
+            self._rng_cur = v
+        return self._rng_cur
+
+    def advance_rng(self, new_state: Variable):
+        """The RNG state after the op just recorded: later random ops read
+        it, and each run writes the last one back (fresh masks a run)."""
+        self._rng_cur = new_state
+        self.add_write(self._var_by_vid[self.rng_vid], new_state)
+
+    def state_init(self, vid, device):
+        """The init value of state var ``vid``, the RNG state of ``device``
+        for the RNG state var."""
+        init = self.param_inits[vid]
+        if init is RNG_STATE:
+            from paddle_tpu_torch._core import random as _rng
+
+            return _rng.state_tensor(device)
+        return init
+
     def _entry(self, a):
         if isinstance(a, Variable):
             if a._program is not self:
@@ -194,25 +317,24 @@ class Program:
             return ("var", self.var_for_parameter(a)._vid)
         return ("const", a)
 
-    def record(self, type_, fn, args, kwargs):
+    def record(self, type_, fn, args, kwargs, out_meta=None):
         """Append an Operator computing ``fn(*args, **kwargs)``; returns its
-        output Variable(s).  ``args`` are the op's positional inputs."""
+        output Variable(s).  ``args`` are the op's positional inputs.
+        ``out_meta`` (tensors of the outputs' shapes and dtypes) skips the
+        shape inference, for ops that cannot run on meta tensors."""
         arg_spec = [self._entry(a) for a in args]
         kwargs = dict(kwargs)
-        metas = [self._var_by_vid[s[1]] if s[0] == "var" else _to_meta(s[1])
-                 for s in arg_spec]
-        with suspend_capture():
-            out_meta = fn(*metas, **kwargs)
+        if out_meta is None:
+            metas = [self._var_by_vid[s[1]] if s[0] == "var" else _to_meta(s[1])
+                     for s in arg_spec]
+            with suspend_capture():
+                out_meta = fn(*metas, **kwargs)
         flat, tree = pytree.tree_flatten(out_meta)
         if not all(isinstance(o, torch.Tensor) for o in flat):
             raise TypeError(f"op {type_!r}: every output must be a tensor")
         outs = [self.new_var(o.shape, o.dtype) for o in flat]
-
-        def g(*var_vals, _spec=arg_spec, _fn=fn, _kwargs=kwargs):
-            it = iter(var_vals)
-            return _fn(*[next(it) if s[0] == "var" else s[1] for s in _spec], **_kwargs)
-
-        op = Operator(type_, g, arg_spec, kwargs, [o._vid for o in outs], tree)
+        op = Operator(type_, bind_op(fn, arg_spec, kwargs), arg_spec, kwargs,
+                      [o._vid for o in outs], tree, impl=fn)
         self.current_block().ops.append(op)
         self.version += 1
         return pytree.tree_unflatten(outs, tree)
@@ -259,16 +381,24 @@ class Program:
 
     # --------------------------------------------------------------- extras
     def clone(self, for_test=False):
+        """A copy sharing vars and ops; ``for_test`` drops the state writes
+        (the optimizer update's, the RNG advance), so a run of the clone
+        changes no state."""
         p = Program.__new__(Program)
         p.blocks = [Block(p, 0)]
         p.blocks[0].ops = list(self.global_block().ops)
         p.blocks[0].vars = dict(self.global_block().vars)
         p.feed_vars = list(self.feed_vars)
         p.param_vars = dict(self.param_vars)
+        p.state_vars = dict(self.state_vars)
         p.param_inits = dict(self.param_inits)
         p.writes = {} if for_test else dict(self.writes)
+        p.rng_vid, p._rng_cur = self.rng_vid, self._rng_cur
+        p.host_syncs = [] if for_test else list(self.host_syncs)
         p.version = self.version
         p._var_by_vid = dict(self._var_by_vid)
+        for cb in _creation_hooks:
+            cb(p)
         return p
 
     def to_string(self):
@@ -438,11 +568,15 @@ def _record_minmax_dim(func, args, kwargs):
     type_, _, attrs = _minmax_call(func, args, kwargs)
     dim, keep = attrs["axis"], bool(attrs["keepdim"])
     prog = _st.main_program
-    values = prog.record(type_, lambda x, _f=func: _f(x, dim, keep).values, [args[0]], {})
+
+    def call(f, attr=None):
+        leaves, spec = pytree.tree_flatten(((args[0], dim, keep), {}))
+        return TorchCall(f, leaves, spec, [0], attr)
+
+    values = prog.record(type_, call(func, "values"), [args[0]], {})
     prog.global_block().ops[-1].kwargs = dict(attrs)
     arg = torch.argmax if type_ == "max" else torch.argmin
-    return _ValuesIndices(values, lambda: prog.record(
-        "arg" + type_, lambda x, _f=arg: _f(x, dim, keep), [args[0]], {}))
+    return _ValuesIndices(values, lambda: prog.record("arg" + type_, call(arg), [args[0]], {}))
 
 
 # JAX op types whose python-number operands are recorded as const inputs
@@ -575,15 +709,8 @@ def _record_torch_call(func, args, kwargs):
              if isinstance(leaf, torch.Tensor)
              or (i in top and isinstance(leaf, (int, float, bool)))]
 
-    def fn(*inputs, _leaves=leaves, _slots=slots, _spec=spec, _func=func):
-        full = list(_leaves)
-        for i, v in zip(_slots, inputs):
-            full[i] = v
-        a, kw = pytree.tree_unflatten(full, _spec)
-        return _func(*a, **kw)
-
     op_inputs = [leaves[i] for i in slots]
-    out = prog.record(type_, fn, op_inputs, {})
+    out = prog.record(type_, TorchCall(func, leaves, spec, slots), op_inputs, {})
     if attrs is not None:  # metadata for the patterns; fn has them bound
         op = prog.global_block().ops[-1]
         op.kwargs = {**op.kwargs, **attrs(args, kwargs)}

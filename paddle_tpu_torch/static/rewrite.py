@@ -144,34 +144,14 @@ class ProgramGraph:
 
 
 def _structure_ok(program, fetch_vids) -> bool:
-    """Every input, write source and fetch is defined before it is read
-    (the JAX verifier's structural tier), and at most one live producer
-    of each vid reaches the fetch frontier (its live-producer check)."""
-    defined = set(program.param_inits) | {v._vid for v in program.feed_vars}
-    for op in program.global_block().ops:
-        if any(vid not in defined for vid in op.input_vids()):
-            return False
-        defined.update(op.out_vids)
-    if any(src not in defined for src in program.writes.values()):
-        return False
-    if any(vid not in defined for vid in fetch_vids):
-        return False
-    live = set(fetch_vids) | set(program.writes) | set(program.writes.values())
-    kept = []
-    for op in reversed(program.global_block().ops):
-        if any(vid in live for vid in op.out_vids):
-            kept.append(op)
-            live.difference_update(op.out_vids)
-            live.update(op.input_vids())
-    unread: dict[int, bool] = {}
-    for op in reversed(kept):
-        for vid in op.input_vids():
-            unread[vid] = False
-        for vid in op.out_vids:
-            if unread.get(vid, False):
-                return False
-            unread[vid] = True
-    return True
+    """The verifier's structural tier and its live-producer check
+    (``static/verify.py``), uncounted: every input, write source and
+    fetch defined before it is read, and one live producer of each vid."""
+    from .verify import ProgramVerifier
+
+    v = ProgramVerifier(check_registry=False, check_kwargs=False, abstract_eval=False)
+    return not (v._check_structure(program, fetch_vids)
+                or v._check_live_producers(program, fetch_vids))
 
 
 class RewritePattern:
@@ -187,7 +167,9 @@ class RewritePattern:
 class PatternRewritePass:
     """Greedy rewriter: apply patterns to a fixpoint (bounded).  A rewrite
     that leaves the program structurally invalid for the fetch frontier
-    is rolled back and counted in ``refused``."""
+    is rolled back and counted in ``refused``.  Under
+    ``FLAGS_verify_programs`` the whole pass runs between two full
+    verifications."""
 
     name = "pattern_rewrite"
 
@@ -198,6 +180,13 @@ class PatternRewritePass:
         self.refused = 0
 
     def apply(self, program) -> int:
+        from paddle_tpu_torch._core import flags
+
+        from .verify import _COUNTERS, verify_program
+
+        verify = flags.flag("FLAGS_verify_programs")
+        if verify:
+            verify_program(program, self._fetch_vids)
         total = 0
         refused_sites: set = set()
         for _ in range(self._max_iterations):
@@ -219,6 +208,7 @@ class PatternRewritePass:
                             program.version = version_before
                             refused_sites.add((id(pat), id(op)))
                             self.refused += 1
+                            _COUNTERS["rewrites_refused"] += 1
                             graph = ProgramGraph(program, self._fetch_vids)
                             continue
                         changed += 1
@@ -228,6 +218,8 @@ class PatternRewritePass:
             if not changed:
                 break
             refused_sites.clear()
+        if verify:
+            verify_program(program, self._fetch_vids)
         return total
 
 

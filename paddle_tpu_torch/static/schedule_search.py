@@ -398,12 +398,13 @@ def _reduces_last_axis(op, row_shape, keepdim_only):
 
 def _classify(op, graph, row_shape, root=None):
     """-> 'elem' | 'rowwise' | 'reduce' | 'matmul' | None (not fusible)."""
+    from paddle_tpu_torch.framework.op_registry import side_effect_op_types
+
     from . import codegen
-    from .passes import _SIDE_EFFECT
     from .rewrite import _ELEMENTWISE
 
     b = _base_type(op.type)
-    if b in _SIDE_EFFECT:
+    if b in side_effect_op_types():
         return None  # random ops are never crossed
     if not op.out_vids or len(op.out_vids) != 1:
         return None

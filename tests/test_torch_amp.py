@@ -36,6 +36,8 @@ from paddle_tpu_torch.jit import TrainStep
 from paddle_tpu_torch.models import llama as tllama
 from paddle_tpu_torch.nn import Linear
 from paddle_tpu_torch.nn import functional as tF
+from _torch_threads import _one_thread  # noqa: F401
+
 
 LOSS_REL = 1e-4
 GRAD_REL_L2 = 2e-2

@@ -26,6 +26,8 @@ from paddle_tpu_torch import static as tstatic
 from paddle_tpu_torch.convert import load_jax_state_dict
 from paddle_tpu_torch.models import bert as tbert
 from paddle_tpu_torch.nn import TransformerEncoderLayer
+from _torch_threads import _one_thread  # noqa: F401
+
 
 TOL = 1e-4
 
@@ -165,11 +167,21 @@ def test_ernie_names_alias_bert():
 
 
 def test_dropout_in_training_raises_naming_the_roadmap():
-    """Dropout in training is ported (eager BERT trains), but not inside a
-    captured static Program: that is static training (A.5.2)."""
+    """Dropout in training is ported eagerly and inside a captured static
+    Program (static training, A.5.2: each dropout draws from the program's
+    RNG state); BatchNorm in training still refuses a capture, naming
+    A.5.2 (its running statistics are state no model of that slice needs)."""
+    from paddle_tpu_torch.nn import functional as tF
+
     tm = tbert.BertForSequenceClassification(tbert.bert_tiny(), device="cpu")
     ids = torch.ones(1, 4, dtype=torch.int32)
     assert not torch.equal(tm(ids), tm(ids))  # fresh masks each call
+    prog = tstatic.Program()
+    with tstatic.program_guard(prog):
+        tm(tstatic.data("ids", [1, 4], "int32"))
+    assert [op.type for op in prog.global_block().ops].count("dropout") == 10
+    assert prog.rng_vid in prog.writes
     with pytest.raises(NotImplementedError, match="ROADMAP.md A.5.2"), \
             tstatic.program_guard(tstatic.Program()):
-        tm(tstatic.data("ids", [1, 4], "int32"))
+        x = tstatic.data("x", [2, 3, 4, 4], "float32")
+        tF.batch_norm(x, torch.zeros(3), torch.ones(3), training=True)

@@ -40,6 +40,8 @@ from paddle_tpu_torch.static import codegen
 from paddle_tpu_torch.static import schedule_search as tss
 from paddle_tpu_torch.static.passes import apply_pass as tapply
 from paddle_tpu_torch.static.rewrite import ElementwiseChainKernel, ProgramGraph
+from _torch_threads import _one_thread  # noqa: F401
+
 
 F32_TOL = 1e-6
 FUSION_RTOL, FUSION_ATOL = 1e-5, 1e-6

@@ -36,20 +36,13 @@ from paddle_tpu_torch.models import llama as tllama
 from paddle_tpu_torch.nn import Linear
 from paddle_tpu_torch.nn import functional as tF
 from paddle_tpu_torch.serving import GenerationEngine, sampling
+from _torch_threads import _one_thread  # noqa: F401
 
 F32_TOL = 2e-5
 CFG = dict(vocab_size=128, hidden_size=32, intermediate_size=64, num_hidden_layers=2,
            num_attention_heads=4, num_key_value_heads=2, max_position_embeddings=64,
            dtype="float32")
 ENGINE = dict(max_batch=2, block_size=8, num_blocks=16)
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

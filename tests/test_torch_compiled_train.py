@@ -29,18 +29,11 @@ from paddle_tpu_torch.convert import load_jax_state_dict
 from paddle_tpu_torch.jit import TrainStep
 from paddle_tpu_torch.models import llama as tllama
 from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+from _torch_threads import _one_thread  # noqa: F401
 
 TOL = 2e-5
 CFG = dict(vocab_size=128, hidden_size=32, intermediate_size=64, num_hidden_layers=2,
            num_attention_heads=4, num_key_value_heads=2, max_position_embeddings=64)
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _loss_fn(m, ids, labels):

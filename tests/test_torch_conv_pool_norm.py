@@ -21,6 +21,8 @@ from paddle_tpu._core.tensor import Tensor
 from paddle_tpu_torch import nn as tnn
 from paddle_tpu_torch import static as tstatic
 from paddle_tpu_torch.nn import functional as TF
+from _torch_threads import _one_thread  # noqa: F401
+
 
 REL = 2e-5
 

@@ -37,6 +37,8 @@ from paddle_tpu_torch.ops import autotune as at
 from paddle_tpu_torch.ops import decode_chain as dc
 from paddle_tpu_torch.ops import paged_attention as tpa
 from paddle_tpu_torch.static import schedule_search as ss
+from _torch_threads import _one_thread  # noqa: F401
+
 
 F32_TOL = 2e-5
 

@@ -30,6 +30,8 @@ from paddle_tpu.ops import decode_chain as jdc
 from paddle_tpu.ops import paged_attention as jpa
 from paddle_tpu_torch.ops import decode_chain as dc
 from paddle_tpu_torch.ops import paged_attention as tpa
+from _torch_threads import _one_thread  # noqa: F401
+
 
 F32_TOL = 2e-5
 H100_SMS = 132

@@ -35,6 +35,8 @@ from paddle_tpu_torch.models import gpt as tgpt
 from paddle_tpu_torch.nn import functional as tF
 from paddle_tpu_torch.optimizer import AdamW
 from paddle_tpu_torch.serving import sampling
+from _torch_threads import _one_thread  # noqa: F401
+
 
 N = 1 << 20
 SIGMAS = 5.0
@@ -210,11 +212,24 @@ def test_attention_dropout_is_dropout_of_the_output():
 
 
 def test_dropout_in_static_capture_raises_naming_the_roadmap():
+    """Dropout in training records inside a captured Program (static
+    training, A.5.2): one op reading the program's RNG state and writing
+    the advanced state back; eval records none.  Batch norm in training
+    still refuses a capture, naming A.5.2."""
+    prog = tstatic.Program()
+    with tstatic.program_guard(prog):
+        tF.dropout(tstatic.data("x", [4, 8], "float32"), 0.5, training=True)
+    (op,) = prog.global_block().ops
+    assert op.type == "dropout" and op.input_vids()[1] == prog.rng_vid
+    assert prog.writes == {prog.rng_vid: op.out_vids[1]}
+    prog = tstatic.Program()
+    with tstatic.program_guard(prog):  # eval records no dropout
+        tF.dropout(tstatic.data("x", [4, 8], "float32"), 0.5, training=False)
+    assert not prog.global_block().ops
     with pytest.raises(NotImplementedError, match="ROADMAP.md A.5.2"), \
             tstatic.program_guard(tstatic.Program()):
-        tF.dropout(tstatic.data("x", [4, 8], "float32"), 0.5, training=True)
-    with tstatic.program_guard(tstatic.Program()):  # eval records no dropout
-        tF.dropout(tstatic.data("x", [4, 8], "float32"), 0.5, training=False)
+        tF.batch_norm(tstatic.data("x", [4, 8], "float32"), torch.zeros(8), torch.ones(8),
+                      training=True, data_format="NC")
 
 
 def _gpt_step(seed):

@@ -32,17 +32,10 @@ from paddle_tpu_torch.serving import (EngineSnapshot, GenerationEngine, restore_
 
 from test_torch_lora import adapter_sd, models
 from test_torch_prefix_cache import OwnMargins
+from _torch_threads import _one_thread  # noqa: F401
 
 P1, P2 = [5, 9, 17, 33, 2], [7, 11, 3]
 KW = dict(max_batch=2, block_size=8, num_blocks=16, decode_chunk=2)
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

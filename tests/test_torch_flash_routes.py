@@ -28,6 +28,8 @@ import pytest
 import torch
 
 import paddle_tpu_torch.ops as tops
+from _torch_threads import _one_thread  # noqa: F401
+
 
 jfa = importlib.import_module("paddle_tpu.ops.flash_attention")
 fa = importlib.import_module("paddle_tpu_torch.ops.flash_attention")

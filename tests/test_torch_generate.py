@@ -30,6 +30,7 @@ from paddle_tpu.models import llama as jllama
 
 from paddle_tpu_torch.convert import load_jax_state_dict
 from paddle_tpu_torch.models import llama as tllama
+from _torch_threads import _one_thread  # noqa: F401
 
 MARGIN = 1e-3
 FILTER_TOL = 1e-6
@@ -37,14 +38,6 @@ CFG = dict(vocab_size=64, hidden_size=32, intermediate_size=64, num_hidden_layer
            num_attention_heads=4, num_key_value_heads=4, max_position_embeddings=64,
            dtype="float32")
 SAMPLED = dict(do_sample=True, temperature=1.5, top_k=20, top_p=0.9, seed=3)
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(autouse=True)

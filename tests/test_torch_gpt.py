@@ -38,6 +38,8 @@ from paddle_tpu_torch.jit import TrainStep
 from paddle_tpu_torch.models import gpt as tgpt
 from paddle_tpu_torch.models import llama as tllama
 from paddle_tpu_torch.nn.lora import apply_lora
+from _torch_threads import _one_thread  # noqa: F401
+
 
 F32_REL = 2e-5
 GRAD_REL_L2 = 1e-4

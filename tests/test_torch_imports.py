@@ -17,6 +17,8 @@ from pathlib import Path
 
 import pytest
 import torch
+from _torch_threads import _one_thread  # noqa: F401
+
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "paddle_tpu_torch"
@@ -53,7 +55,10 @@ def test_import_loads_no_jax_and_no_paddle_tpu():
             " paddle_tpu_torch.vision.models.resnet, paddle_tpu_torch.nn.layer.container,"
             " paddle_tpu_torch.nn.layer.conv, paddle_tpu_torch.nn.layer.pooling,"
             " paddle_tpu_torch.nn.layer.activation, paddle_tpu_torch.nn.layer.loss,"
-            " paddle_tpu_torch.nn.functional.conv, paddle_tpu_torch.nn.functional.pooling;"
+            " paddle_tpu_torch.nn.functional.conv, paddle_tpu_torch.nn.functional.pooling,"
+            " paddle_tpu_torch.framework.op_registry, paddle_tpu_torch.framework.io_utils,"
+            " paddle_tpu_torch.inference, paddle_tpu_torch.static.verify,"
+            " paddle_tpu_torch.static.autodiff, paddle_tpu_torch.static.io;"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'paddle_tpu'));"
             "print(bad); sys.exit(1 if bad else 0)")

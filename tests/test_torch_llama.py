@@ -20,6 +20,8 @@ from paddle_tpu.models import llama as jllama
 from paddle_tpu_torch.convert import load_jax_state_dict
 from paddle_tpu_torch.models import llama as tllama
 from paddle_tpu_torch.ops import paged_attention as tpa
+from _torch_threads import _one_thread  # noqa: F401
+
 
 TOL = 1e-4
 

@@ -27,6 +27,8 @@ from paddle_tpu_torch.convert import load_jax_adapter, load_jax_state_dict
 from paddle_tpu_torch.jit import TrainStep
 from paddle_tpu_torch.models import llama as tllama
 from paddle_tpu_torch.nn import lora as tlora
+from _torch_threads import _one_thread  # noqa: F401
+
 
 TOL = 2e-5
 CURVE_REL = 1e-3

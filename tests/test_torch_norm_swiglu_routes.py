@@ -25,6 +25,8 @@ from paddle_tpu_torch.models import llama as tllama
 from paddle_tpu_torch.ops import paged_attention as tpa
 from paddle_tpu_torch.ops.fused_norm import rms_geometry
 from paddle_tpu_torch.ops.swiglu import swiglu_grid
+from _torch_threads import _one_thread  # noqa: F401
+
 
 SMS = 132
 

@@ -28,6 +28,8 @@ from paddle_tpu.ops import paged_attention as jpa
 import paddle_tpu_torch.ops as tops
 from paddle_tpu_torch.nn import functional as tF
 from paddle_tpu_torch.ops import paged_attention as tpa
+from _torch_threads import _one_thread  # noqa: F401
+
 
 # the module, not the function of the same name that paddle_tpu.ops exports
 jfa = importlib.import_module("paddle_tpu.ops.flash_attention")

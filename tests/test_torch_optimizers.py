@@ -36,6 +36,8 @@ from paddle_tpu_torch import regularizer as treg
 from paddle_tpu_torch.nn import Linear, ParamAttr
 from paddle_tpu_torch.nn import clip as tclip
 from paddle_tpu_torch.nn import functional as tF
+from _torch_threads import _one_thread  # noqa: F401
+
 
 F32_TOL = 1e-5
 BF16_ULP = 2.0 ** -8

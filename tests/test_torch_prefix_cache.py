@@ -32,19 +32,10 @@ from paddle_tpu_torch.ops import paged_attention as pa
 from paddle_tpu_torch.serving import GenerationEngine, RadixPrefixCache
 
 from test_torch_serving import CFG, MARGIN
+from _torch_threads import _one_thread  # noqa: F401
 
 PAD_LEN = 64
 PREFIX_KEYS = ("prefix_hits", "prefix_misses", "prefix_hit_tokens", "prefix_evictions")
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    """torch on one thread: the engines' ops are tiny, and a thread pool
-    only spins beside the other test workers."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

@@ -36,20 +36,11 @@ from paddle_tpu_torch.static import schedule_search as ss
 
 from test_torch_decode_chain import _arrays
 from test_torch_serving import CFG, MARGIN, _drive
+from _torch_threads import _one_thread  # noqa: F401
 
 CHUNK = 64  # the prefill chain tiles chunks of 64 or 128 query rows
 LONG = [int(t) for t in np.random.default_rng(9).integers(1, 128, 150)]  # 2 chunks and a tail
 PAD_LEN = 192
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    """torch on one thread: the engines' token-by-token ops are tiny, and a
-    thread pool only spins beside the other test workers."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

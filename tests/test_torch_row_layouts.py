@@ -20,6 +20,8 @@ import paddle_tpu.ops as jops
 import paddle_tpu_torch.ops as tops
 from paddle_tpu_torch import static as tstatic
 from paddle_tpu_torch.nn import functional as tF
+from _torch_threads import _one_thread  # noqa: F401
+
 
 F32_TOL = 2e-5
 BF16_TOL = 2e-2

@@ -44,6 +44,8 @@ from paddle_tpu_torch.ops import autotune as tat
 from paddle_tpu_torch.static import schedule_search as tss
 from paddle_tpu_torch.static.passes import apply_pass as tapply
 from paddle_tpu_torch.static.rewrite import PallasFusionPass, ProgramGraph, ScheduleSearchPass
+from _torch_threads import _one_thread  # noqa: F401
+
 
 TOL = 1e-4
 

@@ -11,7 +11,6 @@ two packages' random generators differ.
 
 import numpy as np
 import pytest
-import torch
 
 import paddle_tpu as paddle
 from paddle_tpu.models import llama as jllama
@@ -20,22 +19,13 @@ from paddle_tpu.serving import GenerationEngine as JaxEngine
 from paddle_tpu_torch.convert import load_jax_state_dict
 from paddle_tpu_torch.models import llama as tllama
 from paddle_tpu_torch.serving import GenerationEngine, restore_engine
+from _torch_threads import _one_thread  # noqa: F401
 
 MARGIN = 1e-3
 PAD_LEN = 32
 CFG = dict(vocab_size=128, hidden_size=32, intermediate_size=64, num_hidden_layers=2,
            num_attention_heads=4, num_key_value_heads=2, max_position_embeddings=64,
            dtype="float32")
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    """torch on one thread: the engines' token-by-token ops are tiny, and a
-    thread pool only spins beside the other test workers."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

@@ -35,6 +35,7 @@ from paddle_tpu_torch.static import schedule_search as ss
 
 from test_torch_lora import adapter_sd, models
 from test_torch_prefix_cache import OwnMargins, stats_delta
+from _torch_threads import _one_thread  # noqa: F401
 
 PROMPTS = {"a0": [5, 9, 17, 33, 2], "a1": [7, 11, 3, 20], "a2": [15, 4, 40, 8, 22, 1],
            "base": [5, 9, 17, 33, 2]}
@@ -42,14 +43,6 @@ REQ_ADAPTERS = {"a0": "t0", "a1": "t1", "a2": "t2", "base": None}
 SYS = list(range(1, 25))  # three full blocks at block_size 8
 LORA_KEYS = ("swaps", "evictions", "gather_dispatches", "cache_epochs", "ship_ns_drops")
 PREFIX_KEYS = ("prefix_hits", "prefix_misses", "prefix_hit_tokens")
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

@@ -23,6 +23,8 @@ import torch
 
 from paddle_tpu_torch.ops import decode_chain as dc
 from paddle_tpu_torch.ops import matmul_epilogue as me
+from _torch_threads import _one_thread  # noqa: F401
+
 
 F32_TOL = 2e-5
 BASE = 0x7F0000000000  # a 16-byte aligned address

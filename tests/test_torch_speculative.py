@@ -35,20 +35,13 @@ from paddle_tpu_torch.serving import GenerationEngine
 
 from test_torch_prefix_cache import assert_margins, drive, play, prompt, stats_delta
 from test_torch_serving import CFG, MARGIN
+from _torch_threads import _one_thread  # noqa: F401
 
 K = 3
 COUNTER_KEYS = ("dispatches", "tokens", "macro_steps", "prefix_hits", "prefix_misses",
                 "prefix_hit_tokens")
 DRAFT_CFG = dict(CFG, hidden_size=16, intermediate_size=32, num_hidden_layers=1,
                  num_attention_heads=2, num_key_value_heads=2, max_position_embeddings=128)
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _port_of(jm, cfg):

@@ -35,6 +35,8 @@ from paddle_tpu_torch import static as tstatic
 from paddle_tpu_torch.nn import Linear
 from paddle_tpu_torch.nn import functional as tF
 from paddle_tpu_torch.static.rewrite import PallasFusionPass
+from _torch_threads import _one_thread  # noqa: F401
+
 
 F32_TOL = 2e-5
 BF16_TOL = 2e-2
@@ -440,12 +442,17 @@ def test_executor_rules():
         exe.run(prog, feed={"x": torch.empty(2, 3, device="meta")}, fetch_list=[y])
     with pytest.raises(KeyError, match="missing feed"):
         exe.run(prog, feed={}, fetch_list=[y])
+    # verify mode (static/verify.py): the program is verified before it runs
+    from paddle_tpu_torch.static.verify import verify_stats
+
     set_flags({"FLAGS_verify_programs": True})
     try:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md A.5"):
-            exe.run(prog, feed={"x": xv}, fetch_list=[y])
+        before = verify_stats()["programs_verified"]
+        (verified,) = tstatic.Executor("cpu").run(prog, feed={"x": xv}, fetch_list=[y])
     finally:
         set_flags({"FLAGS_verify_programs": False})
+    assert verify_stats()["programs_verified"] > before
+    np.testing.assert_array_equal(verified, as_np)
     # the schedule-search stage runs on the Executor's device (here the
     # program has no subgraph to search, so nothing changes)
     set_flags({"FLAGS_schedule_search": True})

@@ -37,6 +37,8 @@ from paddle_tpu_torch.jit import TrainStep
 from paddle_tpu_torch.models import llama as tllama
 from paddle_tpu_torch.nn import ClipGradByGlobalNorm, clip_grad_norm_
 from paddle_tpu_torch.nn import functional as tF
+from _torch_threads import _one_thread  # noqa: F401
+
 
 F32_TOL = 1e-6
 BF16_ULP = 2.0 ** -8

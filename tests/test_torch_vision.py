@@ -42,6 +42,8 @@ from paddle_tpu_torch import optimizer as topt
 from paddle_tpu_torch.convert import load_jax_state_dict
 from paddle_tpu_torch.jit import TrainStep
 from paddle_tpu_torch.vision import models as tmodels
+from _torch_threads import _one_thread  # noqa: F401
+
 
 F32_REL = 2e-5
 O1_REL = 2e-2

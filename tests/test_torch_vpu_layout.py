@@ -30,6 +30,8 @@ from hypothesis import strategies as st
 import codegen_host
 from paddle_tpu_torch import static
 from paddle_tpu_torch.static.passes import apply_pass
+from _torch_threads import _one_thread  # noqa: F401
+
 
 VEC, ELEM = 0, 1  # vpu_chain.cuh's PtVpuPath
 FUSION_RTOL, FUSION_ATOL = 1e-5, 1e-6

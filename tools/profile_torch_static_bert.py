@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the port's static BERT time goes on the card.
 
-    python3 tools/profile_torch_static_bert.py
+    python3 tools/profile_torch_static_bert.py [--train]
 
 Builds the ``chip_smoke.py`` phase-5 configuration (BERT-base, bf16,
 batch 32 x 128 with ragged padding), captures it twice as a static
@@ -17,6 +17,12 @@ warm-up runs, and two runs under ``torch.profiler``: the time the card
 was busy (kernel, copy and memset events only, overlaps counted once),
 its share of the unprofiled wall, the device events a run and the
 kernels with the most device time.
+
+``--train`` profiles the training cells instead (``chip_smoke.py``
+phases 5b and 5c): the static train step (bf16, AdamW, dropout 0.1,
+``AdamW.minimize`` in the Program) replayed and through
+``Executor._run_eager``, and ``jit.TrainStep`` on the f32 model under
+O1, recorded and eager; the same columns as above.
 
 Needs one CUDA card.
 """
@@ -62,12 +68,58 @@ def profile_runs(name, fn, n=2, top=12):
             "top_kernels": serving_profile.top_kernels(events, top, per=n)}
 
 
+def train_rows(chip_smoke):
+    """The training cells' rows (``--train``)."""
+    from paddle_tpu_torch import amp, static
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import BertConfig, BertForSequenceClassification
+    from paddle_tpu_torch.optimizer import AdamW
+
+    cfg = BertConfig()
+    g = torch.Generator(device="cuda").manual_seed(22)
+    (ids,), (labels,) = chip_smoke.bert_batches(cfg, 1, g), chip_smoke.bert_labels(1, g)
+    model = BertForSequenceClassification(
+        cfg, num_classes=2, device="cuda",
+        generator=torch.Generator(device="cuda").manual_seed(21)).to(torch.bfloat16)
+    main_prog, loss = chip_smoke._bert_train_program(model, chip_smoke.BERT_TRAIN_LR)
+    exe = static.Executor()
+    feed = {"ids": ids, "labels": labels}
+    with static.scope_guard(static.Scope()):
+        print(json.dumps(profile_runs("static train step (bf16, AdamW.minimize), graphed",
+                                      lambda: exe.run(main_prog, feed=feed, fetch_list=[loss],
+                                                      return_numpy=False))), flush=True)
+        print(json.dumps(profile_runs("static train step (bf16, AdamW.minimize), eager",
+                                      lambda: exe._run_eager(main_prog, feed=feed,
+                                                             fetch_list=[loss]))), flush=True)
+    del exe, main_prog, model
+    torch.cuda.empty_cache()
+    model = BertForSequenceClassification(
+        cfg, num_classes=2, device="cuda",
+        generator=torch.Generator(device="cuda").manual_seed(23))
+
+    def loss_fn(m, i, l):
+        with amp.auto_cast(True, dtype="bfloat16"):
+            return m(i, labels=l)[0]
+
+    step = TrainStep(model, AdamW(chip_smoke.BERT_TRAIN_LR, parameters=model.parameters()),
+                     loss_fn)
+    print(json.dumps(profile_runs("TrainStep f32 under O1, recorded",
+                                  lambda: step(ids, labels))), flush=True)
+    print(json.dumps(profile_runs("TrainStep f32 under O1, eager",
+                                  lambda: step._eager_step(ids, labels))), flush=True)
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("profile_torch_static_bert: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
     import chip_smoke
+
+    if "--train" in sys.argv[1:]:
+        print(serving_profile.card_line(), flush=True)
+        return train_rows(chip_smoke)
     from paddle_tpu_torch import set_flags, static
     from paddle_tpu_torch.models import BertConfig, BertForSequenceClassification
 
